@@ -1,0 +1,37 @@
+"""baryonification_tpu_torch: the PyTorch/CUDA port of baryonification_tpu.
+
+The same models and runners as the JAX package, module for module and
+name for name, written in PyTorch for one NVIDIA GPU (Hopper, H100). The
+JAX package stays the reference; every ported part is checked against it
+on the same inputs (``tests/test_torch_*.py``).
+
+Ported so far: the shell-baryonify main path with its ``scatter`` method,
+which is Schneider19 profiles -> ``Baryonification2D`` displacement table
+-> ``BaryonifyShell.process``. The sorted scatter-add of its stage B is a
+hand-written CUDA kernel (``csrc/sorted_scatter_add.cu``, built at first
+use).
+
+Devices and precision: every entry that makes tensors takes an explicit
+``device``; there is no global device state. Model building (cosmology
+tables, profile quadratures, displacement tables) runs in float64 on that
+device; the runner's per-pixel hot path runs in float32 on CUDA and in
+float64 on the CPU (``precision="auto"``).
+"""
+
+from . import constants
+from . import ops
+from . import cosmology
+from .cosmology import Cosmology, MassDef
+from . import utils
+from . import io
+from .io import HaloLightConeCatalog, LightconeShell
+from . import profiles
+from .profiles import (SchneiderProfiles, DarkMatter, TwoHalo, Stars, Gas,
+                       CollisionlessMatter, DarkMatterOnly, DarkMatterBaryon)
+from .displacement import (BaryonificationClass, Baryonification2D,
+                           Baryonification3D)
+from . import runners
+from .runners import DefaultRunner, BaryonifyShell
+from .default_params import DEFAULT_PARAMS, default_params
+
+__version__ = "0.1.0"

@@ -1,0 +1,60 @@
+"""Build-at-first-use of the package's hand-written CUDA kernels.
+
+Each kernel source under ``csrc/`` has a plain C interface. It is
+compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``_build/`` (git-ignored) inside the package, named by a hash of the
+source, and loaded with ``ctypes``. Nothing is built when a module is
+imported: the first launch builds, later calls reuse the library.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["load_library", "nvcc_path"]
+
+_PKG = Path(__file__).resolve().parent
+_CSRC = _PKG / "csrc"
+_BUILD = _PKG / "_build"
+_ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_LIBS = {}
+
+
+def nvcc_path():
+    """The CUDA compiler: ``nvcc`` on PATH, else under ``$CUDA_HOME`` (or
+    /usr/local/cuda)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def load_library(name):
+    """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
+    if name in _LIBS:
+        return _LIBS[name]
+    src = _CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(_ARCH_FLAGS).encode()).hexdigest()[:16]
+    _BUILD.mkdir(exist_ok=True)
+    lib_path = _BUILD / f"lib{name}_{digest}.so"
+    if not lib_path.exists():
+        tmp = _BUILD / f".lib{name}_{digest}.{os.getpid()}.so"
+        cmd = [nvcc_path(), *_ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-o", str(tmp), str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {src.name} "
+                               f"(exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    _LIBS[name] = lib
+    return lib

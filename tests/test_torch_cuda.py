@@ -1,0 +1,145 @@
+"""Tests of the port that need the card (``cuda`` marker).
+
+This file imports no JAX (the GPU machine has none), so it runs there on
+its own:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Without a GPU every test here skips. The scatter cases are those of
+tests/test_ops.py::TestPallasScatter; test_torch_scatter.py holds the
+plain version against the Pallas kernel on the same cases.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from baryonification_tpu_torch.ops import scatter_cuda as sc
+
+torch.set_num_threads(1)
+
+CASES = ["single_channel_oor", "multi_channel", "ladder", "heavy_duplicates",
+         "nonzero_accumulator", "all_out_of_range"]
+
+
+def scatter_case(name):
+    """(npix, idx sorted int32, value planes f32, base accumulators f32,
+    tolerance, block_rows, tile_rows) for a test_ops.py case."""
+    if name in ("single_channel_oor", "multi_channel", "ladder"):
+        npix, n_rows, n_chan, seed = {
+            "single_channel_oor": (300, 1000, 1, 0),
+            "multi_channel": (513, 2048, 3, 1),
+            "ladder": (1100, 3000, 2, 4)}[name]
+        rng = np.random.default_rng(seed)
+        idx = np.sort(rng.integers(0, npix + max(1, int(npix * 0.5)),
+                                   n_rows)).astype(np.int32)
+        vals = [rng.normal(size=idx.size).astype(np.float32)
+                for _ in range(n_chan)]
+        base = [np.zeros(npix, np.float32) for _ in range(n_chan)]
+        return npix, idx, vals, base, 1e-6, 256, 128
+    if name == "heavy_duplicates":
+        rng = np.random.default_rng(2)
+        idx = np.sort(rng.integers(0, 8, 4000)).astype(np.int32)
+        vals = [rng.normal(size=idx.size).astype(np.float32)]
+        return 140, idx, vals, [np.zeros(140, np.float32)], 1e-5, 128, 128
+    if name == "nonzero_accumulator":
+        rng = np.random.default_rng(3)
+        base = [rng.normal(size=260).astype(np.float32)]
+        idx = np.sort(rng.integers(0, 260, 700)).astype(np.int32)
+        vals = [rng.normal(size=idx.size).astype(np.float32)]
+        return 260, idx, vals, base, 1e-5, 128, 128
+    if name == "all_out_of_range":
+        idx = np.full(512, 130 + 7, np.int32)
+        return (130, idx, [np.ones(512, np.float32)],
+                [np.ones(130, np.float32)], 0.0, 128, 128)
+    raise KeyError(name)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_pix", [128, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", CASES)
+def test_kernel_matches_plain_version(name, dtype, block_pix, cuda_device):
+    """Kernel against the plain version on the same inputs; float32 to
+    the case's tolerance (summation order), float64 to 1e-12."""
+    npix, idx, vals, base, tol, _, _ = scatter_case(name)
+    ref = tuple(torch.tensor(b, dtype=dtype) for b in base)
+    sc.scatter_add_accum_reference(
+        ref, torch.tensor(idx), tuple(torch.tensor(v, dtype=dtype)
+                                      for v in vals))
+    accs = tuple(torch.tensor(b, dtype=dtype, device=cuda_device)
+                 for b in base)
+    before = sc.LAUNCHES["sorted_scatter_add"]
+    sc.sorted_scatter_add(accs, torch.tensor(idx, device=cuda_device),
+                          tuple(torch.tensor(v, dtype=dtype,
+                                             device=cuda_device)
+                                for v in vals), block_pix=block_pix)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES["sorted_scatter_add"] == before + 1
+    tol = tol if dtype == torch.float32 else 1e-12
+    for g, w in zip(accs, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(),
+                                   rtol=max(tol, 1e-12), atol=tol)
+
+
+@pytest.mark.cuda
+def test_unsorted_wrapper_on_card(cuda_device):
+    """Unsorted int64 rows, some far beyond 2^31 (dropped, not wrapped)."""
+    rng = np.random.default_rng(5)
+    npix = 5000
+    idx = rng.integers(0, npix + 900, 60_000)
+    idx[::97] += 2**32
+    vals = [rng.normal(size=idx.size) for _ in range(3)]
+    ref = tuple(torch.zeros(npix, dtype=torch.float64) for _ in range(3))
+    sc.scatter_add_accum(ref, torch.tensor(idx),
+                         tuple(torch.tensor(v) for v in vals))
+    accs = tuple(torch.zeros(npix, dtype=torch.float64, device=cuda_device)
+                 for _ in range(3))
+    out = sc.scatter_add_accum(accs, torch.tensor(idx, device=cuda_device),
+                               tuple(torch.tensor(v, device=cuda_device)
+                                     for v in vals))
+    assert all(o is a for o, a in zip(out, accs))
+    for g, w in zip(accs, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_shell_on_card_matches_cpu(cuda_device):
+    """process() on the card (float64, then float32) against the port's
+    CPU float64 run on one table. float64 agrees to rounding; float32
+    geometry and offsets sit at ~1e-5 rms/mean of float64 (measured on
+    the CPU at NSIDE 64, 2000 halos)."""
+    import baryonification_tpu_torch as T
+    cd = dict(Omega_m=0.3, Omega_b=0.05, h=0.7, sigma8=0.8, n_s=0.96,
+              w0=-1.0)
+    par = T.default_params()
+    model = T.Baryonification2D(T.DarkMatterOnly(**par),
+                                T.DarkMatterBaryon(**par),
+                                T.Cosmology.from_dict(cd, device="cpu"))
+    model.setup_interpolator(z_min=0.1, z_max=0.5, N_samples_z=3,
+                             M_min=1e13, M_max=1e15, N_samples_Mass=4,
+                             R_min=1e-3, R_max=50, N_samples_R=32)
+    rng = np.random.default_rng(0)
+    cat = T.HaloLightConeCatalog(ra=rng.uniform(0, 360, 60),
+                                 dec=rng.uniform(-70, 70, 60),
+                                 M=10 ** rng.uniform(13.3, 14.8, 60),
+                                 z=rng.uniform(0.15, 0.45, 60), cosmo=cd)
+    shell = T.LightconeShell(map=rng.uniform(0.5, 1.5, 12 * 32 ** 2),
+                             cosmo=cd)
+    kw = dict(epsilon_max=20, model=model, verbose=False)
+    want = T.BaryonifyShell(cat, shell, device="cpu", **kw).process()
+    for prec, bar in (("float64", 1e-10), ("float32", 5e-5)):
+        before = sc.LAUNCHES["sorted_scatter_add"]
+        got = T.BaryonifyShell(cat, shell, device=cuda_device,
+                               precision=prec, **kw).process()
+        assert sc.LAUNCHES["sorted_scatter_add"] > before
+        rms = np.sqrt(np.mean((got - want) ** 2)) / shell.map.mean()
+        assert rms < bar, (prec, rms)
