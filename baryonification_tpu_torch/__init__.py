@@ -5,14 +5,21 @@ name for name, written in PyTorch for one NVIDIA GPU (Hopper, H100). The
 JAX package stays the reference; every ported part is checked against it
 on the same inputs (``tests/test_torch_*.py``).
 
-Ported so far: the shell-baryonify main path with its ``scatter`` method,
-which is Schneider19 profiles -> ``Baryonification2D`` displacement table
--> ``BaryonifyShell.process``. The sorted scatter-add of its stage B is a
-hand-written CUDA kernel (``csrc/sorted_scatter_add.cu``, built at first
+Ported so far:
+- the shell-baryonify main path with its ``scatter`` method: Schneider19
+  profiles -> ``Baryonification2D`` displacement table ->
+  ``BaryonifyShell.process``;
+- the C_ell path: ``TabulatedProfile`` -> ``PaintProfilesShell.process``
+  (``scatter`` method) -> ``ops.spectra`` (``anafast`` and the rest of
+  the SHT).
+The sorted scatter-add of both passes and the two Legendre recurrences
+of the SHT are hand-written CUDA kernels (``csrc/*.cu``, built at first
 use).
 
-Devices and precision: every entry that makes tensors takes an explicit
-``device``; there is no global device state. Model building (cosmology
+Devices and precision: every entry that makes tensors takes a
+``device``, the card by default (``"cuda"``; without a GPU a defaulted
+call raises, so pass ``device="cpu"``); there is no global device
+state. Model building (cosmology
 tables, profile quadratures, displacement tables) runs in float64 on that
 device; the runner's per-pixel hot path runs in float32 on CUDA and in
 float64 on the CPU (``precision="auto"``).
@@ -31,7 +38,8 @@ from .profiles import (SchneiderProfiles, DarkMatter, TwoHalo, Stars, Gas,
 from .displacement import (BaryonificationClass, Baryonification2D,
                            Baryonification3D)
 from . import runners
-from .runners import DefaultRunner, BaryonifyShell
+from .runners import DefaultRunner, BaryonifyShell, PaintProfilesShell
+from .tabulate import TabulatedProfile
 from .default_params import DEFAULT_PARAMS, default_params
 
 __version__ = "0.1.0"

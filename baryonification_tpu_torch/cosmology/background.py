@@ -19,7 +19,7 @@ import torch
 
 from .. import constants as const
 from ..ops.fftlog import fftlog_transform
-from ..utils import geomspace, interp
+from ..utils import geomspace, interp, resolve_device
 from .power import eh98_transfer, sigma_tophat
 
 __all__ = ["Cosmology"]
@@ -69,12 +69,14 @@ class Cosmology:
     """Flat w0-CDM cosmology (the cosmo-dict contract of the io objects:
     Omega_m, Omega_b, h, sigma8, n_s, w0).
 
-    ``device`` is where the tables live and where every method computes;
-    ``dtype`` is the table dtype (float64: the tables need it)."""
+    ``device`` is where the tables live and where every method computes
+    (the card unless the caller asks for the CPU; without a GPU the
+    default raises); ``dtype`` is the table dtype (float64: the tables
+    need it)."""
 
     def __init__(self, Omega_m=0.3, Omega_b=0.05, h=0.7, sigma8=0.8,
                  n_s=0.96, w0=-1.0, T_CMB=2.725, Neff=3.044, *,
-                 device="cpu", dtype=torch.float64,
+                 device="cuda", dtype=torch.float64,
                  n_a=2048, n_k=2048, n_m=512):
         self.Omega_m = float(Omega_m)
         self.Omega_b = float(Omega_b)
@@ -84,13 +86,13 @@ class Cosmology:
         self.w0 = float(w0)
         self.T_CMB = float(T_CMB)
         self.Neff = float(Neff)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         self._n_a, self._n_k, self._n_m = int(n_a), int(n_k), int(n_m)
         self._tables = self._build_tables()
 
     @classmethod
-    def from_dict(cls, d, *, device="cpu", dtype=torch.float64):
+    def from_dict(cls, d, *, device="cuda", dtype=torch.float64):
         keys = ("Omega_m", "Omega_b", "h", "sigma8", "n_s", "w0")
         return cls(**{k: float(d[k]) for k in keys if k in d},
                    device=device, dtype=dtype)

@@ -1,3 +1,3 @@
-from .shell import DefaultRunner, BaryonifyShell
+from .shell import DefaultRunner, BaryonifyShell, PaintProfilesShell
 
-__all__ = ["DefaultRunner", "BaryonifyShell"]
+__all__ = ["DefaultRunner", "BaryonifyShell", "PaintProfilesShell"]

@@ -1,4 +1,4 @@
-"""Full-sky HEALPix shell baryonification in PyTorch.
+"""Full-sky HEALPix shell baryonification and painting in PyTorch.
 
 The port of ``baryonification_tpu.runners.shell`` for the ``scatter``
 method (the reference semantics). ``BaryonifyShell.process`` runs three
@@ -13,6 +13,9 @@ stages on the runner's device:
   (C) one regrid: 4-neighbour bilinear weights for every displaced pixel,
       a scatter-add of the original mass, then the mass-conservation
       check.
+
+``PaintProfilesShell.process`` shares stage (A) and ends each chunk in a
+one-plane sorted scatter-add of the tabulated projected profile.
 
 Precision: ``precision="auto"`` is float64 on the CPU and float32 on
 CUDA, as in the JAX package. The per-halo preprocessing runs in float64
@@ -29,9 +32,10 @@ from ..cosmology import Cosmology, MassDef
 from ..ops import healpix as hpx
 from ..ops.interp import blend_table_radial, radial_readout
 from ..ops.scatter_cuda import scatter_add_accum
+from ..utils import resolve_device
 from ._method import resolve_method
 
-__all__ = ['DefaultRunner', 'BaryonifyShell']
+__all__ = ['DefaultRunner', 'BaryonifyShell', 'PaintProfilesShell']
 
 
 def _bucket_edges(radii, n_buckets):
@@ -102,15 +106,17 @@ def _pad_to(arrs, n, chunk):
 class DefaultRunner:
     """Shared configuration for the shell runners.
 
-    ``device`` is where the runner computes; ``precision`` its hot-path
-    dtype ("auto": float64 on the CPU, float32 on CUDA). ``method``: see
+    ``device`` is where the runner computes: the card unless the caller
+    asks for the CPU (without a GPU, ``process()`` on the default
+    raises). ``precision`` is its hot-path dtype ("auto": float64 on the
+    CPU, float32 on CUDA). ``method``: see
     :func:`runners._method.resolve_method` ("auto" is "scatter").
     """
 
     def __init__(self, HaloLightConeCatalog, LightconeShell, epsilon_max,
                  model, use_ellipticity=False, mass_def=None, verbose=True,
                  halo_chunk=256, n_buckets=8, precision="auto",
-                 method="auto", *, device="cpu"):
+                 method="auto", *, device="cuda"):
         self.HaloLightConeCatalog = HaloLightConeCatalog
         self.LightconeShell = LightconeShell
         self.cosmo = HaloLightConeCatalog.cosmology
@@ -174,6 +180,29 @@ class DefaultRunner:
         if getattr(self, '_cache_cat', None) is not self.HaloLightConeCatalog:
             self.__dict__.pop('_halo_arrays_cache', None)
             self._cache_cat = self.HaloLightConeCatalog
+
+    def _halo_chunks(self, arrs, nside, label):
+        """Walk the halos by angular-size bucket and fixed-size chunk.
+
+        Yields ``(n_rings, n_phi, chunk)``: the bucket's static window
+        dims and a dict of (H,) tensors in the hot-path dtype, the last
+        chunk of a bucket padded with inert halos (see :func:`_pad_to`)."""
+        dev, dt = arrs['theta'].device, self.dtype
+        radius = arrs['radius'].cpu().numpy()
+        buckets = _bucket_edges(radius, self.n_buckets)
+        for bi, idx in enumerate(buckets):
+            sub = {k: v[torch.as_tensor(idx, device=dev)]
+                   for k, v in arrs.items()}
+            n_rings, n_phi = _window_dims(nside, float(radius[idx].max()))
+            if self.verbose:
+                print(f"{label}: bucket {bi + 1}/{len(buckets)} "
+                      f"({len(idx)} halos, window {n_rings}x{n_phi})")
+            chunk = _chunk_for(n_rings, n_phi, self.halo_chunk)
+            sub = {k: v.to(dt)
+                   for k, v in _pad_to(sub, len(idx), chunk).items()}
+            for c0 in range(0, sub['theta'].shape[0], chunk):
+                yield n_rings, n_phi, {k: v[c0:c0 + chunk]
+                                       for k, v in sub.items()}
 
     # ----- shared halo preprocessing -----
     def _halo_arrays(self, cosmo):
@@ -289,6 +318,44 @@ def _accumulate_shell_offsets(nside, n_rings, n_phi, n_props, use_rdelta,
     return scatter_add_accum(offsets, idx, vals)
 
 
+def _accumulate_shell_paint(nside, n_rings, n_phi, tables, vx, vy, vz,
+                            grids, table, eps_max, theta, phi, M, a, R_com,
+                            D, new_map):
+    """Add the tabulated projected profile of one chunk of H halos to the
+    single ``new_map`` plane (in place).
+
+    Per halo: query the window pixels, compute the physical separation,
+    read the log projected profile at the comoving separation and add
+    its exponential. ``table`` holds log profiles, so zero profile nodes
+    are -inf; readouts that are not finite (those nodes, or a halo
+    outside the table) paint nothing, as in the JAX package.
+    """
+    H = theta.shape[0]
+    npx = hpx.npix(nside)
+    radius = eps_max * (R_com * a) / D
+    pix, valid = hpx.disc_window_mask_tab(tables, theta, phi, radius,
+                                          n_rings, n_phi)
+    pix = pix.reshape(H, -1)
+    valid = valid.reshape(H, -1)
+    st0 = torch.sin(theta)
+    D_h, a_h = D[:, None], a[:, None]
+    dx = (vx[pix] - (st0 * torch.cos(phi))[:, None]) * D_h
+    dy = (vy[pix] - (st0 * torch.sin(phi))[:, None]) * D_h
+    dz = (vz[pix] - torch.cos(theta)[:, None]) * D_h
+    r_sep = torch.sqrt(dx * dx + dy * dy + dz * dz)
+
+    r_com = torch.clamp(r_sep / a_h, min=1e-30)
+    prof_h = blend_table_radial(grids, table,             # log-profile
+                                [torch.log(1.0 / a), torch.log(M)])
+    paint = torch.exp(radial_readout(prof_h, grids[2], torch.log(r_com)))
+    paint = torch.where(torch.isfinite(paint) & valid, paint, 0.0)
+    # invalid window rows go to the sentinel Npix (see
+    # _accumulate_shell_offsets)
+    idx = torch.where(valid, pix, npx).reshape(-1).to(torch.int32)
+    return scatter_add_accum((new_map,), idx,
+                             (paint.reshape(-1).to(new_map.dtype),))
+
+
 def _regrid_shell(nside, vx, vy, vz, orig_map, offsets):
     """Stage C: displace every pixel's unit vector and redeposit the
     original mass with bilinear weights. ``offsets`` is the (ox, oy, oz)
@@ -316,7 +383,7 @@ class BaryonifyShell(DefaultRunner):
     The input map must be a MASS map (empty pixels = 0)."""
 
     def process(self):
-        dev, dt = self.device, self.dtype
+        dev, dt = resolve_device(self.device), self.dtype
         cosmo = Cosmology.from_dict(self.cosmo, device=dev)
         model = self.model
         if not hasattr(model, '_table'):
@@ -343,27 +410,13 @@ class BaryonifyShell(DefaultRunner):
         t0 = self._stage_t0()
         offsets = tuple(torch.zeros(hpx.npix(nside), dtype=dt, device=dev)
                         for _ in range(3))
-        radius = arrs['radius'].cpu().numpy()
-        buckets = _bucket_edges(radius, self.n_buckets)
-        for bi, idx in enumerate(buckets):
-            sub = {k: v[torch.as_tensor(idx, device=dev)]
-                   for k, v in arrs.items()}
-            n_rings, n_phi = _window_dims(nside, float(radius[idx].max()))
-            if self.verbose:
-                print(f"Baryonifying matter: bucket {bi + 1}/"
-                      f"{len(buckets)} ({len(idx)} halos, window "
-                      f"{n_rings}x{n_phi})")
-            chunk = _chunk_for(n_rings, n_phi, self.halo_chunk)
-            sub = {k: v.to(dt)
-                   for k, v in _pad_to(sub, len(idx), chunk).items()}
-            for c0 in range(0, sub['theta'].shape[0], chunk):
-                s = slice(c0, c0 + chunk)
-                _accumulate_shell_offsets(
-                    nside, n_rings, n_phi, n_props, use_rdelta, tables,
-                    vx, vy, vz, grids, table, float(self.epsilon_max),
-                    sub['theta'][s], sub['phi'][s], sub['M'][s],
-                    sub['a'][s], sub['R_com'][s], sub['D'][s],
-                    sub['props'][s], offsets)
+        for n_rings, n_phi, c in self._halo_chunks(
+                arrs, nside, "Baryonifying matter"):
+            _accumulate_shell_offsets(
+                nside, n_rings, n_phi, n_props, use_rdelta, tables,
+                vx, vy, vz, grids, table, float(self.epsilon_max),
+                c['theta'], c['phi'], c['M'], c['a'], c['R_com'], c['D'],
+                c['props'], offsets)
         self._stage("pass", t0, offsets[0])
 
         t0 = self._stage_t0()
@@ -380,3 +433,56 @@ class BaryonifyShell(DefaultRunner):
             "ERROR in pixel regridding, sum(new_map) [%0.14e] != "
             "sum(oldmap) [%0.14e]" % (new_sum, old_sum))
         return new_map
+
+
+class PaintProfilesShell(DefaultRunner):
+    """Paint a tabulated projected profile onto a shell.
+
+    ``model`` is a :class:`~baryonification_tpu_torch.tabulate.
+    TabulatedProfile` with ``setup_interpolator()`` run. ``process()``
+    returns the painted-only map (float64 numpy, RING order); the
+    ``LightconeShell`` supplies NSIDE and the cosmology only."""
+
+    def process(self):
+        dev, dt = resolve_device(self.device), self.dtype
+        cosmo = Cosmology.from_dict(self.cosmo, device=dev)
+        model = self.model
+        if model is None:
+            raise ValueError("You must provide a model")
+        p_keys = getattr(model, 'p_keys', []) or []
+        if p_keys:
+            raise NotImplementedError(
+                f"painting with the halo properties {p_keys} needs "
+                f"ParamTabulatedProfile, which is not ported to PyTorch "
+                f"yet (ROADMAP item A8)")
+        if not hasattr(model, '_ln2D'):
+            raise NameError(
+                "PaintProfilesShell requires a TabulatedProfile with "
+                "setup_interpolator() run: the projected profile is read "
+                "from its table.")
+
+        nside = self.LightconeShell.NSIDE
+        if self.HaloLightConeCatalog.cat.size == 0:
+            # an empty catalog paints nothing
+            return np.zeros(hpx.npix(nside), dtype=np.float64)
+
+        t0 = self._stage_t0()
+        arrs = self._halo_arrays(cosmo)
+        self._stage("halo_arrays", t0)
+        table = model._ln2D.to(device=dev, dtype=dt)
+        grids = tuple(g.to(device=dev, dtype=dt) for g in model._grids)
+        tables, (vx, vy, vz) = self._ring_tables(nside, dt)
+
+        t0 = self._stage_t0()
+        new_map = torch.zeros(hpx.npix(nside), dtype=dt, device=dev)
+        for n_rings, n_phi, c in self._halo_chunks(arrs, nside,
+                                                   "Painting Profile"):
+            _accumulate_shell_paint(
+                nside, n_rings, n_phi, tables, vx, vy, vz, grids, table,
+                float(self.epsilon_max), c['theta'], c['phi'], c['M'],
+                c['a'], c['R_com'], c['D'], new_map)
+        self._stage("pass", t0, new_map)
+        t0 = self._stage_t0()
+        out = new_map.to(torch.float64).cpu().numpy()
+        self._stage("fetch_map", t0)
+        return out

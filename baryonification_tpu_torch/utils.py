@@ -3,14 +3,31 @@
 ``safe_log`` is the counterpart of ``baryonification_tpu.utils.safe_log``;
 the rest are the numpy/jnp conveniences PyTorch lacks (``interp``,
 ``geomspace``), written to follow ``jnp``'s definitions so the two
-packages agree to rounding.
+packages agree to rounding, and ``resolve_device``, which every entry
+point that makes tensors uses for its ``device`` argument.
 """
 
 import math
 
 import torch
 
-__all__ = ["safe_log", "interp", "interp_rows", "geomspace"]
+__all__ = ["safe_log", "interp", "interp_rows", "geomspace",
+           "resolve_device"]
+
+
+def resolve_device(device):
+    """``torch.device(device)``, refusing a CUDA device when none exists.
+
+    The port's entry points run on the card unless the caller asks for
+    the CPU, so a call that left ``device`` at its default on a machine
+    without a GPU stops here instead of carrying on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} but no CUDA device is available: the "
+            f"port runs on the GPU by default; pass device=\"cpu\" to run "
+            f"on the CPU")
+    return dev
 
 
 def safe_log(m):

@@ -7,14 +7,18 @@ its own:
 
 Without a GPU every test here skips. The scatter cases are those of
 tests/test_ops.py::TestPallasScatter; test_torch_scatter.py holds the
-plain version against the Pallas kernel on the same cases.
+plain version against the Pallas kernel on the same cases. The Legendre
+cases hold each SHT kernel against its plain version on the card, at
+the (nside, lmax) of tests/test_spectra.py and one larger size.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from baryonification_tpu_torch.ops import legendre_cuda as lc
 from baryonification_tpu_torch.ops import scatter_cuda as sc
+from baryonification_tpu_torch.ops import spectra as sp
 
 torch.set_num_threads(1)
 
@@ -143,3 +147,111 @@ def test_shell_on_card_matches_cpu(cuda_device):
         assert sc.LAUNCHES["sorted_scatter_add"] > before
         rms = np.sqrt(np.mean((got - want) ** 2)) / shell.map.mean()
         assert rms < bar, (prec, rms)
+
+
+LEGENDRE_SIZES = [(16, 47), (32, 95), (256, 512)]
+
+
+def _legendre_inputs(nside, lmax, device):
+    """float64 analysis folds of a random map and random a_lm planes on
+    ``device``."""
+    c64 = sp._seed_consts(nside, lmax, torch.float64, torch.device("cpu"))
+    rng = np.random.default_rng(nside)
+    hmap = torch.tensor(rng.normal(size=12 * nside**2))
+    folds = tuple(f.to(device) for f in
+                  sp._analysis_folds(hmap, nside, lmax,
+                                     sp._bluestein_len(nside), c64))
+    L = lmax + 1
+    tri = np.tril(np.ones((L, L)))
+    alm = tuple(torch.tensor(rng.normal(size=(L, L)) * tri * mask,
+                             device=device)
+                for mask in (1.0, np.arange(L)[None, :] > 0))
+    return folds, alm
+
+
+def _kernel_vs_plain(name, nside, lmax, dtype, device, to_out):
+    """Run kernel and plain version on the same inputs of ``dtype`` (and
+    the plain version on the float64 inputs); returns the outputs passed
+    through ``to_out`` as (kernel, plain, plain float64) lists."""
+    folds, alm = _legendre_inputs(nside, lmax, device)
+    ins64 = folds if name == "legendre_alm" else alm
+    outs = []
+    for dt, fn in ((dtype, getattr(lc, name)),
+                   (dtype, getattr(lc, name + "_reference")),
+                   (torch.float64, getattr(lc, name + "_reference"))):
+        c = sp._seed_consts(nside, lmax, dt, device)
+        args = tuple(t.to(dt) for t in ins64) + (c["p_mm"], c["sc0"],
+                                                 c["x"])
+        before = lc.LAUNCHES[name]
+        res = fn(*args)
+        torch.cuda.synchronize()
+        assert lc.LAUNCHES[name] == before + (fn is getattr(lc, name))
+        outs.append([o.double().cpu().numpy() for o in to_out(res)])
+    return outs
+
+
+def _assert_kernel_close(got, want, want64, dtype):
+    """float64: to 1e-10 of max|out| (the same recurrence, rounded step
+    for step alike; only the final sums' order differs). float32: sums of
+    ~R terms with cancellation, where two summation orders differ by the
+    rounding error itself: to 4x the plain version's own float32 error
+    against its float64 run (test_spectra.py's fixed bars hold at its
+    small sizes only)."""
+    scale = max(np.abs(w).max() for w in want)
+    if dtype == torch.float64:
+        atol = 1e-10 * scale
+    else:
+        atol = 4 * max(np.abs(w - w64).max() for w, w64 in zip(want, want64))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nside,lmax", LEGENDRE_SIZES)
+def test_legendre_alm_kernel_matches_plain(nside, lmax, dtype, cuda_device):
+    got, want, want64 = _kernel_vs_plain("legendre_alm", nside, lmax, dtype,
+                                         cuda_device, lambda r: r)
+    _assert_kernel_close(got, want, want64, dtype)
+    assert not any(np.triu(g, 1).any() for g in got)   # m > l is zero
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nside,lmax", LEGENDRE_SIZES)
+def test_legendre_synth_kernel_matches_plain(nside, lmax, dtype,
+                                             cuda_device):
+    """Compared as maps, as test_spectra.py does: each set of folds
+    through the same float64 ring synthesis."""
+    c64 = sp._seed_consts(nside, lmax, torch.float64, cuda_device)
+    M = sp._bluestein_len(nside)
+
+    def to_map(folds):
+        return [sp._synth_from_folds(*(b.double() for b in folds), nside,
+                                     lmax, M, c64)]
+
+    got, want, want64 = _kernel_vs_plain("legendre_synth", nside, lmax,
+                                         dtype, cuda_device, to_map)
+    _assert_kernel_close(got, want, want64, dtype)
+
+
+@pytest.mark.cuda
+def test_legendre_launch_refuses_bad_inputs(cuda_device):
+    folds, (ar, ai) = _legendre_inputs(16, 47, cuda_device)
+    folds = tuple(f.float() for f in folds)
+    ar, ai = ar.float(), ai.float()
+    c = sp._seed_consts(16, 47, torch.float32, cuda_device)
+    p, s0, x = c["p_mm"], c["sc0"], c["x"]
+    with pytest.raises(ValueError, match="shape"):
+        lc.legendre_alm(folds[0][:, :8].contiguous(), *folds[1:], p, s0, x)
+    with pytest.raises(TypeError):
+        lc.legendre_alm(*folds, p.double(), s0, x)
+    with pytest.raises(TypeError):
+        lc.legendre_synth(ar, ai, p, s0.long(), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        lc.legendre_synth(ar.T, ai, p, s0, x)
+    with pytest.raises(ValueError, match="on"):
+        lc.legendre_synth(ar.cpu(), ai, p, s0, x)
+    before = dict(lc.LAUNCHES)
+    lc.legendre_synth(ar, ai, p, s0, x)
+    assert lc.LAUNCHES["legendre_synth"] == before["legendre_synth"] + 1

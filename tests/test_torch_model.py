@@ -37,7 +37,7 @@ def _t(x):
 @pytest.fixture(scope="module")
 def cosmo_t():
     return T.Cosmology(Omega_m=0.3, Omega_b=0.05, h=0.7, sigma8=0.8,
-                       n_s=0.96)
+                       n_s=0.96, device="cpu")
 
 
 @pytest.fixture(scope="module")

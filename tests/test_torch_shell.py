@@ -136,7 +136,7 @@ def test_empty_catalog_is_a_no_op(inputs, cosmo_t):
     model = _port_model(cosmo_t).from_arrays(
         [np.linspace(0, 1, 3)] * 3, np.zeros((3, 3, 3)), False, [])
     out = T.BaryonifyShell(cat, shell, epsilon_max=20, model=model,
-                           verbose=False).process()
+                           verbose=False, device="cpu").process()
     np.testing.assert_array_equal(out, mass_map)
 
 
@@ -157,8 +157,8 @@ def test_auto_resolves_to_scatter_on_every_device(inputs, cosmo_t):
 
 
 def test_port_never_imports_jax():
-    """Every module of the port imports, and a tiny process() runs on the
-    CPU, with ``jax`` made unimportable."""
+    """Every module of the port imports, and a tiny process(), anafast
+    and paint run on the CPU, with ``jax`` made unimportable."""
     code = textwrap.dedent("""
         import sys, pkgutil, importlib
         sys.modules["jax"] = None
@@ -184,8 +184,21 @@ def test_port_never_imports_jax():
                                      z=rng.uniform(0.15, 0.4, 5), cosmo=cd)
         shell = T.LightconeShell(map=np.ones(12 * 16 ** 2), cosmo=cd)
         out = T.BaryonifyShell(cat, shell, epsilon_max=20, model=model,
-                               verbose=False).process()
+                               verbose=False, device="cpu").process()
         assert np.isfinite(out).all() and abs(out.sum() / 3072 - 1) < 1e-8
+        from baryonification_tpu_torch.ops.spectra import anafast
+        cl = anafast(torch.tensor(out), 16, 24)
+        assert cl.shape == (25,) and torch.isfinite(cl).all()
+        tab = T.TabulatedProfile(T.DarkMatter(**par),
+                                 T.Cosmology.from_dict(cd, device="cpu"))
+        tab.setup_interpolator(z_min=0.1, z_max=0.5, N_samples_z=2,
+                               M_min=1e13, M_max=1e15, N_samples_Mass=3,
+                               R_min=1e-3, R_max=50, N_samples_R=24)
+        shell64 = T.LightconeShell(map=np.zeros(12 * 64 ** 2), cosmo=cd)
+        painted = T.PaintProfilesShell(cat, shell64, epsilon_max=20,
+                                       model=tab, verbose=False,
+                                       device="cpu").process()
+        assert np.isfinite(painted).all() and painted.sum() > 0
         assert not any(k == "jax" or k.startswith("jax.")
                        for k, v in sys.modules.items() if v is not None)
         print("OK")

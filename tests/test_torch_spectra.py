@@ -1,0 +1,247 @@
+"""Parity of the port's spectra module with ``baryonification_tpu.ops.spectra``.
+
+- The plain versions of the two Legendre kernels (``legendre_alm_reference``,
+  ``legendre_synth_reference``) in float32 against the Pallas kernels in
+  interpret mode on the same inputs, to the tolerances of
+  tests/test_spectra.py (test_pallas_legendre_kernel_parity and
+  test_pallas_synth_kernel_parity): both are float32 with sums taken in
+  another order.
+- The SHT and the power spectra in float64 on the CPU against the JAX
+  package's CPU path on the same numpy inputs, rtol 1e-10: the same
+  algorithms, rounding apart (atol 1e-12 of the largest value, for the
+  entries that are zero in both).
+- ``synalm``/``synfast`` by their statistics, with a ``torch.Generator``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import baryonification_tpu_torch as T
+from baryonification_tpu.ops import spectra as JS
+from baryonification_tpu_torch.ops import legendre_cuda as LC
+from baryonification_tpu_torch.ops import spectra as TS
+
+torch.set_num_threads(1)
+CPU = torch.device("cpu")
+
+
+def _t(x):
+    return torch.tensor(np.asarray(x))
+
+
+def _close(got, want, rtol=1e-10):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=1e-12 * np.abs(want).max())
+
+
+def _random_alm(L, seed):
+    rng = np.random.default_rng(seed)
+    tri = np.tril(np.ones((L, L)))
+    are = rng.normal(size=(L, L)) * tri
+    aim = rng.normal(size=(L, L)) * tri * (np.arange(L)[None, :] > 0)
+    return are, aim
+
+
+def _f32_consts(nside, lmax):
+    return TS._seed_consts(nside, lmax, torch.float32, CPU)
+
+
+# ----- the two kernels' plain versions against the Pallas kernels -----
+
+@pytest.mark.parametrize("nside,lmax", [(16, 47), (32, 95)])
+def test_legendre_alm_reference_matches_pallas(nside, lmax):
+    """Folds of a random map (float64 stage 1, rounded to float32) through
+    both; (32, 95) has sc0 > 0, so the scale counters are engaged."""
+    c = _f32_consts(nside, lmax)
+    if nside == 32:
+        assert int(c["sc0"].max()) > 0
+    rng = np.random.default_rng(nside)
+    hmap = _t(rng.normal(size=12 * nside**2))
+    c64 = TS._seed_consts(nside, lmax, torch.float64, CPU)
+    folds = [f.to(torch.float32) for f in TS._analysis_folds(
+        hmap, nside, lmax, TS._bluestein_len(nside), c64)]
+    want = JS._legendre_alm_pallas(
+        *(jnp.asarray(f.numpy()) for f in folds),
+        jnp.asarray(c["p_mm"].numpy()), jnp.asarray(c["sc0"].numpy()),
+        jnp.asarray(c["x"].numpy()), interpret=True)
+    got = LC.legendre_alm(*folds, c["p_mm"], c["sc0"], c["x"])
+    scale = float(np.abs(np.asarray(want[0])).max())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == (lmax + 1, lmax + 1)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
+                                   atol=2e-6 * scale)
+    cl_got = TS.alm2cl(*(g.double() for g in got)).numpy()
+    cl_want = TS.alm2cl(*(_t(w).double() for w in want)).numpy()
+    np.testing.assert_allclose(cl_got, cl_want, rtol=2e-5, atol=1e-12)
+
+
+@pytest.mark.parametrize("nside,lmax", [(16, 47), (32, 95)])
+def test_legendre_synth_reference_matches_pallas(nside, lmax):
+    """Random float32 a_lm through both; each set of folds is turned into
+    a map by the same float64 ring synthesis, and the maps compared as in
+    test_pallas_synth_kernel_parity."""
+    c = _f32_consts(nside, lmax)
+    are, aim = (a.astype(np.float32) for a in _random_alm(lmax + 1,
+                                                          100 + nside))
+    want = JS._legendre_synth_pallas(
+        jnp.asarray(are), jnp.asarray(aim), jnp.asarray(c["p_mm"].numpy()),
+        jnp.asarray(c["sc0"].numpy()), jnp.asarray(c["x"].numpy()),
+        interpret=True)
+    got = LC.legendre_synth(_t(are), _t(aim), c["p_mm"], c["sc0"], c["x"])
+    c64 = TS._seed_consts(nside, lmax, torch.float64, CPU)
+    M = TS._bluestein_len(nside)
+
+    def to_map(folds):
+        return TS._synth_from_folds(*(_t(f).double() for f in folds), nside,
+                                    lmax, M, c64).numpy()
+
+    assert all(g.shape == (lmax + 1, 2 * nside) for g in got)
+    f_want = to_map(np.asarray(w) for w in want)
+    f_got = to_map(g.numpy() for g in got)
+    scale = np.abs(f_want).max()
+    np.testing.assert_allclose(f_got, f_want, rtol=2e-5, atol=5e-6 * scale)
+
+
+def test_seeds_match_jax():
+    for nside, lmax, fold in ((16, 47, 1e20), (8, 37, 1e40)):
+        want = JS._anafast_seeds(nside, lmax, np.log(fold))
+        got = TS._anafast_seeds(nside, lmax, np.log(fold))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, np.asarray(w), rtol=1e-14,
+                                       atol=0)
+
+
+def test_kernel_wrappers_check_their_inputs():
+    c = TS._seed_consts(8, 16, torch.float64, CPU)
+    G = torch.zeros(17, 16, dtype=torch.float64)
+    with pytest.raises(ValueError, match="shape"):
+        LC.legendre_alm(G[:, :8], G, G, G, c["p_mm"], c["sc0"], c["x"])
+    with pytest.raises(TypeError):
+        LC.legendre_alm(G, G, G, G, c["p_mm"], c["sc0"].long(), c["x"])
+    A = torch.zeros(17, 17, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        LC.legendre_synth(A.float(), A, c["p_mm"], c["sc0"], c["x"])
+    before = dict(LC.LAUNCHES)
+    LC.legendre_alm(G, G, G, G, c["p_mm"], c["sc0"], c["x"])
+    assert LC.LAUNCHES == before          # CPU tensors never launch
+
+
+# ----- SHT in float64 against the JAX package's CPU path -----
+
+@pytest.mark.parametrize("nside,lmax", [(8, 16), (16, 47), (32, 95),
+                                        (8, 37)])
+def test_anafast_and_map2alm(nside, lmax):
+    """(8, 37): lmax > 4*nside takes the belt conjugate-alias branch."""
+    m = np.random.default_rng(nside).normal(size=12 * nside**2)
+    cl = TS.anafast(_t(m), nside, lmax)
+    assert cl.dtype == torch.float64 and cl.shape == (lmax + 1,)
+    _close(cl.numpy(), JS.anafast(m, nside, lmax))
+    for g, w in zip(TS.map2alm(_t(m), nside, lmax),
+                    JS.map2alm(m, nside, lmax)):
+        _close(g.numpy(), w)
+
+
+@pytest.mark.parametrize("nside,lmax", [(8, 12), (4, 18)])
+def test_alm2map(nside, lmax):
+    """(4, 18): lmax >= 4*nside takes the cap alias-scatter branch."""
+    are, aim = _random_alm(lmax + 1, 3)
+    got = TS.alm2map(_t(are), _t(aim), nside, lmax)
+    assert got.shape == (12 * nside**2,)
+    _close(got.numpy(), JS.alm2map(are, aim, nside, lmax))
+
+
+def test_map2alm_iter_and_alm2cl():
+    nside, lmax = 32, 8
+    are, aim = _random_alm(lmax + 1, 7)
+    f = np.asarray(JS.alm2map(are, aim, nside, lmax))
+    want = JS.map2alm(f, nside, lmax, iter=3)
+    got = TS.map2alm(_t(f), nside, lmax, iter=3)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w)
+    _close(TS.alm2cl(*got).numpy(), JS.alm2cl(*want))
+    _close(TS.anafast(_t(f), nside, lmax, iter=3).numpy(),
+           JS.anafast(f, nside, lmax, iter=3))
+
+
+def test_smoothing_and_gauss_beam():
+    nside, lmax = 16, 12
+    f = np.random.default_rng(9).normal(size=12 * nside**2)
+    fwhm = np.radians(5.0)
+    _close(TS.gauss_beam(fwhm, lmax, device="cpu").numpy(),
+           JS.gauss_beam(fwhm, lmax), rtol=1e-14)
+    _close(TS.smoothing(_t(f), nside, lmax, fwhm=fwhm).numpy(),
+           JS.smoothing(f, nside, lmax, fwhm=fwhm))
+    beam = np.linspace(1.0, 0.2, lmax + 1)
+    _close(TS.smoothing(_t(f), nside, lmax, beam=beam, iter=1).numpy(),
+           JS.smoothing(f, nside, lmax, beam=beam, iter=1))
+    with pytest.raises(ValueError):
+        TS.smoothing(_t(f), nside, lmax)
+
+
+def test_power_spectra():
+    rng = np.random.default_rng(21)
+    d3 = rng.normal(size=(24, 24, 24))
+    for g, w in zip(TS.power_spectrum_3d(_t(d3), 50.0, subtract_shot=0.1),
+                    JS.power_spectrum_3d(d3, 50.0, subtract_shot=0.1)):
+        _close(g.numpy(), w)
+    d2 = rng.normal(size=(33, 33))           # odd N: no Nyquist plane
+    for g, w in zip(TS.power_spectrum_2d(_t(d2), 20.0, n_bins=10),
+                    JS.power_spectrum_2d(d2, 20.0, n_bins=10)):
+        _close(g.numpy(), w)
+
+
+# ----- random fields, by their statistics -----
+
+def test_synfast_statistics():
+    """As test_spectra.py::test_synfast_statistics: the measured spectrum
+    scatters around the input within cosmic variance."""
+    nside, lmax = 16, 16
+    ell = np.arange(lmax + 1)
+    cl_in = 1.0 / (1.0 + ell) ** 2
+    gen = torch.Generator().manual_seed(42)
+    hmap = TS.synfast(_t(cl_in), nside, lmax, gen)
+    cl_hat = TS.anafast(hmap, nside, lmax).numpy()
+    ratio = cl_hat[2:] / cl_in[2:]
+    sig = np.sqrt(2.0 / (2 * ell[2:] + 1))   # chi2_{2l+1}/(2l+1)
+    assert np.all(np.abs(ratio - 1) < 5 * sig)
+    assert abs(ratio.mean() - 1) < 0.3
+
+
+def test_synalm_variance():
+    """As test_spectra.py::test_synalm_variance: the estimator's mean over
+    many draws is C_l; the m > l triangle and Im(a_l0) are zero."""
+    lmax = 8
+    cl = torch.full((lmax + 1,), 2.5, dtype=torch.float64)
+    gen = torch.Generator().manual_seed(1000)
+    acc = torch.zeros(lmax + 1, dtype=torch.float64)
+    for _ in range(200):
+        ar, ai = TS.synalm(cl, lmax, gen)
+        acc += TS.alm2cl(ar, ai)
+    np.testing.assert_allclose(acc.numpy() / 200, cl.numpy(), rtol=0.15)
+    assert float(ai[:, 0].abs().max()) == 0.0
+    assert float(torch.triu(ar, diagonal=1).abs().max()) == 0.0
+
+
+# ----- devices -----
+
+def test_defaults_are_the_card():
+    """Entry points default to the card; without a GPU a defaulted call
+    raises and names device="cpu" instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    m = np.ones(12 * 4**2)
+    for call in (lambda: T.Cosmology(),
+                 lambda: T.Cosmology.from_dict(dict(Omega_m=0.3)),
+                 lambda: TS.anafast(m, 4, 8),
+                 lambda: TS.alm2map(np.zeros((9, 9)), np.zeros((9, 9)), 4,
+                                    8),
+                 lambda: TS.gauss_beam(0.1, 8),
+                 lambda: TS.power_spectrum_2d(np.ones((8, 8)), 1.0)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    # a tensor stays on its own device, whatever the default
+    assert TS.anafast(torch.ones(12 * 4**2), 4, 8).device.type == "cpu"
