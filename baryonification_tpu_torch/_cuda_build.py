@@ -5,6 +5,8 @@ compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``_build/`` (git-ignored) inside the package, named by a hash of the
 source, and loaded with ``ctypes``. Nothing is built when a module is
 imported: the first launch builds, later calls reuse the library.
+``BUILD_LOG`` keeps what ``ptxas -v`` said of each source built by this
+process (registers, shared memory and spills of every kernel).
 """
 
 import ctypes
@@ -14,13 +16,15 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load_library", "nvcc_path"]
+__all__ = ["load_library", "nvcc_path", "BUILD_LOG"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _LIBS = {}
+#: source name -> the compiler's output of this process's build
+BUILD_LOG = {}
 
 
 def nvcc_path():
@@ -49,11 +53,13 @@ def load_library(name):
     if not lib_path.exists():
         tmp = _BUILD / f".lib{name}_{digest}.{os.getpid()}.so"
         cmd = [nvcc_path(), *_ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-o", str(tmp), str(src)]
+               "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-o", str(tmp),
+               str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building {src.name} "
                                f"(exit {proc.returncode}):\n{proc.stderr}")
+        BUILD_LOG[name] = proc.stderr
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     _LIBS[name] = lib

@@ -1,10 +1,13 @@
-"""Sorted scatter-add: the hand-written Hopper kernel and its plain version.
+"""Scatter-add: the hand-written Hopper kernel and its plain version.
 
 ``accs[c][idx] += vals[c]`` for C = 1..3 value planes, in place, with rows
 whose index is >= Npix dropped (the runners' padding sentinel). This is
 the port of ``baryonification_tpu.ops.scatter_pallas``: the kernel
-(``csrc/sorted_scatter_add.cu``) replaces the Pallas kernel
-``sorted_scatter_add_pallas``.
+(``csrc/scatter_add.cu``) replaces the Pallas kernel
+``sorted_scatter_add_pallas``. The TPU kernel needs its rows sorted by
+destination; this one adds in the card's L2 cache and takes the rows as
+the runners make them, so a scatter on the card is one launch and no
+sort.
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version (``scatter_add_accum_reference``); CUDA tensors take the
@@ -22,26 +25,22 @@ import torch
 from .._cuda_build import load_library
 
 __all__ = ["scatter_add_accum", "sorted_scatter_add",
-           "scatter_add_accum_reference", "LAUNCHES", "BLOCK_PIX"]
+           "scatter_add_accum_reference", "LAUNCHES"]
 
 #: kernel launches by kernel name (read and reset by callers)
-LAUNCHES = {"sorted_scatter_add": 0}
-
-#: destination pixels per CTA: C=3 float64 planes fill 48 KB of shared
-#: memory
-BLOCK_PIX = 2048
+LAUNCHES = {"scatter_add": 0}
 
 _FUNCS = {}
 
 
 def _kernel(dtype):
     if dtype not in _FUNCS:
-        lib = load_library("sorted_scatter_add")
-        name = {torch.float32: "sorted_scatter_add_f32",
-                torch.float64: "sorted_scatter_add_f64"}[dtype]
+        lib = load_library("scatter_add")
+        name = {torch.float32: "scatter_add_f32",
+                torch.float64: "scatter_add_f64"}[dtype]
         fn = getattr(lib, name)
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, I, I, I, I, P, P, P, P, P, P, P]
+        fn.argtypes = [P, I, I, I, P, P, P, P, P, P, P]
         fn.restype = I
         _FUNCS[dtype] = fn
     return _FUNCS[dtype]
@@ -95,54 +94,44 @@ def scatter_add_accum_reference(accs, idx, vals):
     return accs
 
 
-def sorted_scatter_add(accs, idx_sorted, vals_sorted, block_pix=BLOCK_PIX):
-    """``accs[c][idx_sorted] += vals_sorted[c]`` in place for rows sorted
-    ascending by destination. CUDA tensors launch the kernel; CPU tensors
-    take the plain version. Returns ``accs``."""
-    accs, vals = _check(accs, idx_sorted, vals_sorted)
+def scatter_add_accum(accs, idx, vals):
+    """``accs[c][idx] += vals[c]`` in place, rows in any order; rows with
+    idx >= Npix are dropped. CUDA tensors go through the kernel in one
+    launch (no sort); CPU tensors take the plain version. Returns
+    ``accs``."""
+    accs, vals = _check(accs, idx, vals)
     dev = accs[0].device
     if dev.type == "cpu":
-        return scatter_add_accum_reference(accs, idx_sorted, vals)
+        return scatter_add_accum_reference(accs, idx, vals)
     if dev.type != "cuda":
-        raise ValueError(f"sorted_scatter_add runs on cpu or cuda, not {dev}")
+        raise ValueError(f"scatter_add_accum runs on cpu or cuda, not {dev}")
     npix = accs[0].shape[0]
-    n_rows = idx_sorted.shape[0]
+    n_rows = idx.shape[0]
     if npix >= 2**31 or n_rows >= 2**31:
-        raise ValueError("sorted_scatter_add takes fewer than 2^31 pixels "
+        raise ValueError("scatter_add_accum takes fewer than 2^31 pixels "
                          "and rows")
     if n_rows == 0:
         return accs
-    idx32 = _as_int32(idx_sorted, npix).contiguous()
+    # contiguous int32 rows and contiguous planes are passed as they are.
+    # The launch is asynchronous; a copy made here may be freed on return
+    # because the caching allocator hands its memory only to later work
+    # on this same stream
+    idx32 = _as_int32(idx, npix).contiguous()
     vals = tuple(v.contiguous() for v in vals)
-    n_blocks = -(-npix // block_pix)
-    # first row of each destination block; the last edge is Npix, so the
-    # sentinel rows (>= Npix) fall after every block's range
-    edges = torch.clamp(torch.arange(n_blocks + 1, device=dev,
-                                     dtype=torch.int32) * block_pix,
-                        max=npix)
-    row_start = torch.searchsorted(idx32, edges, out_int32=True)
-    # the launch is asynchronous; idx32, row_start and the contiguous
-    # copies may be freed on return because the caching allocator hands
-    # their memory only to later work on this same stream
     ptrs = [v.data_ptr() for v in vals] + [None] * (3 - len(vals))
     aptrs = [a.data_ptr() for a in accs] + [None] * (3 - len(accs))
     err = _kernel(accs[0].dtype)(
-        idx32.data_ptr(), row_start.data_ptr(), n_blocks, block_pix, npix,
-        len(accs), *ptrs, *aptrs, torch.cuda.current_stream(dev).cuda_stream)
+        idx32.data_ptr(), n_rows, npix, len(accs), *ptrs, *aptrs,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"sorted_scatter_add launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["sorted_scatter_add"] += 1
+        raise RuntimeError(f"scatter_add launch failed: CUDA error {err}")
+    LAUNCHES["scatter_add"] += 1
     return accs
 
 
-def scatter_add_accum(accs, idx, vals):
-    """``accs[c][idx] += vals[c]`` in place for unsorted rows; rows with
-    idx >= Npix are dropped. CUDA tensors are sorted by destination and
-    go through the kernel; CPU tensors take the plain version. Returns
-    ``accs``."""
-    accs, vals = _check(accs, idx, vals)
-    if accs[0].device.type == "cpu":
-        return scatter_add_accum_reference(accs, idx, vals)
-    idx_s, order = torch.sort(_as_int32(idx, accs[0].shape[0]))
-    return sorted_scatter_add(accs, idx_s, tuple(v[order] for v in vals))
+def sorted_scatter_add(accs, idx_sorted, vals_sorted):
+    """:func:`scatter_add_accum` for rows sorted ascending by destination
+    (the counterpart of the JAX package's ``sorted_scatter_add_pallas``).
+    The same kernel runs: it sums each run of equal destinations inside a
+    warp and adds once per run. Returns ``accs``."""
+    return scatter_add_accum(accs, idx_sorted, vals_sorted)

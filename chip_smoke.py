@@ -11,7 +11,11 @@ and fails on any fault:
      all started together;
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the shapes its path gives it, with both times (CUDA events) and
-     the least time the card could take (the bound);
+     the least time the card could take (the bound). The scatter takes
+     unsorted rows, as the runners make them, at two inputs (a real chunk
+     of the shell path, and 4M clustered rows), with the whole call, the
+     library call doing the same function, and the device launches a
+     call; legendre_alm also gets its issue bound;
   4. shell path: the Schneider19 displacement table built on the card
      (bench.py's grid) and BaryonifyShell.process() on an NSIDE-1024
      full-sky shell with bench.py's 1e6-halo catalog, cold and warm;
@@ -33,6 +37,11 @@ and fails on any fault:
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last lines are a JSON record of the kernels, the
 nvidia-smi line, and {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --phases kernels,shell --root <other checkout>
+
+drives the package of another checkout with this script and its inputs
+(no ok record), so that two versions are timed alike on one card.
 """
 
 import argparse
@@ -121,10 +130,31 @@ def cuda_ms(torch, fn, n_iter):
     return start.elapsed_time(stop) / n_iter
 
 
-def scatter_inputs(torch, device, npix, n_rows, seed=0):
-    """~n_rows destination rows shaped like stage B of the main path:
-    overlapping windows of consecutive pixels clustered on part of the
-    sky (heavy duplicates), plus 30% out-of-range sentinel rows."""
+def device_launches(torch, fn):
+    """(count, total device ms) of the device activities (kernels and
+    copies) that one fn() puts on the card, by torch.profiler; (None,
+    None) if the profiler saw none in three tries."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+        if evs:
+            return (sum(e.count for e in evs),
+                    sum(getattr(e, "self_device_time_total", 0.0)
+                        for e in evs) / 1e3)
+    return None, None
+
+
+def clustered_rows(npix, n_rows, seed=0):
+    """~n_rows unsorted destination rows with heavy duplicates: overlapping
+    700-pixel windows packed on 1/32 of the sky, plus 30% out-of-range
+    sentinel rows, shuffled."""
     rng = np.random.default_rng(seed)
     n_sent = int(0.3 * n_rows)
     width = 700
@@ -133,35 +163,85 @@ def scatter_inputs(torch, device, npix, n_rows, seed=0):
     idx = (centres[:, None] + np.arange(width)[None, :]).reshape(-1)
     idx = np.concatenate([idx, np.full(n_sent, npix)])
     rng.shuffle(idx)
-    vals = [rng.uniform(0.5, 1.5, idx.size) for _ in range(3)]
+    return idx.astype(np.int32)
+
+
+def path_chunk_rows(T, torch, device, n_halo, nside):
+    """The destination rows of one real chunk of the shell path, made as
+    stage B makes them (runners/shell.py, _accumulate_shell_offsets): the
+    path's catalog walked by bucket and chunk, and the middle chunk of the
+    (n_rings, n_phi) bucket that launches most often. Logs the census of
+    the path's chunks. Returns the int32 rows (unsorted, sentinel Npix)."""
+    from baryonification_tpu_torch.ops import healpix as hpx
+    cat, shell = catalog(T, n_halo, nside)
+    runner = T.BaryonifyShell(cat, shell, epsilon_max=EPS_MAX, model=None,
+                              verbose=False, device=device)
+    arrs = runner._halo_arrays(T.Cosmology.from_dict(COSMO, device=device))
+    tables, _ = runner._ring_tables(nside, runner.dtype)
+    npx = hpx.npix(nside)
+
+    def rows(n_rings, n_phi, c):
+        H = c['theta'].shape[0]
+        radius = EPS_MAX * (c['R_com'] * c['a']) / c['D']
+        pix, valid = hpx.disc_window_mask_tab(tables, c['theta'], c['phi'],
+                                              radius, n_rings, n_phi)
+        pix, valid = pix.reshape(H, -1), valid.reshape(H, -1)
+        fb_pix, _ = hpx.get_interp_weights_tab(tables, c['theta'], c['phi'])
+        use_fb = (valid.sum(dim=-1) < 4)[:, None]
+        valid = torch.cat([valid & ~use_fb, use_fb.expand(H, 4)], dim=-1)
+        pix = torch.cat([pix, fb_pix], dim=-1)
+        return torch.where(valid, pix, npx).reshape(-1).to(torch.int32)
+
+    buckets = {}
+    for n_rings, n_phi, c in runner._halo_chunks(arrs, nside, ""):
+        buckets.setdefault((n_rings, n_phi), []).append(c)
+    n_chunks = sum(len(cs) for cs in buckets.values())
+    log(f"kernels: shell path census at {n_halo} halos, NSIDE {nside}: "
+        f"{n_chunks} chunks (one scatter launch each)")
+    mid = {}
+    for (nr, nphi), cs in sorted(buckets.items()):
+        H = cs[0]['theta'].shape[0]
+        mid[nr, nphi] = rows(nr, nphi, cs[len(cs) // 2])
+        log(f"kernels:   window {nr} x {nphi} + 4, {H} halos a chunk: "
+            f"{len(cs)} chunks of {H * (nr * nphi + 4)} rows, sentinel share "
+            f"{float((mid[nr, nphi] >= npx).float().mean()):.3f} (middle "
+            f"chunk)")
+    nr, nphi = max(buckets, key=lambda k: len(buckets[k]))
+    log(f"kernels: path-shaped input: the middle chunk of the {nr} x {nphi} "
+        f"bucket ({len(buckets[nr, nphi])} of the path's {n_chunks} "
+        f"launches)")
+    return mid[nr, nphi]
+
+
+def scatter_input_check(torch, sc, device, label, idx, npix, n_iter):
+    """Kernel vs plain version on one set of unsorted rows (and on the
+    same rows sorted), both dtypes; then float32 C = 3 times by CUDA
+    events. Returns (max f32 error, dict of times in ms)."""
+    rng = np.random.default_rng(1)
+    idx_np = idx.cpu().numpy()
+    n = idx_np.size
+    vals = [rng.uniform(0.5, 1.5, n) for _ in range(3)]
     base = [rng.uniform(0.0, 1.0, npix) for _ in range(3)]
     t = lambda a, dt: torch.tensor(a, dtype=dt, device=device)
-    return idx, vals, base, t
-
-
-def check_scatter(torch, sc, device):
-    """Kernel vs plain version at the main path's shapes; returns the
-    record for the kernels line."""
-    npix = 12 * 1024**2
-    idx, vals, base, t = scatter_inputs(torch, device, npix, 4_000_000)
-    idx_s, order = torch.sort(t(idx, torch.int32))
-    per_pix = np.bincount(idx[idx < npix], minlength=npix)
-    log(f"kernels: sorted_scatter_add inputs: Npix={npix} C=3 "
-        f"rows={idx.size} sentinel={int((idx >= npix).sum())} "
-        f"max rows/pixel={per_pix.max()} mean rows/touched pixel="
-        f"{per_pix[per_pix > 0].mean():.2f}")
+    valid = idx_np[idx_np < npix]
+    per_pix = np.bincount(valid, minlength=npix)
+    n_touched = int((per_pix > 0).sum())
+    log(f"kernels: scatter_add {label} input: Npix={npix} C=3 rows={n} "
+        f"sentinel={n - valid.size} touched pixels={n_touched} max rows/"
+        f"pixel={per_pix.max()} mean rows/touched pixel="
+        f"{valid.size / max(n_touched, 1):.2f}")
+    idx_s, order = torch.sort(idx)
     errs = {}
     for dt, name in ((torch.float64, "f64"), (torch.float32, "f32")):
-        v = tuple(t(x, dt)[order] for x in vals)
-        acc_k = tuple(t(b, dt) for b in base)
+        v = tuple(t(x, dt) for x in vals)
         acc_p = tuple(t(b, dt) for b in base)
-        sc.sorted_scatter_add(acc_k, idx_s, v)
-        sc.scatter_add_accum_reference(acc_p, idx_s, v)
-        acc_u = tuple(t(b, dt) for b in base)    # unsorted wrapper path
-        sc.scatter_add_accum(acc_u, t(idx, torch.int32),
-                             tuple(t(x, dt) for x in vals))
+        sc.scatter_add_accum_reference(acc_p, idx, v)
+        acc_u = tuple(t(b, dt) for b in base)       # rows as the path makes
+        sc.scatter_add_accum(acc_u, idx, v)
+        acc_s = tuple(t(b, dt) for b in base)       # the same rows sorted
+        sc.sorted_scatter_add(acc_s, idx_s, tuple(x[order] for x in v))
         torch.cuda.synchronize()
-        for got_planes in (acc_k, acc_u):
+        for got_planes in (acc_u, acc_s):
             for g, p in zip(got_planes, acc_p):
                 err = (g - p).abs()
                 if dt == torch.float64:
@@ -173,56 +253,83 @@ def check_scatter(torch, sc, device):
                     bad = float(err.max()) > bound
                     tol = f"atol 1e-5*max|sum| = {bound:.3e}"
                 errs[name] = max(errs.get(name, 0.0), float(err.max()))
-                check(not bad, f"sorted_scatter_add {name} disagrees with "
+                check(not bad, f"scatter_add {label} {name} disagrees with "
                       f"the plain version: max err {float(err.max()):.3e} "
                       f"({tol})")
-        log(f"kernels: sorted_scatter_add {name} agrees with plain "
-            f"index_add_: max|err|={errs[name]:.3e} ({tol})")
+        log(f"kernels: scatter_add {label} {name} agrees with plain "
+            f"index_add_ (unsorted and sorted rows): max|err|="
+            f"{errs[name]:.3e} ({tol})")
 
-    # times at the main path's dtype (float32), same sorted inputs
-    v32 = tuple(t(x, torch.float32)[order] for x in vals)
+    # times at the main path's dtype (float32)
+    v32 = tuple(t(x, torch.float32) for x in vals)
+    v32s = tuple(x[order] for x in v32)
     acc = tuple(t(b, torch.float32) for b in base)
-    kern = lambda: sc.sorted_scatter_add(acc, idx_s, v32)
-    plain = lambda: sc.scatter_add_accum_reference(acc, idx_s, v32)
-    idx_u = t(idx, torch.int32)
-    v32u = tuple(t(x, torch.float32) for x in vals)
-    full = lambda: sc.scatter_add_accum(acc, idx_u, v32u)
-    for fn in (kern, plain, full):
+    acc3 = torch.stack(acc, dim=1)
+
+    def library():
+        # one PyTorch call for the same function on the same unsorted
+        # rows, its sentinel handling inside the timing: mask, compaction,
+        # one index_add_ into the three planes stacked as (Npix, 3)
+        ok = idx < npix
+        acc3.index_add_(0, idx[ok].to(torch.int64),
+                        torch.stack(v32, dim=1)[ok])
+
+    fns = dict(call=lambda: sc.scatter_add_accum(acc, idx, v32),
+               sorted=lambda: sc.sorted_scatter_add(acc, idx_s, v32s),
+               plain=lambda: sc.scatter_add_accum_reference(acc, idx, v32),
+               library=library)
+    for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    n = 20
-    ms_p1, ms_k1 = cuda_ms(torch, plain, n), cuda_ms(torch, kern, n)
-    ms_k2, ms_p2 = cuda_ms(torch, kern, n), cuda_ms(torch, plain, n)
-    ms_full = cuda_ms(torch, full, n)
-    # the library call: one index_add_ of the valid rows into the three
-    # planes stacked as (Npix, 3) (the row mask is made outside the timing)
-    ok = idx_s < npix
-    keep = idx_s[ok].to(torch.int64)
-    v3 = torch.stack(v32, dim=1)[ok]
-    acc3 = torch.stack(acc, dim=1)
-    lib = lambda: acc3.index_add_(0, keep, v3)
-    lib()
-    ms_lib = cuda_ms(torch, lib, n)
-    ms_k, ms_p = (ms_k1 + ms_k2) / 2, (ms_p1 + ms_p2) / 2
-    # bytes this run's data needs: every row aimed at a pixel (int32 index
-    # + 3 float32 values) read once, every touched pixel's 3 planes read
-    # and written once; the sentinel rows lie past the last block's row
-    # range and are never read
-    valid = idx[idx < npix]
-    n_touched = int(np.unique(valid).size)
-    n_bytes = valid.size * (4 + 3 * 4) + n_touched * 3 * 4 * 2
-    bound_ms = n_bytes / PEAK_BYTES * 1e3
-    log(f"kernels: sorted_scatter_add f32 C=3 4M rows: kernel {ms_k:.4f} ms "
-        f"(runs {ms_k1:.4f}, {ms_k2:.4f}), plain index_add_ {ms_p:.4f} ms "
-        f"(runs {ms_p1:.4f}, {ms_p2:.4f}); with the sort "
-        f"(scatter_add_accum) {ms_full:.4f} ms; library (one stacked "
-        f"index_add_) {ms_lib:.4f} ms; bound {bound_ms:.4f} ms "
-        f"({n_bytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12:.2f} TB/s)")
-    return dict(name="sorted_scatter_add", route="cuda",
-                source="baryonification_tpu_torch/csrc/sorted_scatter_add.cu",
+    runs = {k: [] for k in fns}
+    for k in ("plain", "library", "call", "sorted", "sorted", "call",
+              "library", "plain"):
+        runs[k].append(cuda_ms(torch, fns[k], n_iter))
+    ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    n_dev = {k: device_launches(torch, fns[k]) for k in ("call", "library")}
+    # bytes this run's data needs: every row's int32 index read once, the
+    # 3 float32 values of every row aimed at a pixel read once, every
+    # touched pixel's 3 planes read and written once
+    n_bytes = n * 4 + valid.size * 3 * 4 + n_touched * 3 * 4 * 2
+    ms["bound"] = n_bytes / PEAK_BYTES * 1e3
+
+    def on_device(k):
+        n_launch, dev_ms = n_dev[k]
+        if n_launch is None:
+            return "device launches not measured"
+        return (f"{n_launch} device launches a call, {dev_ms:.4f} ms on the "
+                f"device")
+
+    log(f"kernels: scatter_add {label} f32 C=3: whole call on unsorted rows "
+        f"(scatter_add_accum) {ms['call']:.4f} ms (runs "
+        + ", ".join(f"{x:.4f}" for x in runs["call"])
+        + f"; {on_device('call')}); on the same rows sorted "
+        f"{ms['sorted']:.4f} ms; plain (mask + 3 index_add_) "
+        f"{ms['plain']:.4f} ms; library (mask, compaction, one stacked "
+        f"index_add_) {ms['library']:.4f} ms ({on_device('library')}); "
+        f"bound {ms['bound']:.5f} ms ({n_bytes / 1e6:.2f} MB at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s)")
+    return errs["f32"], ms
+
+
+def check_scatter(T, torch, sc, device, n_halo, nside):
+    """The scatter kernel vs its plain version on unsorted rows, as both
+    runners produce them, at two inputs: a real chunk of the shell path,
+    and 4M clustered rows with heavy duplicates. Returns the record for
+    the kernels line (the times of the path-shaped input)."""
+    npix = 12 * nside**2
+    idx_path = path_chunk_rows(T, torch, device, n_halo, nside)
+    err_p, ms = scatter_input_check(torch, sc, device, "path-shaped",
+                                    idx_path, npix, 200)
+    idx_cl = torch.tensor(clustered_rows(npix, 4_000_000), device=device)
+    err_c, _ = scatter_input_check(torch, sc, device, "clustered-4M",
+                                   idx_cl, npix, 20)
+    return dict(name="scatter_add", route="cuda",
+                source="baryonification_tpu_torch/csrc/scatter_add.cu",
                 replaces="baryonification_tpu/ops/scatter_pallas.py:117",
-                max_abs_err=errs["f32"], ms=ms_k, plain_ms=ms_p,
-                bound_ms=bound_ms, bound_by="bytes", library_ms=ms_lib)
+                max_abs_err=max(err_p, err_c), ms=ms["call"],
+                plain_ms=ms["plain"], bound_ms=ms["bound"],
+                bound_by="bytes", library_ms=ms["library"])
 
 
 def legendre_bound_ms(name, L, R, dtype):
@@ -241,6 +348,66 @@ def legendre_bound_ms(name, L, R, dtype):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     return ((t_ops, "operations") if t_ops >= t_bytes
             else (t_bytes, "bytes")), flops, n_bytes
+
+
+# Issue slots of legendre_alm per (m, l, ring) update, read from the SASS
+# of the sm_90a build (cuobjdump -sass, the 8-rings-per-thread kernels, the
+# loop over one even and one odd step of 8 rings): (an update of a slot
+# that is out of the scaled regime, any other). float32: 111 and 246
+# instructions a loop. float64: 112 (96 of them FP64) and 321 (144 FP64);
+# an FP64 instruction holds its pipe for two clocks (64 lanes a clock and
+# SM), so an update costs the larger of twice its FP64 instructions and
+# all its instructions.
+ALM_ISSUE_SLOTS = {"float32": (111 / 16, 246 / 16),
+                   "float64": (2 * 96 / 16, 321 / 16)}
+N_SM, LANES_PER_SM = 132, 128
+ALM_TILE, ALM_RPT = 32, 8        # csrc/legendre_sht.cu: kTile, RPT at R=2048
+
+
+def alm_unscaled_share(torch, lc, c):
+    """Share of legendre_alm's (m, l, ring) updates that its kernel runs
+    without the rescale test, from the plain recurrence on this run's
+    seeds. The kernel decides by tile and by slot of 32 rings (slot k of
+    warp w is rings 32 * (8 k + w) ..): a slot runs a tile unscaled when,
+    at the tile's start, every ring of it and of the warp's slots nearer
+    the equator (higher k) has sc == 0."""
+    p_mm, sc0, x = c["p_mm"], c["sc0"], c["x"]
+    L, R = p_mm.shape
+    FOLD, BIG = lc._fold_big(p_mm.dtype)
+    n_warp, padded = 8, 32 * 8 * ALM_RPT
+    slot = torch.arange(ALM_RPT * n_warp, device=x.device)
+    real = torch.clamp(R - 32 * slot, 0, 32).double().reshape(ALM_RPT,
+                                                              n_warp)
+    p1, p2 = torch.zeros_like(p_mm), torch.zeros_like(p_mm)
+    sc = torch.zeros_like(sc0)
+    fast = torch.zeros((), dtype=torch.float64, device=x.device)
+    for l in range(L - 1):
+        k = l + 1
+        lc._recurrence_step(l, k, x, p1, p2, sc, p_mm, sc0, FOLD, BIG)
+        z = torch.nn.functional.pad(sc[:k] == 0, (0, padded - R), value=True)
+        flag = z.reshape(k, ALM_RPT, n_warp, 32).all(dim=-1).double()
+        flag = flag.flip(1).cumprod(dim=1).flip(1)
+        # rows whose next tile starts at l + 1: m = l (after the seed, 31
+        # steps) and m = l + 1 - 32 t (32 steps), cut at the last l
+        m = torch.arange(k, device=x.device)
+        steps = torch.where(m == l, ALM_TILE - 1,
+                            torch.where((l + 1 - m) % ALM_TILE == 0,
+                                        ALM_TILE, 0)).clamp(max=L - 1 - l)
+        fast += (flag * steps[:, None, None] * real[None]).sum()
+    return float(fast) / ((L * (L + 1) // 2) * R)
+
+
+def sm_clock_under(torch, fn, n_iter):
+    """The SM clock (MHz) that nvidia-smi reports while n_iter launches
+    of fn() run."""
+    for _ in range(n_iter):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    torch.cuda.synchronize()
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def check_legendre(torch, lc, sp, device, nside=1024, lmax=2048):
@@ -325,6 +492,19 @@ def check_legendre(torch, lc, sp, device, nside=1024, lmax=2048):
                 f"TFLOP/s, {n_bytes / 1e6:.1f} MB at "
                 f"{PEAK_BYTES / 1e12:.2f} TB/s); kernel at "
                 f"{100 * bound / ms_k:.1f}% of the bound")
+            if name == "legendre_alm":
+                share = alm_unscaled_share(torch, lc, c)
+                mhz = sm_clock_under(torch, k_fn, 300)
+                s_fast, s_gen = ALM_ISSUE_SLOTS[dname]
+                slots = (L * (L + 1) // 2) * R * (share * s_fast
+                                                  + (1 - share) * s_gen)
+                issue_ms = slots / (N_SM * LANES_PER_SM * mhz * 1e6) * 1e3
+                log(f"kernels: legendre_alm {dname}: {100 * share:.1f}% of "
+                    f"the updates run without the rescale test ({s_fast:g} "
+                    f"issue slots an update, the others {s_gen:g}); at the "
+                    f"{mhz:.0f} MHz read during the run the issue bound is "
+                    f"{issue_ms:.4f} ms ({N_SM} SMs x {LANES_PER_SM} lanes);"
+                    f" kernel at {100 * issue_ms / ms_k:.1f}% of it")
             if dt == torch.float32:       # the card's SHT dtype
                 rec.update(max_abs_err=err_raw, ms=ms_k, plain_ms=ms_p,
                            bound_ms=bound, bound_by=by)
@@ -333,6 +513,7 @@ def check_legendre(torch, lc, sp, device, nside=1024, lmax=2048):
 
 
 COUNTERS = []       # the LAUNCHES dicts of the kernel modules
+SCATTER = []        # the names of the scatter module's kernels
 
 
 def reset_counts():
@@ -369,7 +550,7 @@ def main_path(T, torch, sc, device, n_halo, nside):
     t0 = time.perf_counter()
     new_map = runner.process()
     t_cold = time.perf_counter() - t0
-    launches = read_counts("shell path", ["sorted_scatter_add"])
+    launches = read_counts("shell path", SCATTER)
     log(f"main: process() cold {t_cold:.2f} s, NSIDE={nside}, "
         f"{n_halo} halos, method={runner.method}, dtype={runner.dtype}")
     check(new_map.shape == shell.map.shape and np.isfinite(new_map).all(),
@@ -489,7 +670,7 @@ def cl_path(T, torch, sp, device, nside, n_halo=3000):
     painted, t_paint = synced(torch, lambda: T.PaintProfilesShell(
         cat, floor, epsilon_max=5, model=tab, verbose=False,
         device=device).process())
-    paint_counts = read_counts("C_ell path (paint)", ["sorted_scatter_add"])
+    paint_counts = read_counts("C_ell path (paint)", SCATTER)
     check(np.isfinite(painted).all() and painted.sum() > 0,
           "the painted map is not finite or empty")
     log(f"cl: painted {n_halo} halos at NSIDE {nside} in {t_paint:.2f} s")
@@ -522,7 +703,7 @@ def cl_path(T, torch, sp, device, nside, n_halo=3000):
         log(f"cl: theta_ej={theta_ej}: baryonify {t_b:.2f} s, anafast "
             f"{t_cl:.3f} s")
     counts = read_counts("C_ell path (baryonify + anafast)",
-                         ["sorted_scatter_add", "legendre_alm"])
+                         SCATTER + ["legendre_alm"])
     profile_anafast(torch, sp, torch.as_tensor(new_map, device=device,
                                                dtype=torch.float32),
                     nside, lmax)
@@ -647,19 +828,41 @@ def reference_spectra(T, torch, sp, device, nside=64):
               f"{prec} paint on the card differs: {err:.3e}")
 
 
+def ptxas_summary(build_log):
+    """[(kernel<type, rings per thread>, registers, spill bytes)] from the
+    output of ``ptxas -v``."""
+    import re
+    out, entry, spill = [], None, 0
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"\d([a-z_]+_kernel)I([fd])Li(\d+)", m.group(1))
+            entry = f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k \
+                else m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((entry, int(m.group(1)), spill))
+    return out
+
+
 def build_all(torch, sc, lc):
     """Compile every kernel source at once (one nvcc each, in parallel),
-    then bind each kernel in both dtypes."""
+    then bind each kernel in both dtypes. The kernels of the paths (float32,
+    8 rings per thread at NSIDE 1024) must not spill registers."""
     from concurrent.futures import ThreadPoolExecutor
-    from baryonification_tpu_torch._cuda_build import load_library
+    from baryonification_tpu_torch import _cuda_build as cb
 
     def build(name):
         t0 = time.perf_counter()
-        load_library(name)
+        cb.load_library(name)
         return name, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    names = ("sorted_scatter_add", "legendre_sht")
+    names = sorted(p.stem for p in cb._CSRC.glob("*.cu"))
     with ThreadPoolExecutor(len(names)) as pool:
         times = list(pool.map(build, names))
     for dt in (torch.float32, torch.float64):
@@ -668,6 +871,13 @@ def build_all(torch, sc, lc):
         lc._kernel("legendre_synth", dt)
     log("build: " + ", ".join(f"{n}.cu {t:.2f} s" for n, t in times)
         + f"; all built and loaded in {time.perf_counter() - t0:.2f} s")
+    for name, text in getattr(cb, "BUILD_LOG", {}).items():
+        rows = ptxas_summary(text)
+        log(f"build: {name}.cu registers (spill bytes): " + ", ".join(
+            f"{e} {r} ({sp})" for e, r, sp in rows))
+        for e, r, sp in rows:
+            if e.startswith("scatter_add") or e.endswith(("<f,8>", "<d,8>")):
+                check(sp == 0, f"{e} spills {sp} bytes of registers")
 
 
 PHASES = ("kernels", "shell", "cl", "synth", "reference")
@@ -679,6 +889,10 @@ def main(argv=None):
     ap.add_argument("--nside", type=int, default=1024)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--root", type=Path, default=ROOT,
+                    help="directory that holds the package (default: this "
+                         "script's); another checkout's package is then "
+                         "driven and timed by this script, on its inputs")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     t_start = time.perf_counter()
@@ -688,7 +902,7 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; this script runs on a GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(args.root.resolve()))
     import baryonification_tpu_torch as T
     from baryonification_tpu_torch.ops import legendre_cuda as lc
     from baryonification_tpu_torch.ops import scatter_cuda as sc
@@ -696,6 +910,7 @@ def main(argv=None):
     check("jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                         if v is not None}, "JAX was imported")
     COUNTERS.extend([sc.LAUNCHES, lc.LAUNCHES])
+    SCATTER.extend(sc.LAUNCHES)
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -709,15 +924,16 @@ def main(argv=None):
     build_all(torch, sc, lc)
     records = {}
     if "kernels" in phases:
-        records["sorted_scatter_add"] = check_scatter(torch, sc, device)
+        records["scatter_add"] = check_scatter(T, torch, sc, device,
+                                               args.halos, args.nside)
         records.update(check_legendre(torch, lc, sp, device))
     if args.halos != 1_000_000 or args.nside != 1024:
         log(f"cut: paths at NSIDE {args.nside}, shell path at "
             f"{args.halos} halos")
     if "shell" in phases:
         launches = main_path(T, torch, sc, device, args.halos, args.nside)
-        records.setdefault("sorted_scatter_add", {})["launches"] = \
-            launches["sorted_scatter_add"]
+        records.setdefault("scatter_add", {})["launches"] = \
+            sum(launches[k] for k in SCATTER)
     if "cl" in phases:
         _, launches = cl_path(T, torch, sp, device, args.nside)
         records.setdefault("legendre_alm", {})["launches"] = \
@@ -737,8 +953,9 @@ def main(argv=None):
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(smi_line)
-    if set(phases) != set(PHASES):
-        log(f"partial run (phases {phases}): no ok record")
+    if set(phases) != set(PHASES) or args.root.resolve() != ROOT:
+        log(f"partial run (phases {phases}, package of {args.root}): no ok "
+            f"record")
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,13 @@ its own:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Without a GPU every test here skips. The scatter cases are those of
-tests/test_ops.py::TestPallasScatter; test_torch_scatter.py holds the
-plain version against the Pallas kernel on the same cases. The Legendre
-cases hold each SHT kernel against its plain version on the card, at
-the (nside, lmax) of tests/test_spectra.py and one larger size.
+Without a GPU every test here skips. The sorted scatter cases are those
+of tests/test_ops.py::TestPallasScatter, and the window cases are unsorted
+rows shaped like the shell runner's; test_torch_scatter.py holds the plain
+version against the JAX package on the same cases. The Legendre cases hold
+each SHT kernel against its plain version on the card, at the (nside,
+lmax) of tests/test_spectra.py and one larger size, and at the shapes
+that the analysis kernel's tiling has to get right.
 """
 
 import numpy as np
@@ -59,6 +61,46 @@ def scatter_case(name):
     raise KeyError(name)
 
 
+WINDOW_CASES = ["windows_c1", "windows_c2", "windows_c3", "windows_int64",
+                "one_pixel", "empty"]
+
+
+def window_case(name):
+    """(npix, idx, value planes f64, base accumulators f64) of unsorted
+    rows shaped like one chunk of the shell runner: per halo a row-major
+    window of consecutive pixels plus 4 fallback rows, rows outside the
+    disc aimed at the sentinel Npix. ``windows_int64`` carries int64 rows,
+    some beyond 2^31 (dropped, not wrapped); the others int32."""
+    rng = np.random.default_rng(len(name))
+    npix = 3072
+    if name == "empty":
+        idx = np.zeros(0, np.int32)
+    elif name == "one_pixel":
+        idx = np.full(5000, 77, np.int32)
+    else:
+        n_halo, n_rings, n_phi, ring_len = 6, 6, 8, 64
+        first = rng.integers(0, npix - n_rings * ring_len, n_halo)
+        first[1] = first[0] + 3                  # two overlapping halos
+        win = (first[:, None, None] + ring_len * np.arange(n_rings)[:, None]
+               + np.arange(n_phi)).reshape(n_halo, -1)
+        in_disc = rng.random(win.shape) > 0.4
+        fb = first[:, None] + np.array([0, 1, ring_len, ring_len + 1])
+        use_fb = np.arange(n_halo) == 2          # one unresolved disc
+        in_disc[use_fb] = False
+        idx = np.concatenate(
+            [np.where(in_disc, win, npix),
+             np.where(use_fb[:, None], fb, npix)], axis=1).reshape(-1)
+        if name == "windows_int64":
+            idx = idx.astype(np.int64)
+            idx[::7] = npix + 2**32 + np.arange(idx[::7].size)
+        else:
+            idx = idx.astype(np.int32)
+    n_chan = {"windows_c1": 1, "windows_c2": 2, "one_pixel": 1}.get(name, 3)
+    vals = [rng.normal(size=idx.size) for _ in range(n_chan)]
+    base = [rng.normal(size=npix) for _ in range(n_chan)]
+    return npix, idx, vals, base
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -67,12 +109,12 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("block_pix", [128, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("name", CASES)
-def test_kernel_matches_plain_version(name, dtype, block_pix, cuda_device):
-    """Kernel against the plain version on the same inputs; float32 to
-    the case's tolerance (summation order), float64 to 1e-12."""
+def test_kernel_matches_plain_version(name, dtype, cuda_device):
+    """Kernel against the plain version on sorted rows (runs of equal
+    destinations in neighbouring lanes); float32 to the case's tolerance
+    (summation order), float64 to 1e-12."""
     npix, idx, vals, base, tol, _, _ = scatter_case(name)
     ref = tuple(torch.tensor(b, dtype=dtype) for b in base)
     sc.scatter_add_accum_reference(
@@ -80,17 +122,69 @@ def test_kernel_matches_plain_version(name, dtype, block_pix, cuda_device):
                                       for v in vals))
     accs = tuple(torch.tensor(b, dtype=dtype, device=cuda_device)
                  for b in base)
-    before = sc.LAUNCHES["sorted_scatter_add"]
+    before = sc.LAUNCHES["scatter_add"]
     sc.sorted_scatter_add(accs, torch.tensor(idx, device=cuda_device),
                           tuple(torch.tensor(v, dtype=dtype,
                                              device=cuda_device)
-                                for v in vals), block_pix=block_pix)
+                                for v in vals))
     torch.cuda.synchronize()
-    assert sc.LAUNCHES["sorted_scatter_add"] == before + 1
+    assert sc.LAUNCHES["scatter_add"] == before + 1
     tol = tol if dtype == torch.float32 else 1e-12
     for g, w in zip(accs, ref):
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(),
                                    rtol=max(tol, 1e-12), atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", WINDOW_CASES)
+def test_kernel_on_unsorted_windows(name, dtype, cuda_device):
+    """Unsorted runner-shaped rows through the kernel in one launch (none
+    for an empty input) against the plain version: float64 to 1e-12,
+    float32 to 1e-5 of the largest sum (one pixel takes 5000 rows)."""
+    npix, idx, vals, base = window_case(name)
+    ref = tuple(torch.tensor(b, dtype=dtype) for b in base)
+    sc.scatter_add_accum_reference(
+        ref, torch.tensor(idx), tuple(torch.tensor(v, dtype=dtype)
+                                      for v in vals))
+    accs = tuple(torch.tensor(b, dtype=dtype, device=cuda_device)
+                 for b in base)
+    before = sc.LAUNCHES["scatter_add"]
+    out = sc.scatter_add_accum(
+        accs, torch.tensor(idx, device=cuda_device),
+        tuple(torch.tensor(v, dtype=dtype, device=cuda_device)
+              for v in vals))
+    torch.cuda.synchronize()
+    assert all(o is a for o, a in zip(out, accs))
+    assert sc.LAUNCHES["scatter_add"] == before + (idx.size > 0)
+    for g, w in zip(accs, ref):
+        if dtype == torch.float64:
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(),
+                                       rtol=1e-12, atol=1e-12)
+        else:
+            np.testing.assert_allclose(
+                g.cpu().numpy(), w.numpy(), rtol=0,
+                atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_scatter_refuses_bad_planes(cuda_device):
+    """A non-contiguous accumulator and tensors on two devices raise; a
+    non-contiguous value plane is taken (copied)."""
+    idx = torch.arange(8, dtype=torch.int32, device=cuda_device)
+    ones = torch.ones(8, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        sc.scatter_add_accum((torch.zeros(32, device=cuda_device)[::2],),
+                             idx, (ones,))
+    with pytest.raises(ValueError, match="must be on"):
+        sc.scatter_add_accum((torch.zeros(16, device=cuda_device),),
+                             idx.cpu(), (ones,))
+    with pytest.raises(ValueError, match="must be on"):
+        sc.scatter_add_accum((torch.zeros(16),), idx.cpu(), (ones,))
+    acc = torch.zeros(16, device=cuda_device)
+    sc.scatter_add_accum((acc,), idx,
+                         (torch.ones(16, device=cuda_device)[::2],))
+    assert acc.cpu().tolist() == [1.0] * 8 + [0.0] * 8
 
 
 @pytest.mark.cuda
@@ -141,10 +235,10 @@ def test_shell_on_card_matches_cpu(cuda_device):
     kw = dict(epsilon_max=20, model=model, verbose=False)
     want = T.BaryonifyShell(cat, shell, device="cpu", **kw).process()
     for prec, bar in (("float64", 1e-10), ("float32", 5e-5)):
-        before = sc.LAUNCHES["sorted_scatter_add"]
+        before = sc.LAUNCHES["scatter_add"]
         got = T.BaryonifyShell(cat, shell, device=cuda_device,
                                precision=prec, **kw).process()
-        assert sc.LAUNCHES["sorted_scatter_add"] > before
+        assert sc.LAUNCHES["scatter_add"] > before
         rms = np.sqrt(np.mean((got - want) ** 2)) / shell.map.mean()
         assert rms < bar, (prec, rms)
 
@@ -233,6 +327,42 @@ def test_legendre_synth_kernel_matches_plain(nside, lmax, dtype,
     got, want, want64 = _kernel_vs_plain("legendre_synth", nside, lmax,
                                          dtype, cuda_device, to_map)
     _assert_kernel_close(got, want, want64, dtype)
+
+
+# (nside of the seeds, lmax, rings kept): lmax < 32 (one short tile);
+# L - m never a multiple of the 32-step tile; R = 8; R not a multiple of
+# 32; and 1, 2, 4, 8 and 16 rings per thread (R up to 256, 512, 1024,
+# 2048, 4096)
+TILING_SHAPES = [(4, 11, 8), (32, 20, 50), (32, 70, 64), (128, 45, 200),
+                 (256, 33, 500), (512, 64, 1000), (1024, 40, 1100),
+                 (2048, 37, 2100), (2048, 32, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nside,lmax,rings", TILING_SHAPES)
+def test_legendre_alm_tiling_shapes(nside, lmax, rings, dtype, cuda_device):
+    """The analysis kernel on the ``rings`` rings of an NSIDE's seeds that
+    lie nearest the equator, with random folds, against its plain version, with the bars of
+    :func:`_assert_kernel_close`."""
+    L = lmax + 1
+    rng = np.random.default_rng(rings)
+    folds64 = [torch.tensor(rng.normal(size=(L, rings)), device=cuda_device)
+               for _ in range(4)]
+    outs = []
+    for dt, fn in ((dtype, lc.legendre_alm),
+                   (dtype, lc.legendre_alm_reference),
+                   (torch.float64, lc.legendre_alm_reference)):
+        c = sp._seed_consts(nside, lmax, dt, cuda_device)
+        tail = (c["p_mm"][:, -rings:].contiguous(),
+                c["sc0"][:, -rings:].contiguous(),
+                c["x"][-rings:].contiguous())
+        res = fn(*(f.to(dt) for f in folds64), *tail)
+        torch.cuda.synchronize()
+        outs.append([o.double().cpu().numpy() for o in res])
+    got, want, want64 = outs
+    _assert_kernel_close(got, want, want64, dtype)
+    assert not any(np.triu(g, 1).any() for g in got)   # m > l is zero
 
 
 @pytest.mark.cuda

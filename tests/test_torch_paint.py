@@ -144,10 +144,10 @@ def test_paint_stages_and_launches(halos, tabs):
     runner = T.PaintProfilesShell(cat, floor, epsilon_max=5, model=tabs[1],
                                   verbose=False, device="cpu")
     runner.profile = True
-    before = scatter_cuda.LAUNCHES["sorted_scatter_add"]
+    before = scatter_cuda.LAUNCHES["scatter_add"]
     out = runner.process()
     assert np.isfinite(out).all() and out.sum() > 0
-    assert scatter_cuda.LAUNCHES["sorted_scatter_add"] == before
+    assert scatter_cuda.LAUNCHES["scatter_add"] == before
     assert [k for k, _ in runner.stage_times] == ["halo_arrays", "pass",
                                                   "fetch_map"]
 

@@ -1,10 +1,13 @@
-"""Parity of the port's sorted scatter-add with the JAX Pallas kernel.
+"""Parity of the port's scatter-add with the JAX package's.
 
 The plain PyTorch version (``scatter_add_accum_reference``, what CPU
 tensors take) is held against ``sorted_scatter_add_pallas`` in interpret
-mode on the cases of ``tests/test_ops.py::TestPallasScatter``. The
-hand-written CUDA kernel is held against the plain version on the card
-in test_torch_cuda.py, which shares these cases.
+mode on the cases of ``tests/test_ops.py::TestPallasScatter``, and the
+public ``scatter_add_accum`` against the JAX package's on unsorted rows
+shaped like the shell runner's (float64, rtol 1e-12: the same rows summed
+in another order). The hand-written CUDA kernel is held against the
+plain version on the card in test_torch_cuda.py, which shares these
+cases.
 
 Tolerances: float32 sums taken in another order differ by rounding, so
 rtol 1e-6 with an atol of 1e-6 for sums that cancel to ~0 (the bar of
@@ -18,10 +21,12 @@ import torch
 
 import jax.numpy as jnp
 
-from baryonification_tpu.ops.scatter_pallas import sorted_scatter_add_pallas
+from baryonification_tpu.ops.scatter_pallas import (
+    scatter_add_accum as jax_scatter_add_accum, sorted_scatter_add_pallas)
 from baryonification_tpu_torch.ops import scatter_cuda as sc
 
-from test_torch_cuda import CASES, scatter_case as _case
+from test_torch_cuda import (CASES, WINDOW_CASES, scatter_case as _case,
+                             window_case)
 
 torch.set_num_threads(1)
 
@@ -54,14 +59,38 @@ def test_wrapper_on_cpu_unsorted_matches_pallas(name):
     npix, idx, vals, base, tol, br, tr = _case(name)
     want = _pallas(npix, idx, vals, base, br, tr)
     perm = np.random.default_rng(9).permutation(idx.size)
-    before = sc.LAUNCHES["sorted_scatter_add"]
+    before = sc.LAUNCHES["scatter_add"]
     accs = tuple(torch.tensor(b) for b in base)
     sc.scatter_add_accum(accs, torch.tensor(idx[perm]),
                          tuple(torch.tensor(v[perm]) for v in vals))
-    assert sc.LAUNCHES["sorted_scatter_add"] == before
+    assert sc.LAUNCHES["scatter_add"] == before
     for g, w in zip(accs, want):
         np.testing.assert_allclose(g.numpy(), w, rtol=max(tol, 1e-6),
                                    atol=tol)
+
+
+@pytest.mark.parametrize("name", WINDOW_CASES)
+def test_unsorted_windows_match_jax(name):
+    """What the kernel has to compute, pinned on the CPU: unsorted rows
+    of window-shaped chunks (sentinels mixed in, 1..3 planes, int32 and
+    int64 rows, every row on one pixel, no row) through the port's
+    ``scatter_add_accum`` and the JAX package's, as the CPU runs it."""
+    npix, idx, vals, base = window_case(name)
+    want = jax_scatter_add_accum(tuple(jnp.asarray(b) for b in base),
+                                 jnp.asarray(idx),
+                                 tuple(jnp.asarray(v) for v in vals))
+    before = dict(sc.LAUNCHES)
+    accs = tuple(torch.tensor(b) for b in base)
+    out = sc.scatter_add_accum(accs, torch.tensor(idx),
+                               tuple(torch.tensor(v) for v in vals))
+    assert all(o is a for o, a in zip(out, accs))       # in place
+    assert sc.LAUNCHES == before                        # no launch on CPU
+    assert accs[0].dtype == torch.float64
+    for g, w, b in zip(accs, want, base):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12,
+                                   atol=1e-12)
+        if idx.size:
+            assert not np.array_equal(g.numpy(), b)     # something landed
 
 
 def test_int64_rows_beyond_int32_are_dropped():

@@ -117,14 +117,14 @@ def test_conservation_change_and_stages(inputs, jax_model, cosmo_t):
         np.asarray(jax_model._table), False, [])
     runner = _port_runner(inputs, model, n_buckets=3)
     runner.profile = True
-    before = scatter_cuda.LAUNCHES["sorted_scatter_add"]
+    before = scatter_cuda.LAUNCHES["scatter_add"]
     new_map = runner.process()
     mass_map = inputs[1]
     assert new_map.shape == mass_map.shape
     assert np.isclose(new_map.sum(), mass_map.sum(), rtol=1e-8)
     assert not np.allclose(new_map, mass_map)
     # CPU tensors take the plain scatter, never the kernel
-    assert scatter_cuda.LAUNCHES["sorted_scatter_add"] == before
+    assert scatter_cuda.LAUNCHES["scatter_add"] == before
     labels = [label for label, _ in runner.stage_times]
     assert labels == ["halo_arrays", "pass", "regrid", "fetch_map"]
 
