@@ -42,10 +42,22 @@
 //     the version of the tile loop that tests only the others (at most 9
 //     versions). All warps of a CTA hold a like mix, so they reach the
 //     barrier together;
-//   - synthesis: the column a[:, m] (re and im) is copied into shared
-//     memory once; each thread keeps its rings' four fold sums in
-//     registers and writes [m, r] once at the end. No cross-thread
-//     reduction.
+//   - synthesis: no sum across threads, so one barrier after the set-up
+//     and none after it. The set-up packs, for every step l of the row,
+//     al(l), 1 / al(l - 1), a_r[l, m] and a_i[l, m] side by side in shared
+//     memory (each factor computed once): a step reads them in one
+//     16-byte broadcast load (two in double), issued half a pair of steps
+//     ahead. Each thread keeps its rings' four fold sums in registers and
+//     writes [m, r] once at the end. A warp's slot k is 32 neighbouring
+//     rings, k = 0 at the pole. Every kSynthChunk steps each warp alone
+//     votes on its slots and runs the version of the chunk loop that fits
+//     them (at most 9): slots out of the scaled regime run the bare
+//     recurrence and the two sums (6 arithmetic instructions an update);
+//     slots that may still rescale only take the largest |p| of their
+//     rings, and the exact rescale code sits behind one branch that the
+//     warp takes as one (a vote), with lambda = p & lit for a per-ring
+//     mask. A ring rescales once in ~30 steps, but a warp holds up to 256
+//     scaled rings, so most steps of a tested slot do take the branch.
 //
 // Bound: operations. Each kernel makes L(L+1)/2 * R (m, l, ring) updates,
 // ~8 flops each (4 in the recurrence, 2 FMAs into the sums); at NSIDE
@@ -59,8 +71,14 @@
 // no ring tests for the rescale, 246 (15.4) where all do; in double 112
 // (96 of them FP64, which hold their pipe two clocks) and 321 (144). On
 // the NSIDE-1024 seeds 68% (f32) and 70% (f64) of the updates run untested.
+// Synthesis, the same loop: 103 instructions (6.4 an update) in slots out
+// of the scaled regime, 142 (8.9) in tested slots at a step where no ring
+// of the warp rescales and 254 (15.9) where one does; in double 105, 169
+// and 320, of which 96, 96 and 144 FP64. With chunks of 64 steps 67% (f32)
+// and 70% (f64) of the updates run out of the scaled regime, 25% and 18%
+// tested at a step where their warp rescales.
 // Registers (ptxas -v, CUDA 12.8), 8 rings a thread: analysis 114 (f32) and
-// 161 (f64), synthesis 96 and 156, none spilled. Only the double kernels
+// 161 (f64), synthesis 96 and 166, none spilled. Only the double kernels
 // at 16 rings a thread (NSIDE 2048) spill.
 
 #include <cuda_runtime.h>
@@ -70,6 +88,10 @@ namespace {
 
 constexpr int kThreads = 256;  // the most; the analysis always runs these
 constexpr int kTile = 32;  // ell steps per shared-memory tile (analysis)
+// The synthesis: ell steps between two votes of a warp on its slots, an
+// even number (legendre_synth_chunk() reports it).
+constexpr int kSynthChunk = 64;
+static_assert(kSynthChunk > 0 && kSynthChunk % 2 == 0, "steps run in pairs");
 
 template <typename T>
 struct Scaling;
@@ -324,6 +346,130 @@ legendre_alm_kernel(const T* __restrict__ Ger, const T* __restrict__ Gor,
   }
 }
 
+// ---- synthesis ----
+
+// The largest |p| of a step's tested rings, so that one compare a step
+// says whether any ring may rescale. In float it is |p| itself (one
+// FMNMX a ring). In double it is the high word of |p|, kept on the integer
+// pipe and off the FP64 one: the compare is then true for every |p| > BIG
+// (and for NaN and inf), and for a few |p| just below BIG, which the exact
+// test that follows sorts out.
+template <typename T>
+struct Peak;
+template <>
+struct Peak<float> {
+  float v = 0.0f;
+  __device__ __forceinline__ void add(float p) { v = fmaxf(v, fabsf(p)); }
+  __device__ __forceinline__ bool maybe_big() const {
+    return v > Scaling<float>::big();
+  }
+};
+template <>
+struct Peak<double> {
+  int v = 0;
+  __device__ __forceinline__ void add(double p) {
+    v = max(v, __double2hiint(p) & 0x7fffffff);
+  }
+  __device__ __forceinline__ bool maybe_big() const {
+    return v >= __double2hiint(Scaling<double>::big());
+  }
+};
+// p where lit is all ones, +0 where it is 0 (a bitwise and, no FP64 pipe)
+__device__ __forceinline__ float keep_if(float p, int lit) {
+  return __int_as_float(__float_as_int(p) & lit);
+}
+__device__ __forceinline__ double keep_if(double p, int lit) {
+  return __hiloint2double(__double2hiint(p) & lit, __double2loint(p) & lit);
+}
+
+// The four scalars of step l for row m, side by side in shared memory so
+// that one 16-byte load (two in double) brings them: al(l), 1 / al(l - 1),
+// a_r[l, m], a_i[l, m].
+template <typename T>
+__device__ __forceinline__ void load_step_row(const T* row, T (&f)[4]);
+template <>
+__device__ __forceinline__ void load_step_row<float>(const float* row,
+                                                     float (&f)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(row);
+  f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
+}
+template <>
+__device__ __forceinline__ void load_step_row<double>(const double* row,
+                                                      double (&f)[4]) {
+  const double2 u = *reinterpret_cast<const double2*>(row);
+  const double2 v = *reinterpret_cast<const double2*>(row + 2);
+  f[0] = u.x, f[1] = u.y, f[2] = v.x, f[3] = v.y;
+}
+
+// One step of the synthesis for the RPT rings of one thread: the
+// recurrence and the two sums of this step's parity. f is the step's row
+// of the table. The thread's slots are of two kinds, fixed for a chunk of
+// steps by the warp's vote:
+//   k >= K0  every ring has sc == 0: no rescale can fire and lambda is p,
+//            so an update is the recurrence and the two sums;
+//   k < K0   rings may rescale. That is rare (once in many steps), so the
+//            step only keeps the largest |p| of these rings (see Peak), and
+//            the exact per-ring code of the scan body (grow, the two
+//            products by 1/FOLD, the counter) runs behind one branch that
+//            a warp takes when any of its rings may rescale.
+//            lit[k] is all ones once sc[k] == 0, else 0: lambda is
+//            p & lit.
+template <typename T, int RPT, int K0>
+__device__ __forceinline__ void synth_step(const T (&f)[4], const T (&x)[RPT],
+                                           T (&p1)[RPT], T (&p2)[RPT],
+                                           int (&sc)[RPT], int (&lit)[RPT],
+                                           T (&sr)[RPT], T (&si)[RPT]) {
+  const T al = f[0], inv_al1 = f[1], cr = f[2], ci = f[3];
+  T p[RPT];
+  Peak<T> peak;
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    p[k] = mul_rn(al, sub_rn(mul_rn(x[k], p1[k]), mul_rn(p2[k], inv_al1)));
+    if (k < K0) peak.add(p[k]);
+  }
+  // the vote makes the branch uniform: the warp takes it as one, with no
+  // divergence to manage
+  if (K0 > 0 && __any_sync(0xffffffffu, peak.maybe_big())) {
+#pragma unroll
+    for (int k = 0; k < K0; ++k) {
+      if (bt_abs(p[k]) > Scaling<T>::big() && sc[k] > 0) {
+        p[k] = mul_rn(p[k], Scaling<T>::inv_fold());
+        p1[k] = mul_rn(p1[k], Scaling<T>::inv_fold());  // the next p2
+        if (--sc[k] == 0) lit[k] = -1;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    p2[k] = p1[k];
+    p1[k] = p[k];
+    const T lam = k < K0 ? keep_if(p[k], lit[k]) : p[k];
+    sr[k] += cr * lam;
+    si[k] += ci * lam;
+  }
+}
+
+// Steps l, l + 1 (odd, then even parity of l + m: every chunk starts at an
+// odd l - m) while both lie below lend; returns the first step not done.
+// Each row of the table is loaded half a pair ahead of its step, so that
+// the load's latency lies under the other step's arithmetic; the last
+// load of a chunk reads the row after it (row L is padding).
+template <typename T, int RPT, int K0>
+__device__ __forceinline__ int synth_pairs(
+    int l, int lend, const T* tab, const T (&x)[RPT], T (&p1)[RPT],
+    T (&p2)[RPT], int (&sc)[RPT], int (&lit)[RPT], T (&ber)[RPT],
+    T (&bor)[RPT], T (&bei)[RPT], T (&boi)[RPT]) {
+  T f_odd[4], f_even[4];
+  load_step_row<T>(tab + 4 * l, f_odd);
+  for (; l + 1 < lend; l += 2) {
+    load_step_row<T>(tab + 4 * (l + 1), f_even);
+    synth_step<T, RPT, K0>(f_odd, x, p1, p2, sc, lit, bor, boi);
+    load_step_row<T>(tab + 4 * (l + 2), f_odd);
+    synth_step<T, RPT, K0>(f_even, x, p1, p2, sc, lit, ber, bei);
+  }
+  return l;
+}
+
 template <typename T, int RPT>
 __global__ void __launch_bounds__(kThreads, (RPT * sizeof(T) <= 32 ? 2 : 1))
 legendre_synth_kernel(const T* __restrict__ ar, const T* __restrict__ ai,
@@ -332,27 +478,28 @@ legendre_synth_kernel(const T* __restrict__ ar, const T* __restrict__ ai,
                       T* __restrict__ Bor, T* __restrict__ Bei,
                       T* __restrict__ Boi, int L, int R) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // for l in [m, L): a[l, m] and the two factors of step l
-  T* a_r = reinterpret_cast<T*>(smem_raw);
-  T* a_i = a_r + L;
-  T* f_al = a_i + L;
-  T* f_inv = f_al + L;
+  // rows [L + 1][4], row l: al(l), 1 / al(l - 1), a_r[l, m], a_i[l, m];
+  // row L is padding that synth_pairs may load and never uses
+  T* tab = reinterpret_cast<T*>(smem_raw);
   const int m = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
   const size_t row = static_cast<size_t>(m) * R;
   for (int l = m + tid; l < L; l += nt) {
-    a_r[l] = ar[static_cast<size_t>(l) * L + m];
-    a_i[l] = ai[static_cast<size_t>(l) * L + m];
-    f_al[l] = al_factor<T>(l, m);
-    f_inv[l] = static_cast<T>(1) / al_factor<T>(l - 1, m);
+    const T al = al_factor<T>(l, m);
+    tab[4 * l] = al;
+    if (l + 1 < L) tab[4 * (l + 1) + 1] = static_cast<T>(1) / al;
+    tab[4 * l + 2] = ar[static_cast<size_t>(l) * L + m];
+    tab[4 * l + 3] = ai[static_cast<size_t>(l) * L + m];
   }
-  __syncthreads();
+  __syncthreads();  // the only barrier: from here the warps run free
 
-  // the seed step l = m (even parity), then odd and even steps in pairs
+  // Slot k of a warp is the 32 neighbouring rings tid + k * nt, from the
+  // pole (k = 0) to the equator; rings beyond R hold zeros and sc == 0.
+  // The seed step l = m has even parity.
   T x[RPT], p1[RPT], p2[RPT], ber[RPT], bor[RPT], bei[RPT], boi[RPT];
-  int sc[RPT];
+  int sc[RPT], lit[RPT];
   {
-    const T cr = a_r[m], ci = a_i[m];
+    const T cr = tab[4 * m + 2], ci = tab[4 * m + 3];
 #pragma unroll
     for (int k = 0; k < RPT; ++k) {
       const int r = tid + k * nt;
@@ -360,31 +507,46 @@ legendre_synth_kernel(const T* __restrict__ ar, const T* __restrict__ ai,
       x[k] = in ? xs[r] : T(0);
       const T lam = seed_step<T>(in ? pmm[row + r] : T(0),
                                  in ? sc0[row + r] : 0, p1[k], p2[k], sc[k]);
+      lit[k] = sc[k] == 0 ? -1 : 0;
       ber[k] = cr * lam;
       bei[k] = ci * lam;
       bor[k] = boi[k] = T(0);
     }
   }
-  for (int l = m + 1; l < L; l += 2) {
-    {
-      const T al = f_al[l], inv_al1 = f_inv[l];
-      const T cr = a_r[l], ci = a_i[l];
+
+  // The ell loop in chunks of kSynthChunk steps. At the start of a chunk
+  // each warp alone votes on its slots: sc never rises, so a slot whose 32
+  // rings all have sc == 0 stays so, and k0, the slots from the pole that
+  // may still rescale, only falls (a warp with k0 == 0 votes no more).
+  // Slots leave in groups of kGroup, so the chunk loop exists in at most 9
+  // versions.
+  constexpr int kGroup = RPT <= 8 ? 1 : RPT / 8;
+  int k0 = RPT;
+  for (int l0 = m + 1; l0 < L; l0 += kSynthChunk) {
+    const int lend = min(l0 + kSynthChunk, L);
+    if (k0 > 0) {
+      int still = 0;
 #pragma unroll
-      for (int k = 0; k < RPT; ++k) {
-        const T lam = step<T, false>(x[k], al, inv_al1, p1[k], p2[k], sc[k]);
-        bor[k] += cr * lam;
-        boi[k] += ci * lam;
-      }
+      for (int k = 0; k < RPT; ++k)
+        if (!__all_sync(0xffffffffu, sc[k] == 0)) still = k + 1;
+      k0 = still;
     }
-    if (l + 1 < L) {
-      const T al = f_al[l + 1], inv_al1 = f_inv[l + 1];
-      const T cr = a_r[l + 1], ci = a_i[l + 1];
-#pragma unroll
-      for (int k = 0; k < RPT; ++k) {
-        const T lam = step<T, false>(x[k], al, inv_al1, p1[k], p2[k], sc[k]);
-        ber[k] += cr * lam;
-        bei[k] += ci * lam;
-      }
+    int l = l0;
+#define BT_CHUNK(Q)                                                          \
+  case Q:                                                                    \
+    if constexpr (Q * kGroup <= RPT)                                         \
+      l = synth_pairs<T, RPT, (Q * kGroup <= RPT ? Q * kGroup : RPT)>(       \
+          l, lend, tab, x, p1, p2, sc, lit, ber, bor, bei, boi);             \
+    break;
+    switch ((k0 + kGroup - 1) / kGroup) {
+      BT_CHUNK(0) BT_CHUNK(1) BT_CHUNK(2) BT_CHUNK(3) BT_CHUNK(4)
+      BT_CHUNK(5) BT_CHUNK(6) BT_CHUNK(7) BT_CHUNK(8)
+    }
+#undef BT_CHUNK
+    if (l < lend) {  // an odd count of steps ends on an odd-parity step
+      T f[4];
+      load_step_row<T>(tab + 4 * l, f);
+      synth_step<T, RPT, RPT>(f, x, p1, p2, sc, lit, bor, boi);
     }
   }
 #pragma unroll
@@ -450,7 +612,8 @@ template <typename T, int RPT>
 int launch_synth_rpt(const T* ar, const T* ai, const T* pmm, const T* x,
                      const int32_t* sc0, T* Ber, T* Bor, T* Bei, T* Boi,
                      int L, int R, int threads, cudaStream_t stream) {
-  const size_t smem = 4 * static_cast<size_t>(L) * sizeof(T);
+  // the table of step rows, one of padding
+  const size_t smem = 4 * static_cast<size_t>(L + 1) * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         legendre_synth_kernel<T, RPT>,
@@ -512,3 +675,6 @@ int launch_synth(const T* ar, const T* ai, const T* pmm, const T* x,
 
 BT_EXPORT(f32, float)
 BT_EXPORT(f64, double)
+
+// The synthesis kernel's chunk length, for whoever models its control flow.
+extern "C" int legendre_synth_chunk() { return kSynthChunk; }

@@ -64,6 +64,14 @@ def _kernel(name, dtype):
     return _FUNCS[key]
 
 
+def synth_chunk():
+    """ell steps between two votes of a warp of the synthesis kernel on its
+    slots, as built (for whoever models the kernel's control flow)."""
+    fn = load_library("legendre_sht").legendre_synth_chunk
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
 def _check(planes, planes_shape, p_mm, sc0, x):
     """Validate the inputs; returns (L, R)."""
     dt = p_mm.dtype
@@ -187,6 +195,7 @@ def legendre_alm(Ger, Gor, Gei, Goi, p_mm, sc0, x):
     L, R = _check((Ger, Gor, Gei, Goi), lambda L, R: (L, R), p_mm, sc0, x)
     if not _on_cuda("legendre_alm", p_mm.device, R):
         return legendre_alm_reference(Ger, Gor, Gei, Goi, p_mm, sc0, x)
+    # zeros: the kernel leaves the m > l triangle alone
     outs = tuple(torch.zeros((L, L), dtype=p_mm.dtype, device=p_mm.device)
                  for _ in range(2))
     _launch("legendre_alm", (Ger, Gor, Gei, Goi, p_mm, x, sc0), outs, L, R,
@@ -201,7 +210,8 @@ def legendre_synth(ar, ai, p_mm, sc0, x):
     L, R = _check((ar, ai), lambda L, R: (L, L), p_mm, sc0, x)
     if not _on_cuda("legendre_synth", p_mm.device, R):
         return legendre_synth_reference(ar, ai, p_mm, sc0, x)
-    outs = tuple(torch.zeros((L, R), dtype=p_mm.dtype, device=p_mm.device)
+    # the kernel writes every [m, r]
+    outs = tuple(torch.empty((L, R), dtype=p_mm.dtype, device=p_mm.device)
                  for _ in range(4))
     _launch("legendre_synth", (ar, ai, p_mm, x, sc0), outs, L, R,
             p_mm.device)

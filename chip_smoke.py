@@ -15,7 +15,7 @@ and fails on any fault:
      unsorted rows, as the runners make them, at two inputs (a real chunk
      of the shell path, and 4M clustered rows), with the whole call, the
      library call doing the same function, and the device launches a
-     call; legendre_alm also gets its issue bound;
+     call; both Legendre kernels also get their issue bound;
   4. shell path: the Schneider19 displacement table built on the card
      (bench.py's grid) and BaryonifyShell.process() on an NSIDE-1024
      full-sky shell with bench.py's 1e6-halo catalog, cold and warm;
@@ -350,51 +350,100 @@ def legendre_bound_ms(name, L, R, dtype):
             else (t_bytes, "bytes")), flops, n_bytes
 
 
-# Issue slots of legendre_alm per (m, l, ring) update, read from the SASS
-# of the sm_90a build (cuobjdump -sass, the 8-rings-per-thread kernels, the
-# loop over one even and one odd step of 8 rings): (an update of a slot
-# that is out of the scaled regime, any other). float32: 111 and 246
-# instructions a loop. float64: 112 (96 of them FP64) and 321 (144 FP64);
-# an FP64 instruction holds its pipe for two clocks (64 lanes a clock and
-# SM), so an update costs the larger of twice its FP64 instructions and
+# Issue slots per (m, l, ring) update of the two Legendre kernels, read from
+# the SASS of this checkout's csrc/legendre_sht.cu built for sm_90a by CUDA
+# 12.8 (cuobjdump -sass, the 8-rings-per-thread kernels, the loop over one
+# even and one odd step of 8 rings): they hold for that source only, so a
+# package of another checkout (--root) gets no issue bound. By how the
+# update's slot of 32 rings runs it: (out of the scaled regime, tested for
+# the rescale, tested at a step where its warp runs the rescale code). An
+# FP64 instruction holds its pipe for two clocks (64 lanes a clock and SM),
+# so a float64 update costs the larger of twice its FP64 instructions and
 # all its instructions.
-ALM_ISSUE_SLOTS = {"float32": (111 / 16, 246 / 16),
-                   "float64": (2 * 96 / 16, 321 / 16)}
+# legendre_alm: float32 111 and 246 instructions a loop; float64 112 (96 of
+# them FP64) and 321 (144 FP64); the rescale code is inline, so a tested
+# update costs the same at every step.
+# legendre_synth: float32 103 and 142, and 112 more for the two rescale
+# blocks behind their branches; float64 105 (96 FP64) and 169 (96 FP64),
+# and 151 (48 FP64) more for the blocks.
+SLOTS_PER_UPDATE = {
+    "legendre_alm": {"float32": (111 / 16, 246 / 16, 246 / 16),
+                     "float64": (2 * 96 / 16, 321 / 16, 321 / 16)},
+    "legendre_synth": {"float32": (103 / 16, 142 / 16, (142 + 112) / 16),
+                       "float64": (2 * 96 / 16, 2 * 96 / 16,
+                                   (169 + 151) / 16)},
+}
 N_SM, LANES_PER_SM = 132, 128
-ALM_TILE, ALM_RPT = 32, 8        # csrc/legendre_sht.cu: kTile, RPT at R=2048
+SLOT_RPT = 8        # rings a thread at R = 2048
 
 
-def alm_unscaled_share(torch, lc, c):
-    """Share of legendre_alm's (m, l, ring) updates that its kernel runs
-    without the rescale test, from the plain recurrence on this run's
-    seeds. The kernel decides by tile and by slot of 32 rings (slot k of
-    warp w is rings 32 * (8 k + w) ..): a slot runs a tile unscaled when,
-    at the tile's start, every ring of it and of the warp's slots nearer
-    the equator (higher k) has sc == 0."""
+def chunk_rules(lc):
+    """name -> (steps between two votes of a warp on its slots, steps of a
+    row's first chunk after its seed) of csrc/legendre_sht.cu: the
+    analysis's kTile, whose seed is row 0 of the first tile, and the
+    synthesis's chunk length as the library reports it."""
+    return {"legendre_alm": (32, 31),
+            "legendre_synth": (lc.synth_chunk(),) * 2}
+
+
+def slot_shares(torch, lc, c, rules):
+    """For each kernel of ``rules`` (name -> (chunk, first chunk)), shares
+    of its (m, l, ring) updates by how its kernel runs them, from the plain
+    recurrence on this run's seeds. The kernels decide by chunk and by slot
+    of 32 rings (slot k of warp w is rings 32 * (8 k + w) ..): at a chunk's
+    start a slot is out when every ring of it and of the warp's slots
+    nearer the equator (higher k) has sc == 0; the other slots are tested
+    for the rescale. (The one step a row that a kernel runs as tested
+    whatever the vote, the first or the last odd one, is counted with its
+    chunk.) Returns {name: (out, rescale)}: the share in slots that are
+    out, and the share that is tested at a step where some ring of its warp
+    does rescale, so that the warp runs the rescale code (legendre_synth
+    keeps it behind a branch)."""
     p_mm, sc0, x = c["p_mm"], c["sc0"], c["x"]
     L, R = p_mm.shape
     FOLD, BIG = lc._fold_big(p_mm.dtype)
-    n_warp, padded = 8, 32 * 8 * ALM_RPT
-    slot = torch.arange(ALM_RPT * n_warp, device=x.device)
-    real = torch.clamp(R - 32 * slot, 0, 32).double().reshape(ALM_RPT,
+    n_warp, padded = 8, 32 * 8 * SLOT_RPT
+    slot = torch.arange(SLOT_RPT * n_warp, device=x.device)
+    real = torch.clamp(R - 32 * slot, 0, 32).double().reshape(SLOT_RPT,
                                                               n_warp)
     p1, p2 = torch.zeros_like(p_mm), torch.zeros_like(p_mm)
     sc = torch.zeros_like(sc0)
-    fast = torch.zeros((), dtype=torch.float64, device=x.device)
+    acc = {name: torch.zeros(2, dtype=torch.float64, device=x.device)
+           for name in rules}
+    # per rule: the tested rings of each (row, warp) in its current chunk
+    tested = {name: torch.zeros((L, n_warp), dtype=torch.float64,
+                                device=x.device) for name in rules}
+
+    def slots(z):
+        z = torch.nn.functional.pad(z, (0, padded - R))
+        return z.reshape(-1, SLOT_RPT, n_warp, 32)
+
+    # the counters of each (row, warp) summed: sc never rises, so the sum
+    # falls at the steps where a ring of the warp rescales, and only there
+    sc_sum = torch.zeros((L, n_warp), dtype=torch.int64, device=x.device)
     for l in range(L - 1):
         k = l + 1
         lc._recurrence_step(l, k, x, p1, p2, sc, p_mm, sc0, FOLD, BIG)
-        z = torch.nn.functional.pad(sc[:k] == 0, (0, padded - R), value=True)
-        flag = z.reshape(k, ALM_RPT, n_warp, 32).all(dim=-1).double()
-        flag = flag.flip(1).cumprod(dim=1).flip(1)
-        # rows whose next tile starts at l + 1: m = l (after the seed, 31
-        # steps) and m = l + 1 - 32 t (32 steps), cut at the last l
-        m = torch.arange(k, device=x.device)
-        steps = torch.where(m == l, ALM_TILE - 1,
-                            torch.where((l + 1 - m) % ALM_TILE == 0,
-                                        ALM_TILE, 0)).clamp(max=L - 1 - l)
-        fast += (flag * steps[:, None, None] * real[None]).sum()
-    return float(fast) / ((L * (L + 1) // 2) * R)
+        now = slots(sc[:k]).sum(dim=(1, 3))
+        event = (now[:l] != sc_sum[:l]).double()     # rows m < l
+        sc_sum[:k] = now
+        out = slots(sc[:k] != 0).any(dim=-1).logical_not().double() \
+            .flip(1).cumprod(dim=1).flip(1)
+        done = l - torch.arange(k, device=x.device)   # steps since the seed
+        for name, (chunk, first) in rules.items():
+            acc[name][1] += (tested[name][:l] * event).sum()
+            # rows whose next chunk starts at l + 1, cut at the last l
+            steps = torch.where(
+                done == 0, first,
+                torch.where((done >= first) & ((done - first) % chunk == 0),
+                            chunk, 0)).clamp(max=L - 1 - l)
+            w = steps[:, None, None] * real[None]
+            acc[name][0] += (out * w).sum()
+            tested[name][:k] = torch.where(
+                steps[:, None] > 0, ((1 - out) * real[None]).sum(dim=1),
+                tested[name][:k])
+    n = (L * (L + 1) // 2) * R
+    return {name: tuple(float(v) / n for v in a) for name, a in acc.items()}
 
 
 def sm_clock_under(torch, fn, n_iter):
@@ -410,11 +459,11 @@ def sm_clock_under(torch, fn, n_iter):
     return float(out.stdout.strip().splitlines()[0])
 
 
-def check_legendre(torch, lc, sp, device, nside=1024, lmax=2048):
-    """Both Legendre kernels against their plain versions at the C_ell
-    path's shapes (L = lmax + 1, R = 2 * nside), float32 and float64.
-    Returns the two records for the kernels line."""
-    L, R = lmax + 1, 2 * nside
+def legendre_inputs(torch, sp, device, nside, lmax):
+    """float64 inputs of the two Legendre kernels: the analysis folds of a
+    random map, random a_lm planes, the float64 seeds and the Bluestein
+    length."""
+    L = lmax + 1
     rng = np.random.default_rng(12)
     hmap = torch.tensor(rng.normal(size=12 * nside**2), device=device)
     c64 = sp._seed_consts(nside, lmax, torch.float64, device)
@@ -424,10 +473,21 @@ def check_legendre(torch, lc, sp, device, nside=1024, lmax=2048):
     alm64 = tuple(torch.tensor(rng.normal(size=(L, L)) * tri * mask,
                                device=device)
                   for mask in (1.0, np.arange(L)[None, :] > 0))
+    return folds64, alm64, c64, M
+
+
+def check_legendre(torch, lc, sp, device, issue_bound, nside=1024,
+                   lmax=2048):
+    """Both Legendre kernels against their plain versions at the C_ell
+    path's shapes (L = lmax + 1, R = 2 * nside), float32 and float64, with
+    their issue bound where ``issue_bound`` (see SLOTS_PER_UPDATE). Returns
+    the two records for the kernels line."""
+    L, R = lmax + 1, 2 * nside
+    folds64, alm64, c64, M = legendre_inputs(torch, sp, device, nside, lmax)
     log(f"kernels: legendre inputs at NSIDE {nside}, lmax {lmax}: L={L} "
         f"R={R}, max sc0 (f32) = "
         f"{int(sp._seed_consts(nside, lmax, torch.float32, device)['sc0'].max())}")
-    records = {}
+    records, shares = {}, {}
     for name in ("legendre_alm", "legendre_synth"):
         rec = dict(name=name, route="cuda",
                    source="baryonification_tpu_torch/csrc/legendre_sht.cu",
@@ -492,22 +552,29 @@ def check_legendre(torch, lc, sp, device, nside=1024, lmax=2048):
                 f"TFLOP/s, {n_bytes / 1e6:.1f} MB at "
                 f"{PEAK_BYTES / 1e12:.2f} TB/s); kernel at "
                 f"{100 * bound / ms_k:.1f}% of the bound")
-            if name == "legendre_alm":
-                share = alm_unscaled_share(torch, lc, c)
-                mhz = sm_clock_under(torch, k_fn, 300)
-                s_fast, s_gen = ALM_ISSUE_SLOTS[dname]
-                slots = (L * (L + 1) // 2) * R * (share * s_fast
-                                                  + (1 - share) * s_gen)
-                issue_ms = slots / (N_SM * LANES_PER_SM * mhz * 1e6) * 1e3
-                log(f"kernels: legendre_alm {dname}: {100 * share:.1f}% of "
-                    f"the updates run without the rescale test ({s_fast:g} "
-                    f"issue slots an update, the others {s_gen:g}); at the "
-                    f"{mhz:.0f} MHz read during the run the issue bound is "
-                    f"{issue_ms:.4f} ms ({N_SM} SMs x {LANES_PER_SM} lanes);"
-                    f" kernel at {100 * issue_ms / ms_k:.1f}% of it")
             if dt == torch.float32:       # the card's SHT dtype
                 rec.update(max_abs_err=err_raw, ms=ms_k, plain_ms=ms_p,
                            bound_ms=bound, bound_by=by)
+            if not issue_bound:
+                continue
+            if dname not in shares:     # one recurrence for both kernels
+                shares[dname] = slot_shares(torch, lc, c, chunk_rules(lc))
+            out, resc = shares[dname][name]
+            mhz = sm_clock_under(torch, k_fn, 300)
+            s_out, s_test, s_resc = SLOTS_PER_UPDATE[name][dname]
+            slots = (L * (L + 1) // 2) * R * (
+                out * s_out + (1 - out - resc) * s_test + resc * s_resc)
+            issue_ms = slots / (N_SM * LANES_PER_SM * mhz * 1e6) * 1e3
+            log(f"kernels: {name} {dname}: {100 * out:.1f}% of the updates "
+                f"run in slots out of the scaled regime ({s_out:g} issue "
+                f"slots an update), {100 * resc:.1f}% tested at a step "
+                f"where their warp rescales ({s_resc:g}), the others "
+                f"tested ({s_test:g}); chunk rule "
+                f"{chunk_rules(lc)[name]}, slots from the SASS of this "
+                f"source built by CUDA 12.8; at the {mhz:.0f} MHz read "
+                f"during the run the issue bound is {issue_ms:.4f} ms "
+                f"({N_SM} SMs x {LANES_PER_SM} lanes); kernel at "
+                f"{100 * issue_ms / ms_k:.1f}% of it")
         records[name] = rec
     return records
 
@@ -926,7 +993,8 @@ def main(argv=None):
     if "kernels" in phases:
         records["scatter_add"] = check_scatter(T, torch, sc, device,
                                                args.halos, args.nside)
-        records.update(check_legendre(torch, lc, sp, device))
+        records.update(check_legendre(
+            torch, lc, sp, device, issue_bound=args.root.resolve() == ROOT))
     if args.halos != 1_000_000 or args.nside != 1024:
         log(f"cut: paths at NSIDE {args.nside}, shell path at "
             f"{args.halos} halos")

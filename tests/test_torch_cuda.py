@@ -11,7 +11,7 @@ rows shaped like the shell runner's; test_torch_scatter.py holds the plain
 version against the JAX package on the same cases. The Legendre cases hold
 each SHT kernel against its plain version on the card, at the (nside,
 lmax) of tests/test_spectra.py and one larger size, and at the shapes
-that the analysis kernel's tiling has to get right.
+that both kernels' tiling has to get right.
 """
 
 import numpy as np
@@ -329,40 +329,112 @@ def test_legendre_synth_kernel_matches_plain(nside, lmax, dtype,
     _assert_kernel_close(got, want, want64, dtype)
 
 
-# (nside of the seeds, lmax, rings kept): lmax < 32 (one short tile);
-# L - m never a multiple of the 32-step tile; R = 8; R not a multiple of
-# 32; and 1, 2, 4, 8 and 16 rings per thread (R up to 256, 512, 1024,
-# 2048, 4096)
-TILING_SHAPES = [(4, 11, 8), (32, 20, 50), (32, 70, 64), (128, 45, 200),
-                 (256, 33, 500), (512, 64, 1000), (1024, 40, 1100),
-                 (2048, 37, 2100), (2048, 32, 4096)]
+# (nside of the seeds, lmax, rings kept, which rings): lmax < 32 (one short
+# tile or chunk); L - m never a multiple of the 32 or 64 steps; R = 8; R not a
+# multiple of 32; 1, 2, 4, 8 and 16 rings per thread (R up to 256, 512,
+# 1024, 2048, 4096), all on the rings nearest the equator; and the 256
+# polar rings of NSIDE 512 up to lmax 600, which leave the scaled regime
+# one after the other, most of them in the middle of a chunk
+TILING_SHAPES = [(4, 11, 8, "equator"), (32, 20, 50, "equator"),
+                 (32, 70, 64, "equator"), (128, 45, 200, "equator"),
+                 (256, 33, 500, "equator"), (512, 64, 1000, "equator"),
+                 (1024, 40, 1100, "equator"), (2048, 37, 2100, "equator"),
+                 (2048, 32, 4096, "equator"), (512, 600, 256, "polar")]
+
+
+def _first_lit_steps(p_mm, sc0, x):
+    """For every (m, ring) that starts scaled and leaves the scaled regime
+    before lmax: l - m - 1 of the step at which its sc reaches 0 (modulo
+    the synthesis kernel's chunk length, the step's place in its chunk),
+    by the plain recurrence."""
+    L, R = p_mm.shape
+    FOLD, BIG = lc._fold_big(p_mm.dtype)
+    p1, p2 = torch.zeros_like(p_mm), torch.zeros_like(p_mm)
+    sc = torch.zeros_like(sc0)
+    m = torch.arange(L, device=x.device)[:, None].expand(L, R)
+    places = []
+    for l in range(L):
+        before = sc[:l] > 0
+        lc._recurrence_step(l, l + 1, x, p1, p2, sc, p_mm, sc0, FOLD, BIG)
+        lit = before & (sc[:l] == 0)
+        places.append(l - m[:l][lit] - 1)
+    return torch.cat(places)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nside,lmax,rings", TILING_SHAPES)
-def test_legendre_alm_tiling_shapes(nside, lmax, rings, dtype, cuda_device):
-    """The analysis kernel on the ``rings`` rings of an NSIDE's seeds that
-    lie nearest the equator, with random folds, against its plain version, with the bars of
+@pytest.mark.parametrize("nside,lmax,rings,which", TILING_SHAPES)
+@pytest.mark.parametrize("name", ["legendre_alm", "legendre_synth"])
+def test_legendre_tiling_shapes(name, nside, lmax, rings, which, dtype,
+                                cuda_device):
+    """Each kernel on ``rings`` rings of an NSIDE's seeds (those nearest
+    the equator, or the polar ones), with random inputs, against its plain
+    version, output by output with the bars of
     :func:`_assert_kernel_close`."""
     L = lmax + 1
     rng = np.random.default_rng(rings)
-    folds64 = [torch.tensor(rng.normal(size=(L, rings)), device=cuda_device)
-               for _ in range(4)]
-    outs = []
-    for dt, fn in ((dtype, lc.legendre_alm),
-                   (dtype, lc.legendre_alm_reference),
-                   (torch.float64, lc.legendre_alm_reference)):
+    cut = slice(-rings, None) if which == "equator" else slice(0, rings)
+    if name == "legendre_alm":
+        ins64 = [torch.tensor(rng.normal(size=(L, rings)),
+                              device=cuda_device) for _ in range(4)]
+    else:
+        tri = np.tril(np.ones((L, L)))
+        ins64 = [torch.tensor(rng.normal(size=(L, L)) * tri,
+                              device=cuda_device) for _ in range(2)]
+    outs, tails = [], []
+    for dt, fn in ((dtype, getattr(lc, name)),
+                   (dtype, getattr(lc, name + "_reference")),
+                   (torch.float64, getattr(lc, name + "_reference"))):
         c = sp._seed_consts(nside, lmax, dt, cuda_device)
-        tail = (c["p_mm"][:, -rings:].contiguous(),
-                c["sc0"][:, -rings:].contiguous(),
-                c["x"][-rings:].contiguous())
-        res = fn(*(f.to(dt) for f in folds64), *tail)
+        tails.append((c["p_mm"][:, cut].contiguous(),
+                      c["sc0"][:, cut].contiguous(),
+                      c["x"][cut].contiguous()))
+        res = fn(*(f.to(dt) for f in ins64), *tails[-1])
         torch.cuda.synchronize()
         outs.append([o.double().cpu().numpy() for o in res])
+    if which == "polar":
+        chunk = lc.synth_chunk()
+        places = _first_lit_steps(*tails[0]) % chunk
+        assert int(((places > 0) & (places < chunk - 1)).sum()) > 1000
     got, want, want64 = outs
     _assert_kernel_close(got, want, want64, dtype)
-    assert not any(np.triu(g, 1).any() for g in got)   # m > l is zero
+    if name == "legendre_alm":
+        assert not any(np.triu(g, 1).any() for g in got)   # m > l is zero
+    else:
+        assert all(np.isfinite(g).all() for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_legendre_synth_writes_every_output(dtype, cuda_device):
+    """The synthesis wrapper hands the kernel uninitialised planes: with
+    the allocator's free blocks full of NaN, at an R (50) that is no
+    multiple of the thread count, every [m, r] comes back written and
+    equal to the plain version's."""
+    nside, lmax, rings = 32, 70, 50
+    L = lmax + 1
+    rng = np.random.default_rng(3)
+    tri = np.tril(np.ones((L, L)))
+    ar, ai = (torch.tensor(rng.normal(size=(L, L)) * tri, dtype=dtype,
+                           device=cuda_device) for _ in range(2))
+    c = sp._seed_consts(nside, lmax, dtype, cuda_device)
+    tail = (c["p_mm"][:, -rings:].contiguous(),
+            c["sc0"][:, -rings:].contiguous(), c["x"][-rings:].contiguous())
+    want = lc.legendre_synth_reference(ar, ai, *tail)
+    poison = [torch.full((L, rings), float("nan"), dtype=dtype,
+                         device=cuda_device) for _ in range(8)]
+    torch.cuda.synchronize()
+    del poison                      # back to the allocator, still NaN
+    got = lc.legendre_synth(ar, ai, *tail)
+    torch.cuda.synchronize()
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        # the same terms in the same order; the kernel fuses the multiply
+        # into the add of each sum
+        atol = (1e-12 if dtype == torch.float64 else 1e-5) * scale
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                   atol=atol)
 
 
 @pytest.mark.cuda

@@ -6,6 +6,8 @@
   tests/test_spectra.py (test_pallas_legendre_kernel_parity and
   test_pallas_synth_kernel_parity): both are float32 with sums taken in
   another order.
+- The facts that the CUDA synthesis kernel's control flow relies on, shown
+  on the plain recurrence.
 - The SHT and the power spectra in float64 on the CPU against the JAX
   package's CPU path on the same numpy inputs, rtol 1e-10: the same
   algorithms, rounding apart (atol 1e-12 of the largest value, for the
@@ -104,6 +106,102 @@ def test_legendre_synth_reference_matches_pallas(nside, lmax):
     f_got = to_map(g.numpy() for g in got)
     scale = np.abs(f_want).max()
     np.testing.assert_allclose(f_got, f_want, rtol=2e-5, atol=5e-6 * scale)
+
+
+# ----- what the synthesis kernel's control flow relies on -----
+
+# at (64, 191) counters fall to 0 in both dtypes; at the smaller sizes few
+# (float32) or none (float64) do before lmax
+RECURRENCE_CASES = [(dt, nside, lmax)
+                    for dt in (torch.float32, torch.float64)
+                    for nside, lmax in ((16, 47), (32, 95), (64, 191))]
+
+
+def _factors(l, L, dt):
+    """al(l) and 1 / al(l - 1) for rows m = 0..L-1, (L, 1), with the
+    expressions of ``_recurrence_step``."""
+    mf = torch.arange(L, dtype=dt)[:, None]
+    lf = float(l)
+    al = torch.sqrt(max((2 * lf - 1) * (2 * lf + 1), 0.5)
+                    / torch.clamp((lf - mf) * (lf + mf), min=0.5))
+    al1 = torch.sqrt(max((2 * lf - 3) * (2 * lf - 1), 0.5)
+                     / torch.clamp((lf - 1 - mf) * (lf - 1 + mf), min=0.5))
+    return al, 1.0 / al1
+
+
+def _trajectory(dtype, nside, lmax):
+    """The plain recurrence step by step: yields (l, state before the step
+    (p1, p2, sc), state after it (p1, sc), lambda), rows m <= l."""
+    c = TS._seed_consts(nside, lmax, dtype, CPU)
+    p_mm, sc0, x = c["p_mm"], c["sc0"], c["x"]
+    assert int(sc0.max()) > 0               # the scaled regime is engaged
+    FOLD, BIG = LC._fold_big(dtype)
+    p1, p2 = torch.zeros_like(p_mm), torch.zeros_like(p_mm)
+    sc = torch.zeros_like(sc0)
+    for l in range(lmax + 1):
+        k = l + 1
+        before = (p1[:k].clone(), p2[:k].clone(), sc[:k].clone())
+        lam, _ = LC._recurrence_step(l, k, x, p1, p2, sc, p_mm, sc0, FOLD,
+                                     BIG)
+        yield l, x, before, (p1[:k], sc[:k]), lam
+
+
+@pytest.mark.parametrize("dtype,nside,lmax", RECURRENCE_CASES)
+def test_recurrence_counter_never_rises(dtype, nside, lmax):
+    """sc falls by at most one a step and never rises (rows m < l; row
+    m = l is seeded at this step), so a slot that is out of the scaled
+    regime stays out."""
+    fell = 0
+    for l, _, (_, _, sc_b), (_, sc_a), _ in _trajectory(dtype, nside, lmax):
+        d = sc_b[:l] - sc_a[:l]
+        assert bool(((d == 0) | (d == 1)).all())
+        fell += int(d.sum())
+    if nside == 64:
+        assert fell > 1000
+
+
+@pytest.mark.parametrize("dtype,nside,lmax", RECURRENCE_CASES)
+def test_recurrence_lambda_zero_while_scaled(dtype, nside, lmax):
+    """lambda is exactly 0 wherever sc > 0 after the step, and p itself
+    wherever sc == 0."""
+    for l, _, _, (p1_a, sc_a), lam in _trajectory(dtype, nside, lmax):
+        assert bool((lam[sc_a > 0] == 0).all())
+        assert torch.equal(lam[sc_a == 0], p1_a[sc_a == 0])
+
+
+@pytest.mark.parametrize("dtype,nside,lmax", RECURRENCE_CASES)
+def test_recurrence_untested_step_same_bits(dtype, nside, lmax):
+    """Where sc == 0 before a step, the step without the rescale test,
+    al * (x * p1 - p2 * (1 / al1)) and no ``where``, gives the bits of the
+    full step, for p, for lambda and for the next p2."""
+    seen = 0
+    for l, x, (p1_b, p2_b, sc_b), (p1_a, _), lam in _trajectory(dtype, nside,
+                                                                lmax):
+        al, inv_al1 = _factors(l, l + 1, dtype)
+        bare = al * (x * p1_b - p2_b * inv_al1)
+        out = sc_b[:l] == 0                  # rows m < l (m = l is the seed)
+        assert torch.equal(bare[:l][out], p1_a[:l][out])
+        assert torch.equal(bare[:l][out], lam[:l][out])
+        seen += int(out.sum())
+    assert seen > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nside,lmax,pad", [(16, 47, 5), (32, 95, 32)])
+def test_padding_rings_add_nothing(nside, lmax, pad, dtype):
+    """Both kernels fill the slots beyond the last ring with x = 0, seed 0
+    and sc = 0. Such rings stay 0 through every step, so the synthesis
+    gives them zeros and leaves the bits of the real rings alone."""
+    c = TS._seed_consts(nside, lmax, dtype, CPU)
+    ar, ai = (_t(a).to(dtype) for a in _random_alm(lmax + 1, 300 + nside))
+    want = LC.legendre_synth_reference(ar, ai, c["p_mm"], c["sc0"], c["x"])
+    padded = [torch.nn.functional.pad(c[k], (0, pad)).contiguous()
+              for k in ("p_mm", "sc0", "x")]
+    got = LC.legendre_synth_reference(ar, ai, *padded)
+    R = c["x"].shape[0]
+    for g, w in zip(got, want):
+        assert torch.equal(g[:, :R], w)
+        assert not bool(g[:, R:].any())
 
 
 def test_seeds_match_jax():
