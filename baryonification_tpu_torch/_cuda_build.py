@@ -22,6 +22,10 @@ _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# flags of one source only: the cell-major pass rounds operation for
+# operation as its plain PyTorch version does, so nothing is contracted
+# into an FMA there
+_SOURCE_FLAGS = {"cellmajor_pass": ["--fmad=false"]}
 _LIBS = {}
 #: source name -> the compiler's output of this process's build
 BUILD_LOG = {}
@@ -46,13 +50,14 @@ def load_library(name):
     if name in _LIBS:
         return _LIBS[name]
     src = _CSRC / f"{name}.cu"
+    flags = _ARCH_FLAGS + _SOURCE_FLAGS.get(name, [])
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(_ARCH_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(flags).encode()).hexdigest()[:16]
     _BUILD.mkdir(exist_ok=True)
     lib_path = _BUILD / f"lib{name}_{digest}.so"
     if not lib_path.exists():
         tmp = _BUILD / f".lib{name}_{digest}.{os.getpid()}.so"
-        cmd = [nvcc_path(), *_ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+        cmd = [nvcc_path(), *flags, "-std=c++17", "-O3", "-shared",
                "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-o", str(tmp),
                str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)

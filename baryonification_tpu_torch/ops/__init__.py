@@ -1,8 +1,9 @@
 """Tensor operations: FFTLog, interpolation, HEALPix geometry, the
 spectra (power spectra and SHT), and the hand-written kernels
-(scatter-add, Legendre recurrences)."""
+(scatter-add, Legendre recurrences, the cell-major shell pass)."""
 
-from . import fftlog, healpix, interp, legendre_cuda, scatter_cuda, spectra
+from . import (cellmajor_cuda, fftlog, healpix, interp, legendre_cuda,
+               scatter_cuda, spectra)
 
-__all__ = ["fftlog", "healpix", "interp", "legendre_cuda", "scatter_cuda",
-           "spectra"]
+__all__ = ["cellmajor_cuda", "fftlog", "healpix", "interp", "legendre_cuda",
+           "scatter_cuda", "spectra"]

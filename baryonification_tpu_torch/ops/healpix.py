@@ -1,10 +1,11 @@
 """HEALPix RING-scheme geometry in PyTorch: the shell runner's subset.
 
 The port of the parts of ``baryonification_tpu.ops.healpix`` that the
-shell runner's ``scatter`` method calls: pixel/angle conversions, ring
-bookkeeping, bilinear interpolation weights (closed form and table
-based), per-ring tables, on-device pixel-centre planes and the
-fixed-shape disc window that replaces healpy's ``query_disc``.
+shell runner's ``scatter`` and ``cellmajor`` methods call: pixel/angle
+conversions, ring bookkeeping, bilinear interpolation weights (closed
+form and table based), per-ring tables, on-device pixel-centre planes,
+the fixed-shape disc window that replaces healpy's ``query_disc``, and
+the NESTED <-> RING conversions.
 
 Conventions match HEALPix: theta = colatitude in [0, pi], phi in [0, 2pi),
 ring index i = 1..4n-1 (Gorski et al. 2005). Closed-form functions
@@ -16,16 +17,22 @@ import math
 
 import torch
 
-__all__ = ["npix", "ang2vec", "vec2ang", "radec2ang",
+__all__ = ["npix", "nside2resol", "ang2vec", "vec2ang", "radec2ang",
            "pix2ang", "pix2vec", "ring_info", "z_to_ring",
            "get_interp_weights", "get_interp_weights_parts", "RingTables",
            "pixel_planes_device", "ring_above_tab",
            "get_interp_weights_parts_tab", "get_interp_weights_tab",
-           "disc_window_mask_tab"]
+           "disc_window_mask_tab", "nest2ring", "ring2nest",
+           "nest2ring_all"]
 
 
 def npix(nside):
     return 12 * nside * nside
+
+
+def nside2resol(nside):
+    """Mean pixel spacing in radians (healpy parity)."""
+    return math.sqrt(4.0 * math.pi / npix(nside))
 
 
 def ang2vec(theta, phi):
@@ -334,3 +341,123 @@ def disc_window_mask_tab(tables, theta0, phi0, radius, n_rings, n_phi):
     slot_ok = (m >= -torch.div(span, 2, rounding_mode="floor")) \
         & (m < span - torch.div(span, 2, rounding_mode="floor"))
     return pix, valid & slot_ok
+
+
+# ----- NESTED ordering -----
+#
+# The cell-major pass wants the fine pixels of any coarse cell contiguous
+# in memory, which is the NESTED hierarchy: fine nested pixel p at nside
+# belongs to coarse nested cell p >> 2k at nside >> k. The conversions
+# follow the HEALPix (face, x, y) decomposition (Gorski et al. 2005), as
+# int64 bit arithmetic on the ids' device.
+
+_JRLL = (2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4)
+_JPLL = (1, 3, 5, 7, 0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _face_table(table, face):
+    return torch.tensor(table, dtype=torch.int64, device=face.device)[face]
+
+
+def _floordiv(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _compress_bits(v):
+    """Keep the even-position bits of v (int64, >= 0) and pack them."""
+    v = v & 0x5555555555555555
+    v = (v | (v >> 1)) & 0x3333333333333333
+    v = (v | (v >> 2)) & 0x0F0F0F0F0F0F0F0F
+    v = (v | (v >> 4)) & 0x00FF00FF00FF00FF
+    v = (v | (v >> 8)) & 0x0000FFFF0000FFFF
+    v = (v | (v >> 16)) & 0x00000000FFFFFFFF
+    return v
+
+
+def _spread_bits(v):
+    """Inverse of _compress_bits: spread the bits to even positions."""
+    v = v & 0x00000000FFFFFFFF
+    v = (v | (v << 16)) & 0x0000FFFF0000FFFF
+    v = (v | (v << 8)) & 0x00FF00FF00FF00FF
+    v = (v | (v << 4)) & 0x0F0F0F0F0F0F0F0F
+    v = (v | (v << 2)) & 0x3333333333333333
+    v = (v | (v << 1)) & 0x5555555555555555
+    return v
+
+
+def nest2ring(nside, ipnest):
+    """NESTED -> RING pixel ids (int64 tensor on the ids' device)."""
+    n = int(nside)
+    p = ipnest.to(torch.int64)
+    face = _floordiv(p, n * n)
+    rem = p - face * n * n
+    x = _compress_bits(rem)
+    y = _compress_bits(rem >> 1)
+
+    jr = _face_table(_JRLL, face) * n - x - y - 1      # ring 1..4n-1
+    npx = 12 * n * n
+    ncap = 2 * n * (n - 1)
+    north = jr < n
+    south = jr > 3 * n
+    nr = torch.where(north, jr, torch.where(south, 4 * n - jr, n))
+    start = torch.where(north, 2 * nr * (nr - 1),
+                        torch.where(south, npx - 2 * nr * (nr + 1),
+                                    ncap + (jr - n) * 4 * n))
+    kshift = torch.where(north | south, 0, (jr - n) & 1)
+    jp = _floordiv(_face_table(_JPLL, face) * nr + x - y + 1 + kshift, 2)
+    jp = torch.where(jp > 4 * nr, jp - 4 * nr, jp)
+    jp = torch.where(jp < 1, jp + 4 * nr, jp)
+    return start + jp - 1
+
+
+def ring2nest(nside, ipring):
+    """RING -> NESTED pixel ids (int64 tensor on the ids' device). The
+    cap ring number takes a square root, in float64: exact for every
+    NSIDE up to 8192."""
+    n = int(nside)
+    p = ipring.to(torch.int64)
+    npx = 12 * n * n
+    ncap = 2 * n * (n - 1)
+    north = p < ncap
+    south = p >= npx - ncap
+
+    def cap_ring(q):
+        qh = (q + 1).to(torch.float64) * 0.5
+        return (torch.floor(torch.sqrt(torch.clamp(
+            qh - torch.sqrt(torch.floor(qh)), min=0.0))) + 1).to(torch.int64)
+
+    i_n = cap_ring(p)
+    i_s = cap_ring(npx - 1 - p)
+    jr = torch.where(north, i_n, torch.where(
+        south, 4 * n - i_s, _floordiv(p - ncap, 4 * n) + n))
+    nr = torch.where(north, i_n, torch.where(south, i_s, n))
+    start = torch.where(north, 2 * nr * (nr - 1),
+                        torch.where(south, npx - 2 * nr * (nr + 1),
+                                    ncap + (jr - n) * 4 * n))
+    jp = p - start + 1
+    kshift = torch.where(north | south, 0, (jr - n) & 1)
+
+    # face from the ring coordinates
+    ire = jr - n + 1                          # 1..2n+1 in the equator
+    irm = 2 * n + 2 - ire
+    ifm = _floordiv(jp - _floordiv(ire, 2) + n - 1, n)
+    ifp = _floordiv(jp - _floordiv(irm, 2) + n - 1, n)
+    face_eq = torch.where(ifp == ifm, (ifp & 3) + 4,
+                          torch.where(ifp < ifm, ifp & 3, (ifm & 3) + 8))
+    nr_safe = torch.clamp(nr, min=1)
+    face_n = _floordiv(jp - 1, nr_safe)       # north cap: faces 0..3
+    face_s = 8 + _floordiv(jp - 1, nr_safe)
+    face = torch.where(north, face_n, torch.where(south, face_s, face_eq))
+
+    irt = jr - _face_table(_JRLL, face) * n + 1      # -n+1 .. 0
+    ipt = 2 * jp - _face_table(_JPLL, face) * nr - kshift - 1
+    ipt = torch.where(ipt >= 2 * n, ipt - 8 * n, ipt)
+    x = _floordiv(ipt - irt, 2)
+    y = _floordiv(-ipt - irt, 2)
+    return face * n * n + (_spread_bits(x) | (_spread_bits(y) << 1))
+
+
+def nest2ring_all(nside, device):
+    """RING id of every NESTED pixel, in NESTED order (int64 on
+    ``device``)."""
+    return nest2ring(nside, torch.arange(npix(nside), device=device))

@@ -1,29 +1,50 @@
 """Runner ``method`` dispatch.
 
-The JAX package picks between three formulations of the shell pass:
-``cellmajor`` (its accelerator fast path), ``gather`` (a cross-check)
-and ``scatter`` (halo-major windows ending in the sorted scatter-add; the
-reference semantics). Only ``scatter`` is ported so far, so here
-``'auto'`` resolves to ``'scatter'`` on every device. The other two are
-methods not yet ported (ROADMAP queue B, item B2, for ``cellmajor``), not
-fallbacks: asking for them raises.
+The shell runners have two ported formulations: ``cellmajor`` (NESTED
+pixels, candidate lists per coarse cell, one dense pass per bucket; the
+fast path on the card) and ``scatter`` (halo-major windows ending in a
+scatter-add; the reference semantics). ``'auto'`` resolves as in the JAX
+package: the slow method on the CPU, ``cellmajor`` on an accelerator
+when the configuration allows it, and otherwise the slow method with a
+warning that names the reason; an explicit ``'cellmajor'`` that the
+configuration does not allow raises with the same reason. The JAX
+package's third method, ``gather`` (a cross-check formulation), is not
+ported: asking for it raises.
 """
+
+import warnings
 
 __all__ = ["resolve_method"]
 
-_NOT_PORTED = {
-    "cellmajor": "ROADMAP item B2 (cellmajor_offsets_pass)",
-    "gather": "ROADMAP queue A (runners/shell_gather.py)",
-}
 
+def resolve_method(method, why_not, slow_name, device_type):
+    """Resolve a runner ``method`` kwarg.
 
-def resolve_method(method):
-    """Resolve a runner ``method`` kwarg: 'auto' | 'scatter' | 'cellmajor'
-    | 'gather'. Returns 'scatter' or raises."""
-    if method in ("auto", "scatter"):
-        return "scatter"
-    if method in _NOT_PORTED:
+    method : 'auto' | 'cellmajor' | 'scatter' | 'gather'
+    why_not : None if the cell-major path supports this configuration,
+              else a short reason (the warning / error text)
+    slow_name : the reference-semantics method ('scatter')
+    device_type : the runner's device type ('cpu' or 'cuda'), in place of
+                  the JAX package's default backend
+    """
+    if method == "auto":
+        if device_type == "cpu":
+            return slow_name
+        if why_not is None:
+            return "cellmajor"
+        warnings.warn(f"falling back to the '{slow_name}' method "
+                      f"({why_not})")
+        return slow_name
+    if method == "cellmajor":
+        if why_not is not None:
+            raise ValueError(f"method='cellmajor' unsupported here: "
+                             f"{why_not}; use '{slow_name}'")
+        return method
+    if method == "scatter":
+        return method
+    if method == "gather":
         raise NotImplementedError(
-            f"method={method!r} is not ported to PyTorch yet (see "
-            f"{_NOT_PORTED[method]}); use method='scatter'")
+            "method='gather' (the JAX package's pixel-major cross-check, "
+            "runners/shell_gather.py) is not ported to PyTorch; see ROADMAP "
+            "queue A. Use method='cellmajor' or 'scatter'")
     raise ValueError(f"unknown method {method!r}")

@@ -1,21 +1,26 @@
 """Full-sky HEALPix shell baryonification and painting in PyTorch.
 
-The port of ``baryonification_tpu.runners.shell`` for the ``scatter``
-method (the reference semantics). ``BaryonifyShell.process`` runs three
-stages on the runner's device:
+The port of ``baryonification_tpu.runners.shell`` for its two main
+methods. ``method="cellmajor"`` (what ``"auto"`` takes on the card)
+groups the halos by coarse-cell level, lists for every coarse cell the
+halos that can reach it, and runs one dense pass per group over all
+pixels in NESTED order (``runners/shell_cellmajor.py``; the pass is the
+hand-written CUDA kernel ``ops.cellmajor_cuda`` on a GPU). ``method=
+"scatter"`` (the reference semantics, ``"auto"`` on the CPU) runs:
 
   (A) per-halo gather: fixed-shape disc windows, bucketed by angular size
       so the padding stays tight, batched over chunks of halos;
   (B) displacement-table readout and unit-vector offset accumulation into
-      three full-sky offset planes, one sorted scatter-add per chunk (the
+      three full-sky offset planes, one scatter-add per chunk (the
       hand-written CUDA kernel on a GPU, ``ops.scatter_cuda``); offsets
-      from overlapping halos add before the regrid;
-  (C) one regrid: 4-neighbour bilinear weights for every displaced pixel,
-      a scatter-add of the original mass, then the mass-conservation
-      check.
+      from overlapping halos add before the regrid.
 
-``PaintProfilesShell.process`` shares stage (A) and ends each chunk in a
-one-plane sorted scatter-add of the tabulated projected profile.
+``BaryonifyShell.process`` ends both methods in (C) one regrid: 4-neighbour
+bilinear weights for every displaced pixel, a scatter-add of the original
+mass, then the mass-conservation check (the cell-major method regrids in
+NESTED order; the deposit targets are RING ids either way).
+``PaintProfilesShell.process`` adds the tabulated projected profile
+instead and has no regrid.
 
 Precision: ``precision="auto"`` is float64 on the CPU and float32 on
 CUDA, as in the JAX package. The per-halo preprocessing runs in float64
@@ -30,12 +35,41 @@ import torch
 
 from ..cosmology import Cosmology, MassDef
 from ..ops import healpix as hpx
+from ..ops.cellmajor_cuda import cellmajor_pass
 from ..ops.interp import blend_table_radial, radial_readout
 from ..ops.scatter_cuda import scatter_add_accum
 from ..utils import resolve_device
+from . import shell_cellmajor as cm
 from ._method import resolve_method
 
 __all__ = ['DefaultRunner', 'BaryonifyShell', 'PaintProfilesShell']
+
+
+def _pack_from_angles(theta, phi, D, a, R_com, M, props):
+    """The cell-major packed halo records (``props`` is the (H, n_props)
+    extra-table-axis coordinate matrix, possibly zero-width)."""
+    st = torch.sin(theta)
+    return cm.pack_halo_records(st * torch.cos(phi), st * torch.sin(phi),
+                                torch.cos(theta), D, a, R_com,
+                                torch.log(R_com), torch.log(1.0 / a),
+                                torch.log(M), props=props)
+
+
+def _buckets_by_nsidec(radii, nside, nside_c_min=1):
+    """Group halos by their coarse-cell level (host-side numpy): the
+    nside_c whose cell size matches the disc radius, clipped to
+    [nside_c_min, nside]. One dense pass per level; returns
+    [(nside_c, index array)] from fine to coarse."""
+    radii = np.asarray(radii)
+    t = np.sqrt(np.pi / 3.0) / np.maximum(radii, 1e-4)
+    n_c = np.clip(2.0 ** np.round(np.log2(t)), nside_c_min,
+                  nside).astype(np.int64)
+    out = []
+    for val in np.unique(n_c)[::-1]:          # fine -> coarse
+        idx = np.where(n_c == val)[0]
+        if idx.size:
+            out.append((int(val), idx))
+    return out
 
 
 def _bucket_edges(radii, n_buckets):
@@ -136,7 +170,13 @@ class DefaultRunner:
                          else "float32")
         self.dtype = getattr(torch, precision) if isinstance(precision, str) \
             else precision
-        self.method = resolve_method(method)
+        n_props = len(getattr(model, 'p_keys', []) or [])
+        why_not = None
+        if n_props > cm.MAX_PROPS:
+            why_not = (f"model has {n_props} extra parameter axes; "
+                       f"the packed records fit at most {cm.MAX_PROPS}")
+        self.method = resolve_method(method, why_not, "scatter",
+                                     self.device.type)
         if use_ellipticity:
             raise NotImplementedError(
                 "use_ellipticity = True is not implemented for the "
@@ -178,8 +218,199 @@ class DefaultRunner:
     def _check_catalog_caches(self):
         """Drop catalog-derived caches if the catalog object was swapped."""
         if getattr(self, '_cache_cat', None) is not self.HaloLightConeCatalog:
-            self.__dict__.pop('_halo_arrays_cache', None)
+            for attr in ('_halo_arrays_cache', '_packed_cache',
+                         '_dense_cache', '_groups_cache'):
+                self.__dict__.pop(attr, None)
             self._cache_cat = self.HaloLightConeCatalog
+
+    # ----- cell-major helpers -----
+    def _cm_groups(self, arrs, nside):
+        """Cell-major bucket grouping, cached per catalog: [(nside_c, (H,)
+        halo ids on the device, max disc radius, max R_com)].
+
+        The pass level is floored at ``min_f_pixels`` pixels per cell
+        (default 4, i.e. nside_c <= nside / 2): with one pixel a cell the
+        per-slot work is amortised over one pixel only, so that level
+        merges into its parent."""
+        cache = self.__dict__.setdefault('_groups_cache', {})
+        if nside not in cache:
+            f_min = int(getattr(self, 'min_f_pixels', 4))
+            nsc_cap = max(1, nside // max(1, int(f_min ** 0.5)))
+            radius = arrs['radius'].cpu().numpy()
+            r_com = arrs['R_com'].cpu().numpy()
+            dev = arrs['theta'].device
+            cache[nside] = [
+                (nsc, torch.as_tensor(idx, device=dev),
+                 float(radius[idx].max()), float(r_com[idx].max()))
+                for nsc, idx in _buckets_by_nsidec(radius, nsc_cap)]
+        return cache[nside]
+
+    def _dense_candidates(self, bi, nside_c, sub, r_b):
+        """Dense NESTED-cell candidate matrix of bucket ``bi``, cached
+        (``sub`` is a zero-argument callable giving the bucket's theta,
+        phi and radius in the hot-path dtype; called on a cache miss).
+
+        Returns (dense, counts, K, nside_c_eff): while K is large, the
+        lists are refined one level finer at a time
+        (:func:`shell_cellmajor.refine_cell_candidates`), since the pass's
+        work is npix * K and the registration margin inflates K ~2x. K_pad
+        (the dense matrix's row length) is K itself: the JAX package's
+        coarser ladder only shares TPU compiles."""
+        cache = self.__dict__.setdefault('_dense_cache', {})
+        dt = self.dtype
+        key = (bi, nside_c, dt)
+        if key in cache:
+            return cache[key]
+        sub = sub()
+        hids, cell_start, K = cm.coarse_halo_index(
+            nside_c, sub['theta'], sub['phi'], sub['radius'], r_max=r_b,
+            cell_map=self._cell_map_nested(nside_c))
+        dense, counts = cm.dense_cell_candidates(hpx.npix(nside_c), max(K, 1),
+                                                 hids, cell_start)
+        nside = self.LightconeShell.NSIDE
+        nsc = nside_c
+        # refine while K is margin-dominated, the child level stays within
+        # the margin's validated range (<= 512), and enough pixels per
+        # cell remain to amortise the per-slot work
+        k_min = getattr(self, 'refine_k_min', 48)
+        while (K >= k_min and 2 * nsc <= 512 and 2 * nsc <= nside
+               and (nside // (2 * nsc)) ** 2 >= 64):
+            nsc *= 2
+            cvx, cvy, cvz = self._cell_centers_nested(nsc, dt)
+            th, ph = sub['theta'], sub['phi']
+            st = torch.sin(th)
+            hrec = torch.stack([st * torch.cos(ph), st * torch.sin(ph),
+                                torch.cos(th),
+                                cm.cell_reach_cos(sub['radius'], nsc)],
+                               dim=-1)
+            dense2d, counts, K = cm.refine_cell_candidates(
+                hpx.npix(nsc), dense, counts, cvx, cvy, cvz, hrec)
+            dense = dense2d[:, :max(K, 1)].reshape(-1).contiguous()
+        out = (dense, counts, K, nsc)
+        if (getattr(self, 'low_memory', False)
+                and dense.numel() * dense.element_size()
+                > getattr(self, 'low_memory_bytes', 256 << 20)):
+            return out
+        cache[key] = out
+        return out
+
+    def _cell_centers_nested(self, nside_c, dt):
+        """NESTED-order cell-centre unit-vector planes at a coarse nside,
+        cached."""
+        cache = self.__dict__.setdefault('_ctr_cache', {})
+        key = (nside_c, dt)
+        if key not in cache:
+            rt = hpx.RingTables(nside_c, dtype=dt, device=self.device)
+            n2r = hpx.nest2ring_all(nside_c, self.device)
+            cache[key] = hpx.pixel_planes_device(nside_c, rt.z, rt.start,
+                                                 rt.npr, rt.shift, p=n2r)
+        return cache[key]
+
+    def _cell_map_nested(self, nside_c):
+        """(nc,) RING -> NESTED cell-id lookup, cached."""
+        cache = self.__dict__.setdefault('_cmap_cache', {})
+        if nside_c not in cache:
+            cache[nside_c] = hpx.ring2nest(
+                nside_c, torch.arange(hpx.npix(nside_c), device=self.device))
+        return cache[nside_c]
+
+    def _nested_maps(self, nside):
+        """(n2r, r2n): the RING id of each NESTED position and the NESTED
+        position of each RING id, int64 on the device, cached."""
+        cache = self.__dict__.setdefault('_nest_maps', {})
+        if nside not in cache:
+            n2r = hpx.nest2ring_all(nside, self.device)
+            r2n = torch.empty_like(n2r)
+            r2n[n2r] = torch.arange(n2r.shape[0], device=n2r.device)
+            cache[nside] = (n2r, r2n)
+        return cache[nside]
+
+    def _orig_map_nested(self, orig_map, n2r, dt):
+        """NESTED-order copy of the shell's mass map on the device, cached
+        on the runner for parameter sweeps over one shell; keyed on the
+        map object's identity and its total, so an in-place edit of the
+        same array invalidates it."""
+        key = (id(self.LightconeShell.map), dt, orig_map.shape[0],
+               float(orig_map.sum()))
+        cache = getattr(self, '_omap_cache', None)
+        if cache is None or cache[0] != key:
+            host = torch.as_tensor(np.ascontiguousarray(orig_map), dtype=dt)
+            self._omap_cache = (key, host.to(n2r.device)[n2r])
+        return self._omap_cache[1]
+
+    def _packed_records(self, arrs, dt):
+        """(H, 16) packed halo records of the catalog, cached per dtype."""
+        cache = self.__dict__.setdefault('_packed_cache', {})
+        if dt not in cache:
+            c = {k: arrs[k].to(dt) for k in ('theta', 'phi', 'D', 'a',
+                                             'R_com', 'M', 'props')}
+            cache[dt] = _pack_from_angles(c['theta'], c['phi'], c['D'],
+                                          c['a'], c['R_com'], c['M'],
+                                          c['props'])
+        return cache[dt]
+
+    def _pixels_nested(self, nside, dt):
+        """NESTED-order pixel unit-vector planes, built on the device and
+        cached per dtype."""
+        cache = self.__dict__.setdefault('_pixn_cache', {})
+        key = (nside, dt)
+        if key not in cache:
+            n2r, _ = self._nested_maps(nside)
+            rt, _ = self._ring_tables(nside, dt)
+            cache[key] = hpx.pixel_planes_device(nside, rt.z, rt.start,
+                                                 rt.npr, rt.shift, p=n2r)
+        return cache[key]
+
+    @staticmethod
+    def _node_bound(g2, rad_max, Nr):
+        """Radial-node bound of a bucket: nodes above the largest
+        reachable ln r (the eps_max * R cutoff) contribute nothing;
+        rounded up to a multiple of 32 as in the JAX package."""
+        n_hi = int(np.floor((rad_max - g2[0]) / (g2[1] - g2[0]))) + 2
+        return min(Nr, max(32, -(-n_hi // 32) * 32))
+
+    def _cellmajor_buckets(self, arrs, nside, grids, table, g2, mode,
+                           planes, label, tag):
+        """Run the cell-major pass of every bucket onto the NESTED
+        ``planes`` (in place): ``mode`` as in ``ops.cellmajor_cuda``,
+        ``table`` in the hot-path dtype with finite nodes only, ``g2``
+        the radial grid on the host in float64. Stages: packed_records,
+        pixels_nested, then reg[...] and pass[...] per bucket."""
+        dt, eps = self.dtype, float(self.epsilon_max)
+        t0 = self._stage_t0()
+        packed_all = self._packed_records(arrs, dt)
+        self._stage("packed_records", t0, packed_all)
+        t0 = self._stage_t0()
+        pix = self._pixels_nested(nside, dt)
+        self._stage("pixels_nested", t0, pix[2])
+        g_host = grids[2].cpu()
+        g0, dg = float(g_host[0]), float(g_host[1] - g_host[0])
+        for bi, (nside_c, jidx, r_b, rcm_max) in enumerate(
+                self._cm_groups(arrs, nside)):
+            H = jidx.shape[0]
+            rad_max = (np.log(eps) if mode == "offsets_rdelta"
+                       else np.log(eps * rcm_max))
+            n_hi = self._node_bound(g2, rad_max, len(g2))
+            t0 = self._stage_t0()
+            dense, counts, K, nsc_eff = self._dense_candidates(
+                bi, nside_c, lambda jidx=jidx: {
+                    k: arrs[k][jidx].to(dt)
+                    for k in ('theta', 'phi', 'radius')}, r_b)
+            self._stage(f"reg[b{bi} nc{nside_c} {tag}{H}]", t0, counts)
+            F = (nside // nsc_eff) ** 2
+            if self.verbose:
+                print(f"{label}: bucket {bi + 1} ({H} halos, "
+                      f"nside_c={nside_c}->{nsc_eff}, K={K}, F={F}, "
+                      f"n_hi={n_hi})")
+            t0 = self._stage_t0()
+            packed = packed_all[jidx]
+            cellmajor_pass(mode, planes, pix, dense, counts, F,
+                           cm.slot_records(packed, eps),
+                           cm.halo_rows(grids, table, packed, n_hi),
+                           g0, dg, float(g_host[n_hi - 1]))
+            self._stage(f"pass[b{bi} nc{nsc_eff} K{K} n_hi{n_hi}]", t0,
+                        planes[0])
+        return planes
 
     def _halo_chunks(self, arrs, nside, label):
         """Walk the halos by angular-size bucket and fixed-size chunk.
@@ -405,25 +636,44 @@ class BaryonifyShell(DefaultRunner):
 
         table = model._table.to(device=dev, dtype=dt)
         grids = tuple(g.to(device=dev, dtype=dt) for g in model._grids)
-        tables, (vx, vy, vz) = self._ring_tables(nside, dt)
 
-        t0 = self._stage_t0()
         offsets = tuple(torch.zeros(hpx.npix(nside), dtype=dt, device=dev)
                         for _ in range(3))
-        for n_rings, n_phi, c in self._halo_chunks(
-                arrs, nside, "Baryonifying matter"):
-            _accumulate_shell_offsets(
-                nside, n_rings, n_phi, n_props, use_rdelta, tables,
-                vx, vy, vz, grids, table, float(self.epsilon_max),
-                c['theta'], c['phi'], c['M'], c['a'], c['R_com'], c['D'],
-                c['props'], offsets)
-        self._stage("pass", t0, offsets[0])
+        if self.method == "cellmajor":
+            # non-finite table nodes become 0 before the blend (a 0-weight
+            # corner would otherwise turn the halo's whole row into NaN)
+            self._cellmajor_buckets(
+                arrs, nside, grids, torch.where(torch.isfinite(table), table,
+                                                0.0),
+                model._grids[2].cpu().numpy(),
+                "offsets_rdelta" if use_rdelta else "offsets", offsets,
+                "Baryonifying matter", "H")
+            # the regrid is order-agnostic given consistent (vector,
+            # offset, mass) triples: it runs in NESTED order and deposits
+            # into RING ids
+            t0 = self._stage_t0()
+            n2r, _ = self._nested_maps(nside)
+            new_map = _regrid_shell(nside, *self._pixels_nested(nside, dt),
+                                    self._orig_map_nested(orig_map, n2r, dt),
+                                    offsets)
+            self._stage("regrid", t0, new_map)
+        else:
+            tables, (vx, vy, vz) = self._ring_tables(nside, dt)
+            t0 = self._stage_t0()
+            for n_rings, n_phi, c in self._halo_chunks(
+                    arrs, nside, "Baryonifying matter"):
+                _accumulate_shell_offsets(
+                    nside, n_rings, n_phi, n_props, use_rdelta, tables,
+                    vx, vy, vz, grids, table, float(self.epsilon_max),
+                    c['theta'], c['phi'], c['M'], c['a'], c['R_com'],
+                    c['D'], c['props'], offsets)
+            self._stage("pass", t0, offsets[0])
 
-        t0 = self._stage_t0()
-        new_map = _regrid_shell(nside, vx, vy, vz,
-                                torch.as_tensor(orig_map, dtype=dt,
-                                                device=dev), offsets)
-        self._stage("regrid", t0, new_map)
+            t0 = self._stage_t0()
+            new_map = _regrid_shell(nside, vx, vy, vz,
+                                    torch.as_tensor(orig_map, dtype=dt,
+                                                    device=dev), offsets)
+            self._stage("regrid", t0, new_map)
         t0 = self._stage_t0()
         new_map = new_map.to(torch.float64).cpu().numpy()
         self._stage("fetch_map", t0)
@@ -471,17 +721,31 @@ class PaintProfilesShell(DefaultRunner):
         self._stage("halo_arrays", t0)
         table = model._ln2D.to(device=dev, dtype=dt)
         grids = tuple(g.to(device=dev, dtype=dt) for g in model._grids)
-        tables, (vx, vy, vz) = self._ring_tables(nside, dt)
 
-        t0 = self._stage_t0()
         new_map = torch.zeros(hpx.npix(nside), dtype=dt, device=dev)
-        for n_rings, n_phi, c in self._halo_chunks(arrs, nside,
-                                                   "Painting Profile"):
-            _accumulate_shell_paint(
-                nside, n_rings, n_phi, tables, vx, vy, vz, grids, table,
-                float(self.epsilon_max), c['theta'], c['phi'], c['M'],
-                c['a'], c['R_com'], c['D'], new_map)
-        self._stage("pass", t0, new_map)
+        if self.method == "cellmajor":
+            # log-profile tables carry -inf where the profile is 0: a large
+            # negative finite stand-in keeps the blend NaN-free and still
+            # paints exp(...) = 0 wherever such a node is touched
+            self._cellmajor_buckets(
+                arrs, nside, grids, torch.where(torch.isfinite(table), table,
+                                                -1e30),
+                model._grids[2].cpu().numpy(), "paint", (new_map,),
+                "Painting Profile", "h")
+            t0 = self._stage_t0()
+            _, r2n = self._nested_maps(nside)
+            new_map = new_map[r2n]
+            self._stage("n2r", t0, new_map)
+        else:
+            tables, (vx, vy, vz) = self._ring_tables(nside, dt)
+            t0 = self._stage_t0()
+            for n_rings, n_phi, c in self._halo_chunks(arrs, nside,
+                                                       "Painting Profile"):
+                _accumulate_shell_paint(
+                    nside, n_rings, n_phi, tables, vx, vy, vz, grids, table,
+                    float(self.epsilon_max), c['theta'], c['phi'], c['M'],
+                    c['a'], c['R_com'], c['D'], new_map)
+            self._stage("pass", t0, new_map)
         t0 = self._stage_t0()
         out = new_map.to(torch.float64).cpu().numpy()
         self._stage("fetch_map", t0)

@@ -15,24 +15,30 @@ and fails on any fault:
      unsorted rows, as the runners make them, at two inputs (a real chunk
      of the shell path, and 4M clustered rows), with the whole call, the
      library call doing the same function, and the device launches a
-     call; both Legendre kernels also get their issue bound;
+     call; both Legendre kernels also get their issue bound; the
+     cell-major pass runs in both modes at the shell path's bucket with
+     the most slot-pixels, after a census of the path's buckets;
   4. shell path: the Schneider19 displacement table built on the card
      (bench.py's grid) and BaryonifyShell.process() on an NSIDE-1024
-     full-sky shell with bench.py's 1e6-halo catalog, cold and warm;
-     asserts mass conservation, that the map changed, and that the
-     scatter kernel was launched;
+     full-sky shell with bench.py's 1e6-halo catalog, cold and warm with
+     stages, under method "auto" (the cell-major method on the card: its
+     kernel launched, no scatter) and with method="scatter" (the scatter
+     kernel launched); asserts mass conservation and that the map
+     changed, and compares the two maps;
   5. C_ell path: examples/09_delta_cls_shells.py at its full resolution
      (NSIDE 1024, lmax 2048): paint a DMO shell from 3000 halos, baryonify
      it for theta_ej in {2, 4, 8}, and assert the example's four shape
-     checks on the anafast ratios; the scatter and analysis kernels must
-     have been launched;
+     checks on the anafast ratios; the cell-major and analysis kernels
+     must have been launched;
   6. synthesis path: synfast then anafast at NSIDE 1024 / lmax 2048
      (recovered C_ell inside cosmic variance), and alm2map then
      map2alm(iter=3) (residual below iter=0's); the synthesis kernel must
      have been launched;
-  7. reference: a small shell, anafast, alm2map and paint at NSIDE 64 on
-     the card (float64 and float32) against the port's CPU float64 runs,
-     and a small table built on the card against the CPU build.
+  7. reference: a small shell (both methods), anafast, alm2map and paint
+     (both methods) at NSIDE 64 on the card (float64 and float32) against
+     the port's CPU float64 runs, the two shell methods against each other
+     on the card in float64, and a small table built on the card against
+     the CPU build.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last lines are a JSON record of the kernels, the
@@ -332,6 +338,170 @@ def check_scatter(T, torch, sc, device, n_halo, nside):
                 bound_by="bytes", library_ms=ms["library"])
 
 
+# operations of one (pixel, candidate) slot of the cell-major pass, from
+# csrc/cellmajor_pass.cu (a sqrt, log, exp or division counted as one):
+# every slot runs the disc test (separation, ln r, the angular and radial
+# tests; one more with rdelta), a slot inside the disc also the readout
+# and, in offsets mode, the unit-sphere delta
+CM_TEST_FLOPS = 24
+CM_READ_FLOPS = {"offsets": 56, "offsets_rdelta": 56, "paint": 12}
+
+
+def cellmajor_census(T, torch, device, model, tab, n_halo, nside):
+    """The shell path's cell-major buckets, made as process() makes them
+    (runner caches, float32): logs per bucket nside_c -> nside_c_eff, H,
+    K, F and the slot-pixels sum(counts) * F. Returns the pass's inputs
+    of the bucket with the most slot-pixels, for both modes (offsets rows
+    from the displacement table, paint rows from ``tab``'s log table)."""
+    from baryonification_tpu_torch.runners import shell_cellmajor as tcm
+    cat, shell = catalog(T, n_halo, nside)
+    runner = T.BaryonifyShell(cat, shell, epsilon_max=EPS_MAX, model=model,
+                              verbose=False, device=device)
+    dt = runner.dtype
+    arrs = runner._halo_arrays(T.Cosmology.from_dict(COSMO, device=device))
+    packed_all = runner._packed_records(arrs, dt)
+    pix = runner._pixels_nested(nside, dt)
+    best, total = None, 0
+    log(f"kernels: cell-major census at {n_halo} halos, NSIDE {nside} "
+        f"(one launch a bucket):")
+    for bi, (nside_c, jidx, r_b, rcm_max) in enumerate(
+            runner._cm_groups(arrs, nside)):
+        dense, counts, K, nsc_eff = runner._dense_candidates(
+            bi, nside_c, lambda jidx=jidx: {
+                k: arrs[k][jidx].to(dt) for k in ('theta', 'phi', 'radius')},
+            r_b)
+        F = (nside // nsc_eff) ** 2
+        slot_pix = int(counts.sum()) * F
+        total += slot_pix
+        log(f"kernels:   bucket {bi}: nside_c {nside_c} -> {nsc_eff}, "
+            f"H={jidx.shape[0]}, K={K}, F={F}, slot-pixels={slot_pix:.4e}")
+        if best is None or slot_pix > best[0]:
+            best = (slot_pix, bi, jidx, dense, counts, F, rcm_max)
+    slot_pix, bi, jidx, dense, counts, F, rcm_max = best
+    log(f"kernels: cell-major path-shaped input: bucket {bi} "
+        f"({slot_pix:.4e} of the path's {total:.4e} slot-pixels)")
+    packed = packed_all[jidx]
+    inputs = {}
+    for mode, tabl, grids, fill in (
+            ("offsets", model._table, model._grids, 0.0),
+            ("paint", tab._ln2D, tab._grids, -1e30)):
+        gh = grids[2].cpu().numpy()
+        n_hi = runner._node_bound(gh, np.log(EPS_MAX * rcm_max), len(gh))
+        gd = tuple(g.to(device, dt) for g in grids)
+        t = tabl.to(device, dt)
+        t = torch.where(torch.isfinite(t), t, fill)
+        g2d = gd[2].cpu()
+        inputs[mode] = dict(
+            pix=pix, dense=dense, counts=counts, F=F,
+            recs=tcm.slot_records(packed, EPS_MAX),
+            rows=tcm.halo_rows(gd, t, packed, n_hi), g0=float(g2d[0]),
+            dg=float(g2d[1] - g2d[0]), rad_hi=float(g2d[n_hi - 1]))
+    return inputs
+
+
+def inside_slot_pixels(torch, c):
+    """Slot-pixels of the pass's inputs ``c`` that lie inside their
+    halo's disc and radial range (the slots that run the readout), by the
+    plain version's test, chunk by chunk."""
+    F, counts, pix, recs = c["F"], c["counts"], c["pix"], c["recs"]
+    ncell = counts.shape[0]
+    dense2d = c["dense"].reshape(ncell, -1)
+    C = max(1, (1 << 20) // F)
+    n = 0
+    for c0 in range(0, ncell, C):
+        c1 = min(c0 + C, ncell)
+        cnt = counts[c0:c1]
+        px, py, pz = (v[c0 * F:c1 * F].reshape(c1 - c0, F) for v in pix)
+        for k in range(int(cnt.max())):
+            rec = recs[dense2d[c0:c1, k].long()]
+            h = [rec[:, j, None] for j in range(8)]
+            dx, dy, dz = ((p - hv) * h[3] for p, hv in
+                          ((px, h[0]), (py, h[1]), (pz, h[2])))
+            r_com = torch.sqrt(dx * dx + dy * dy + dz * dz) / h[4]
+            rad = torch.log(torch.clamp(r_com, min=1e-30))
+            ok = ((rad >= c["g0"]) & (rad <= c["rad_hi"]) & (r_com < h[5])
+                  & (px * h[0] + py * h[1] + pz * h[2] >= h[7])
+                  & (k < cnt)[:, None])
+            n += int(ok.sum())
+    return n
+
+
+def check_cellmajor(T, torch, cmc, device, n_halo, nside):
+    """The cell-major kernel against its plain version at the shell
+    path's bucket with the most slot-pixels, offsets and paint, float64
+    and float32, with CUDA-event times and the bound. Returns the record
+    for the kernels line (float32 offsets, the main path's)."""
+    model = model_for(T, device, BENCH_GRID)
+    tab = T.TabulatedProfile(T.DarkMatter(**dict(EX09_PAR, theta_ej=4.0)),
+                             T.Cosmology.from_dict(COSMO, device=device))
+    tab.setup_interpolator(z_min=0.05, z_max=1.2, N_samples_z=12,
+                           M_min=1e12, M_max=1e16, N_samples_Mass=24,
+                           R_min=1e-3, R_max=1e2, N_samples_R=100)
+    inputs = cellmajor_census(T, torch, device, model, tab, n_halo, nside)
+    rec = dict(name="cellmajor_pass", route="cuda",
+               source="baryonification_tpu_torch/csrc/cellmajor_pass.cu",
+               replaces="baryonification_tpu/runners/shell_cellmajor.py:255",
+               library_ms=None)
+    for mode in ("offsets", "paint"):
+        c32 = inputs[mode]
+        n_out = 1 if mode == "paint" else 3
+        npix, ncell = c32["pix"][0].shape[0], c32["counts"].shape[0]
+        H, n_hi = c32["rows"].shape
+        slots = int(c32["counts"].sum())
+        n_in = inside_slot_pixels(torch, c32)
+        for dt in (torch.float64, torch.float32):
+            dname = str(dt).split(".")[1]
+            c = {k: (tuple(p.to(dt) for p in v) if k == "pix" else
+                     v.to(dt) if torch.is_tensor(v) and v.is_floating_point()
+                     else v) for k, v in c32.items()}
+            args = (c["pix"], c["dense"], c["counts"], c["F"], c["recs"],
+                    c["rows"], c["g0"], c["dg"], c["rad_hi"])
+            want = tuple(torch.zeros(npix, dtype=dt, device=device)
+                         for _ in range(n_out))
+            got = tuple(torch.zeros_like(w) for w in want)
+            cmc.cellmajor_pass_reference(mode, want, *args)
+            cmc.cellmajor_pass(mode, got, *args)
+            torch.cuda.synchronize()
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            scale = max(float(w.abs().max()) for w in want)
+            bar = (1e-12 if dt == torch.float64 else 1e-5) * scale
+            log(f"kernels: cellmajor_pass {mode} {dname} vs plain: max|err| "
+                f"{err:.3e} (max|out| {scale:.3e}; atol "
+                f"{'1e-12' if dt == torch.float64 else '1e-5'}*max|out| = "
+                f"{bar:.3e})")
+            check(err <= bar and all(bool(torch.isfinite(g).all())
+                                     for g in got),
+                  f"cellmajor_pass {mode} {dname} disagrees with its plain "
+                  f"version: max err {err:.3e}")
+            k_fn = lambda: cmc.cellmajor_pass(mode, got, *args)
+            p_fn = lambda: cmc.cellmajor_pass_reference(mode, want, *args)
+            ms_p1 = cuda_ms(torch, p_fn, 1)
+            ms_k1, ms_k2 = cuda_ms(torch, k_fn, 10), cuda_ms(torch, k_fn, 10)
+            ms_p2 = cuda_ms(torch, p_fn, 1)
+            ms_k, ms_p = (ms_k1 + ms_k2) / 2, (ms_p1 + ms_p2) / 2
+            t = 8 if dt == torch.float64 else 4
+            flops = (slots * c["F"] * CM_TEST_FLOPS
+                     + n_in * CM_READ_FLOPS[mode])
+            n_bytes = (npix * (2 * n_out + 3) * t + ncell * 4 + slots * 4
+                       + H * 8 * t + H * n_hi * t)
+            t_ops = flops / PEAK_FLOPS[dname] * 1e3
+            t_bytes = n_bytes / PEAK_BYTES * 1e3
+            bound, by = ((t_ops, "operations") if t_ops >= t_bytes
+                         else (t_bytes, "bytes"))
+            log(f"kernels: cellmajor_pass {mode} {dname}: kernel {ms_k:.4f} "
+                f"ms (runs {ms_k1:.4f}, {ms_k2:.4f}), plain {ms_p:.2f} ms "
+                f"(runs {ms_p1:.2f}, {ms_p2:.2f}); {slots * c['F']:.4e} "
+                f"slot-pixels, {n_in:.4e} inside their disc; bound "
+                f"{bound:.4f} ms by {by} ({flops:.3e} flops at "
+                f"{PEAK_FLOPS[dname] / 1e12:.0f} TFLOP/s, {n_bytes / 1e6:.1f} "
+                f"MB at {PEAK_BYTES / 1e12:.2f} TB/s); kernel at "
+                f"{100 * bound / ms_k:.1f}% of the bound")
+            if mode == "offsets" and dt == torch.float32:
+                rec.update(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
+                           bound_ms=bound, bound_by=by)
+    return rec
+
+
 def legendre_bound_ms(name, L, R, dtype):
     """Least time for one Legendre kernel call: the larger of its flops
     (8 per (m, l, ring) update, L(L+1)/2 * R updates) over the non-tensor
@@ -581,6 +751,7 @@ def check_legendre(torch, lc, sp, device, issue_bound, nside=1024,
 
 COUNTERS = []       # the LAUNCHES dicts of the kernel modules
 SCATTER = []        # the names of the scatter module's kernels
+CELLMAJOR = []      # the names of the cell-major module's kernels
 
 
 def reset_counts():
@@ -599,9 +770,49 @@ def read_counts(path, expected):
     return launches
 
 
-def main_path(T, torch, sc, device, n_halo, nside):
-    """Table build on the card, then process() cold and warm. Returns the
-    kernel launch counts of the cold run."""
+def run_process(torch, runner, label, expected, absent=()):
+    """process() cold, then warm with its stages. Fails unless the map
+    conserves mass and changed, every kernel of ``expected`` was launched
+    in the cold run and none of ``absent``. Returns (map, launch counts
+    of the cold run)."""
+    shell = runner.LightconeShell
+    reset_counts()
+    t0 = time.perf_counter()
+    new_map = runner.process()
+    t_cold = time.perf_counter() - t0
+    launches = read_counts(label, expected)
+    for k in absent:
+        check(launches[k] == 0, f"the {label} launched kernel {k}")
+    log(f"main: {label}: process() cold {t_cold:.2f} s, NSIDE="
+        f"{shell.NSIDE}, {runner.HaloLightConeCatalog.cat.size} halos, "
+        f"method={runner.method}, dtype={runner.dtype}")
+    check(new_map.shape == shell.map.shape and np.isfinite(new_map).all(),
+          "map of the wrong shape or not finite")
+    new_sum, old_sum = new_map.sum(), shell.map.sum()
+    check(np.isclose(new_sum, old_sum),
+          f"mass not conserved: {new_sum!r} != {old_sum!r}")
+    check(not np.allclose(new_map, shell.map), "the map did not change")
+    log(f"main: {label}: mass conserved: sum(new)={new_sum:.10e} "
+        f"sum(old)={old_sum:.10e} (np.isclose); max|change|="
+        f"{np.abs(new_map - shell.map).max():.4e}")
+
+    runner.profile = True
+    runner.stage_times = []
+    t0 = time.perf_counter()
+    warm_map = runner.process()
+    t_warm = time.perf_counter() - t0
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in runner.stage_times)
+    log(f"main: {label}: process() warm {t_warm:.2f} s (stages, synced: "
+        f"{stages})")
+    check(np.isclose(warm_map.sum(), old_sum), "warm run lost mass")
+    return new_map, launches
+
+
+def main_path(T, torch, device, n_halo, nside):
+    """Table build on the card, then process() cold and warm under
+    ``auto`` (the cell-major method on the card) and with
+    method="scatter", on one catalog. Returns the launch counts of the
+    two cold runs."""
     t0 = time.perf_counter()
     model = model_for(T, device, BENCH_GRID)
     torch.cuda.synchronize()
@@ -613,32 +824,20 @@ def main_path(T, torch, sc, device, n_halo, nside):
     cat, shell = catalog(T, n_halo, nside)
     runner = T.BaryonifyShell(cat, shell, epsilon_max=EPS_MAX, model=model,
                               verbose=False, device=device)
-    reset_counts()
-    t0 = time.perf_counter()
-    new_map = runner.process()
-    t_cold = time.perf_counter() - t0
-    launches = read_counts("shell path", SCATTER)
-    log(f"main: process() cold {t_cold:.2f} s, NSIDE={nside}, "
-        f"{n_halo} halos, method={runner.method}, dtype={runner.dtype}")
-    check(new_map.shape == shell.map.shape and np.isfinite(new_map).all(),
-          "map of the wrong shape or not finite")
-    new_sum, old_sum = new_map.sum(), shell.map.sum()
-    check(np.isclose(new_sum, old_sum),
-          f"mass not conserved: {new_sum!r} != {old_sum!r}")
-    check(not np.allclose(new_map, shell.map), "the map did not change")
-    log(f"main: mass conserved: sum(new)={new_sum:.10e} "
-        f"sum(old)={old_sum:.10e} (np.isclose); max|change|="
-        f"{np.abs(new_map - shell.map).max():.4e}")
-
-    runner.profile = True
-    runner.stage_times = []
-    t0 = time.perf_counter()
-    warm_map = runner.process()
-    t_warm = time.perf_counter() - t0
-    stages = ", ".join(f"{k} {v:.3f} s" for k, v in runner.stage_times)
-    log(f"main: process() warm {t_warm:.2f} s (stages, synced: {stages})")
-    check(np.isclose(warm_map.sum(), old_sum), "warm run lost mass")
-    return launches
+    check(runner.method == "cellmajor",
+          f"method 'auto' resolved to {runner.method!r} on the card")
+    cm_map, cm_launches = run_process(torch, runner,
+                                      "shell path (auto = cellmajor)",
+                                      CELLMAJOR, SCATTER)
+    runner = T.BaryonifyShell(cat, shell, epsilon_max=EPS_MAX, model=model,
+                              verbose=False, device=device, method="scatter")
+    sc_map, sc_launches = run_process(torch, runner, "shell path (scatter)",
+                                      SCATTER, CELLMAJOR)
+    rms = np.sqrt(np.mean((cm_map - sc_map) ** 2)) / shell.map.mean()
+    rel = np.abs(cm_map - sc_map).max() / np.abs(sc_map - shell.map).max()
+    log(f"main: cell-major vs scatter map (float32 both): rms/mean = "
+        f"{rms:.3e}, max|diff| / max|change| = {rel:.3e}")
+    return cm_launches, sc_launches
 
 
 def reference_check(T, torch, device):
@@ -654,18 +853,44 @@ def reference_check(T, torch, device):
 
     cat, shell = catalog(T, 2000, 64, seed=3)
     kw = dict(epsilon_max=EPS_MAX, model=c_model, verbose=False)
-    want = T.BaryonifyShell(cat, shell, device="cpu", **kw).process()
     scale = shell.map.mean()
-    for prec, bar in (("float64", 1e-10), ("float32", 5e-5)):
-        got = T.BaryonifyShell(cat, shell, device=device, precision=prec,
-                               **kw).process()
-        rms = np.sqrt(np.mean((got - want) ** 2)) / scale
-        # float32 geometry and offsets: 1.1e-5 rms/mean against float64
-        # on the CPU at this size
-        log(f"reference: NSIDE 64 shell on {device} in {prec} vs cpu "
-            f"float64: rms/mean = {rms:.3e} (bar {bar:g})")
-        check(np.isfinite(got).all() and rms < bar,
-              f"{prec} shell on the card differs: {rms:.3e}")
+    for method in ("scatter", "cellmajor"):
+        want = T.BaryonifyShell(cat, shell, device="cpu", method=method,
+                                **kw).process()
+        for prec, bar in (("float64", 1e-10), ("float32", 5e-5)):
+            got = T.BaryonifyShell(cat, shell, device=device, precision=prec,
+                                   method=method, **kw).process()
+            rms = np.sqrt(np.mean((got - want) ** 2)) / scale
+            # float32 geometry and offsets: 1.1e-5 rms/mean against
+            # float64 on the CPU at this size
+            log(f"reference: NSIDE 64 shell ({method}) on {device} in "
+                f"{prec} vs cpu float64: rms/mean = {rms:.3e} (bar {bar:g})")
+            check(np.isfinite(got).all() and rms < bar,
+                  f"{prec} {method} shell on the card differs: {rms:.3e}")
+    # the two methods on the card in float64, to the JAX tests' bar, on
+    # those tests' shell (tests/test_runners.py shell_setup and
+    # test_baryonify_cellmajor_agrees: NSIDE 32, 25 halos whose discs
+    # cover many pixels; the scatter method's fallback for discs of < 4
+    # pixels has no cell-major counterpart, so smaller halos differ there)
+    rng = np.random.default_rng(11)
+    n = 25
+    cat = T.HaloLightConeCatalog(
+        ra=rng.uniform(0, 360, n),
+        dec=np.degrees(np.arcsin(rng.uniform(-0.8, 0.8, n))),
+        M=10 ** rng.uniform(13.6, 14.8, n), z=rng.uniform(0.15, 0.45, n),
+        cosmo=COSMO)
+    shell = T.LightconeShell(map=rng.uniform(0.5, 1.5, 12 * 32**2),
+                             cosmo=COSMO)
+    cm, sc = (T.BaryonifyShell(cat, shell, device=device, precision="float64",
+                               method=m, **kw).process()
+              for m in ("cellmajor", "scatter"))
+    change = np.abs(sc - shell.map).max()
+    excess = np.abs(cm - sc) - (1e-6 * change + 1e-6 * np.abs(sc))
+    log(f"reference: NSIDE 32 float64 on {device}, cellmajor vs scatter: "
+        f"max|diff| = {np.abs(cm - sc).max():.3e} (bar atol 1e-6 * "
+        f"max|change| = {1e-6 * change:.3e}, rtol 1e-6)")
+    check(change > 0 and excess.max() <= 0,
+          "cellmajor and scatter differ on the card")
 
 
 def synced(torch, fn):
@@ -737,7 +962,7 @@ def cl_path(T, torch, sp, device, nside, n_halo=3000):
     painted, t_paint = synced(torch, lambda: T.PaintProfilesShell(
         cat, floor, epsilon_max=5, model=tab, verbose=False,
         device=device).process())
-    paint_counts = read_counts("C_ell path (paint)", SCATTER)
+    paint_counts = read_counts("C_ell path (paint)", CELLMAJOR)
     check(np.isfinite(painted).all() and painted.sum() > 0,
           "the painted map is not finite or empty")
     log(f"cl: painted {n_halo} halos at NSIDE {nside} in {t_paint:.2f} s")
@@ -770,7 +995,7 @@ def cl_path(T, torch, sp, device, nside, n_halo=3000):
         log(f"cl: theta_ej={theta_ej}: baryonify {t_b:.2f} s, anafast "
             f"{t_cl:.3f} s")
     counts = read_counts("C_ell path (baryonify + anafast)",
-                         SCATTER + ["legendre_alm"])
+                         CELLMAJOR + ["legendre_alm"])
     profile_anafast(torch, sp, torch.as_tensor(new_map, device=device,
                                                dtype=torch.float32),
                     nside, lmax)
@@ -879,20 +1104,24 @@ def reference_spectra(T, torch, sp, device, nside=64):
         cosmo=COSMO)
     floor = T.LightconeShell(map=np.zeros(12 * nside**2), cosmo=COSMO)
     kw = dict(epsilon_max=5, model=tab, verbose=False)
-    want = T.PaintProfilesShell(cat, floor, device="cpu", **kw).process()
-    # the painted map is sparse and peaked, so the error is taken against
-    # its largest pixel. float32 moves a pixel that sits ~1e-4 rad from a
-    # halo centre by ~1e-3 of its separation (cancellation in the window
-    # geometry), and the profile is steep there: 2e-4 of max measured on
-    # the CPU at this size
-    for prec, bar in (("float64", 1e-10), ("float32", 1e-3)):
-        got = T.PaintProfilesShell(cat, floor, device=device,
-                                   precision=prec, **kw).process()
-        err = np.abs(got - want).max() / np.abs(want).max()
-        log(f"reference: NSIDE {nside} paint on {device} in {prec} vs cpu "
-            f"float64: max|diff|/max = {err:.3e} (bar {bar:g})")
-        check(np.isfinite(got).all() and err < bar,
-              f"{prec} paint on the card differs: {err:.3e}")
+    for method in ("scatter", "cellmajor"):
+        want = T.PaintProfilesShell(cat, floor, device="cpu", method=method,
+                                    **kw).process()
+        # the painted map is sparse and peaked, so the error is taken
+        # against its largest pixel. float32 moves a pixel that sits ~1e-4
+        # rad from a halo centre by ~1e-3 of its separation (cancellation
+        # in the geometry), and the profile is steep there: 2e-4 of max
+        # measured on the CPU at this size
+        for prec, bar in (("float64", 1e-10), ("float32", 1e-3)):
+            got = T.PaintProfilesShell(cat, floor, device=device,
+                                       precision=prec, method=method,
+                                       **kw).process()
+            err = np.abs(got - want).max() / np.abs(want).max()
+            log(f"reference: NSIDE {nside} paint ({method}) on {device} in "
+                f"{prec} vs cpu float64: max|diff|/max = {err:.3e} (bar "
+                f"{bar:g})")
+            check(np.isfinite(got).all() and err < bar,
+                  f"{prec} {method} paint on the card differs: {err:.3e}")
 
 
 def ptxas_summary(build_log):
@@ -904,8 +1133,11 @@ def ptxas_summary(build_log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"\d([a-z_]+_kernel)I([fd])Li(\d+)", m.group(1))
-            entry = f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k \
-                else m.group(1)
+            b = re.search(r"\d(cellmajor_kernel)I([fd])Lb([01])ELb([01])",
+                          m.group(1))
+            entry = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else
+                     f"{b.group(1)}<{b.group(2)},paint={b.group(3)},"
+                     f"rdelta={b.group(4)}>" if b else m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -916,10 +1148,11 @@ def ptxas_summary(build_log):
     return out
 
 
-def build_all(torch, sc, lc):
+def build_all(torch, sc, lc, cmc):
     """Compile every kernel source at once (one nvcc each, in parallel),
-    then bind each kernel in both dtypes. The kernels of the paths (float32,
-    8 rings per thread at NSIDE 1024) must not spill registers."""
+    then bind each kernel in both dtypes. The kernels of the paths (the
+    scatter, the cell-major pass, the Legendre kernels at 8 rings per
+    thread) must not spill registers."""
     from concurrent.futures import ThreadPoolExecutor
     from baryonification_tpu_torch import _cuda_build as cb
 
@@ -934,6 +1167,7 @@ def build_all(torch, sc, lc):
         times = list(pool.map(build, names))
     for dt in (torch.float32, torch.float64):
         sc._kernel(dt)
+        cmc._kernel(dt)
         lc._kernel("legendre_alm", dt)
         lc._kernel("legendre_synth", dt)
     log("build: " + ", ".join(f"{n}.cu {t:.2f} s" for n, t in times)
@@ -943,7 +1177,8 @@ def build_all(torch, sc, lc):
         log(f"build: {name}.cu registers (spill bytes): " + ", ".join(
             f"{e} {r} ({sp})" for e, r, sp in rows))
         for e, r, sp in rows:
-            if e.startswith("scatter_add") or e.endswith(("<f,8>", "<d,8>")):
+            if e.startswith(("scatter_add", "cellmajor")) \
+                    or e.endswith(("<f,8>", "<d,8>")):
                 check(sp == 0, f"{e} spills {sp} bytes of registers")
 
 
@@ -971,13 +1206,15 @@ def main(argv=None):
         return 2
     sys.path.insert(0, str(args.root.resolve()))
     import baryonification_tpu_torch as T
+    from baryonification_tpu_torch.ops import cellmajor_cuda as cmc
     from baryonification_tpu_torch.ops import legendre_cuda as lc
     from baryonification_tpu_torch.ops import scatter_cuda as sc
     from baryonification_tpu_torch.ops import spectra as sp
     check("jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                         if v is not None}, "JAX was imported")
-    COUNTERS.extend([sc.LAUNCHES, lc.LAUNCHES])
+    COUNTERS.extend([sc.LAUNCHES, lc.LAUNCHES, cmc.LAUNCHES])
     SCATTER.extend(sc.LAUNCHES)
+    CELLMAJOR.extend(cmc.LAUNCHES)
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -988,20 +1225,25 @@ def main(argv=None):
         f"{torch.cuda.device_count()}), torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; nvidia-smi: {smi_line}")
 
-    build_all(torch, sc, lc)
+    build_all(torch, sc, lc, cmc)
     records = {}
     if "kernels" in phases:
         records["scatter_add"] = check_scatter(T, torch, sc, device,
                                                args.halos, args.nside)
         records.update(check_legendre(
             torch, lc, sp, device, issue_bound=args.root.resolve() == ROOT))
+        records["cellmajor_pass"] = check_cellmajor(
+            T, torch, cmc, device, args.halos, args.nside)
     if args.halos != 1_000_000 or args.nside != 1024:
         log(f"cut: paths at NSIDE {args.nside}, shell path at "
             f"{args.halos} halos")
     if "shell" in phases:
-        launches = main_path(T, torch, sc, device, args.halos, args.nside)
+        cm_launches, sc_launches = main_path(T, torch, device, args.halos,
+                                             args.nside)
         records.setdefault("scatter_add", {})["launches"] = \
-            sum(launches[k] for k in SCATTER)
+            sum(sc_launches[k] for k in SCATTER)
+        records.setdefault("cellmajor_pass", {})["launches"] = \
+            sum(cm_launches[k] for k in CELLMAJOR)
     if "cl" in phases:
         _, launches = cl_path(T, torch, sp, device, args.nside)
         records.setdefault("legendre_alm", {})["launches"] = \

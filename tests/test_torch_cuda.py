@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from baryonification_tpu_torch.ops import cellmajor_cuda as cmc
+from baryonification_tpu_torch.ops import healpix as hpx
 from baryonification_tpu_torch.ops import legendre_cuda as lc
 from baryonification_tpu_torch.ops import scatter_cuda as sc
 from baryonification_tpu_torch.ops import spectra as sp
@@ -209,12 +211,8 @@ def test_unsorted_wrapper_on_card(cuda_device):
                                    atol=1e-12)
 
 
-@pytest.mark.cuda
-def test_shell_on_card_matches_cpu(cuda_device):
-    """process() on the card (float64, then float32) against the port's
-    CPU float64 run on one table. float64 agrees to rounding; float32
-    geometry and offsets sit at ~1e-5 rms/mean of float64 (measured on
-    the CPU at NSIDE 64, 2000 halos)."""
+def _small_shell():
+    """A small table, 60 halos and an NSIDE-32 shell, all on the CPU."""
     import baryonification_tpu_torch as T
     cd = dict(Omega_m=0.3, Omega_b=0.05, h=0.7, sigma8=0.8, n_s=0.96,
               w0=-1.0)
@@ -232,7 +230,17 @@ def test_shell_on_card_matches_cpu(cuda_device):
                                  z=rng.uniform(0.15, 0.45, 60), cosmo=cd)
     shell = T.LightconeShell(map=rng.uniform(0.5, 1.5, 12 * 32 ** 2),
                              cosmo=cd)
-    kw = dict(epsilon_max=20, model=model, verbose=False)
+    return T, model, cat, shell
+
+
+@pytest.mark.cuda
+def test_shell_on_card_matches_cpu(cuda_device):
+    """process(method="scatter") on the card (float64, then float32)
+    against the port's CPU float64 run on one table. float64 agrees to
+    rounding; float32 geometry and offsets sit at ~1e-5 rms/mean of
+    float64 (measured on the CPU at NSIDE 64, 2000 halos)."""
+    T, model, cat, shell = _small_shell()
+    kw = dict(epsilon_max=20, model=model, verbose=False, method="scatter")
     want = T.BaryonifyShell(cat, shell, device="cpu", **kw).process()
     for prec, bar in (("float64", 1e-10), ("float32", 5e-5)):
         before = sc.LAUNCHES["scatter_add"]
@@ -241,6 +249,184 @@ def test_shell_on_card_matches_cpu(cuda_device):
         assert sc.LAUNCHES["scatter_add"] > before
         rms = np.sqrt(np.mean((got - want) ** 2)) / shell.map.mean()
         assert rms < bar, (prec, rms)
+
+
+@pytest.mark.cuda
+def test_cellmajor_process_on_card(cuda_device):
+    """process() under ``auto`` on the card is the cell-major method: it
+    launches the cell-major kernel and no scatter, and agrees with the
+    port's CPU float64 cell-major run (float64 to rounding, float32 as the
+    scatter check above); the paint likewise, to 1e-10 / 1e-3 of its
+    largest pixel."""
+    T, model, cat, shell = _small_shell()
+    kw = dict(epsilon_max=20, model=model, verbose=False)
+    want = T.BaryonifyShell(cat, shell, device="cpu", method="cellmajor",
+                            **kw).process()
+    for prec, bar in (("float64", 1e-10), ("float32", 5e-5)):
+        before = (sc.LAUNCHES["scatter_add"], cmc.LAUNCHES["cellmajor_pass"])
+        runner = T.BaryonifyShell(cat, shell, device=cuda_device,
+                                  precision=prec, **kw)
+        assert runner.method == "cellmajor"
+        got = runner.process()
+        assert sc.LAUNCHES["scatter_add"] == before[0]
+        assert cmc.LAUNCHES["cellmajor_pass"] > before[1]
+        rms = np.sqrt(np.mean((got - want) ** 2)) / shell.map.mean()
+        assert rms < bar, (prec, rms)
+
+    tab = T.TabulatedProfile(T.DarkMatter(**T.default_params()),
+                             model.cosmo)
+    tab.setup_interpolator(z_min=0.1, z_max=0.5, N_samples_z=3,
+                           M_min=1e13, M_max=1e15, N_samples_Mass=4,
+                           R_min=1e-3, R_max=50, N_samples_R=32)
+    kw = dict(epsilon_max=5, model=tab, verbose=False)
+    want = T.PaintProfilesShell(cat, shell, device="cpu", method="cellmajor",
+                                **kw).process()
+    for prec, bar in (("float64", 1e-10), ("float32", 1e-3)):
+        before = (sc.LAUNCHES["scatter_add"], cmc.LAUNCHES["cellmajor_pass"])
+        got = T.PaintProfilesShell(cat, shell, device=cuda_device,
+                                   precision=prec, **kw).process()
+        assert sc.LAUNCHES["scatter_add"] == before[0]
+        assert cmc.LAUNCHES["cellmajor_pass"] > before[1]
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert np.isfinite(got).all() and err < bar, (prec, err)
+
+
+CELLMAJOR_CASES = ["empty_cells", "f4", "f_big", "k_hundreds"]
+
+
+def cellmajor_case(name, mode):
+    """One bucket on the CPU in float64, built by the port's own
+    registration: (planes' base values, pixel planes, dense, counts, F,
+    slot records, rows, g0, dg, rad_hi). Every case holds one halo above
+    the table's mass range (its row is NaN); the raw table has -inf and
+    NaN nodes, put to -1e30 (paint) or 0 (offsets) as the runners do.
+
+    empty_cells: 6 halos at NSIDE 32, cells of nside_c 8 (F = 16), most
+    cells without a candidate; f4: F = 4; f_big: F = 1024, more than a
+    block of threads; k_hundreds: 400 halos in one patch of sky, hundreds
+    of candidates a cell (F = 64)."""
+    from baryonification_tpu_torch.runners import shell_cellmajor as tcm
+    from baryonification_tpu_torch.runners.shell import DefaultRunner
+    nside, nsc, n_halo = {"empty_cells": (32, 8, 6), "f4": (16, 8, 40),
+                          "f_big": (64, 2, 30),
+                          "k_hundreds": (32, 4, 400)}[name]
+    rng = np.random.default_rng(len(name) + 10 * len(mode))
+    eps = 20.0
+    if name == "k_hundreds":
+        theta = rng.uniform(0.9, 1.4, n_halo)
+        phi = rng.uniform(0.8, 1.3, n_halo)
+    else:
+        theta = np.arccos(rng.uniform(-1, 1, n_halo))
+        phi = rng.uniform(0, 2 * np.pi, n_halo)
+    radius = rng.uniform(0.03, 0.15, n_halo)
+    a = rng.uniform(0.7, 0.9, n_halo)
+    D = rng.uniform(500.0, 1500.0, n_halo)
+    R_com = radius * D / (eps * a)
+    M = 10 ** rng.uniform(13.2, 14.8, n_halo)
+    M[0] = 1e16                              # outside the mass grid
+    t = lambda v: torch.tensor(v, dtype=torch.float64)
+    st = np.sin(theta)
+    packed = tcm.pack_halo_records(
+        t(st * np.cos(phi)), t(st * np.sin(phi)), t(np.cos(theta)), t(D),
+        t(a), t(R_com), t(np.log(R_com)), t(np.log(1 / a)), t(np.log(M)))
+    hids, cell_start, K = tcm.coarse_halo_index(
+        nsc, t(theta), t(phi), t(radius),
+        cell_map=hpx.ring2nest(nsc, torch.arange(hpx.npix(nsc))))
+    dense, counts = tcm.dense_cell_candidates(hpx.npix(nsc), max(K, 1), hids,
+                                              cell_start)
+    gz = np.log1p(np.linspace(0.1, 0.5, 3))
+    gm = np.log(np.geomspace(1e13, 1e15, 4))
+    gr = np.linspace(np.log(1e-3), np.log(50.0), 40)
+    r = np.exp(gr)[None, None, :]
+    if mode == "paint":
+        table = 0.5 * (gm[None, :, None] - 30) - 2 * np.log1p(r / 0.3) \
+            + 0 * gz[:, None, None]
+        table[:, 1, 25:] = -np.inf
+        table[1, 2, 5] = np.nan
+        fill = -1e30
+    else:
+        table = 0.05 * r * np.exp(-r / 3) * (1 + 0.1 * gm[None, :, None]
+                                              + 0.2 * gz[:, None, None])
+        table[:, 1, 30:] = np.inf
+        table[2, 3, 7] = np.nan
+        fill = 0.0
+    table = np.where(np.isfinite(table), table, fill)
+    rad_max = np.log(eps) if mode == "offsets_rdelta" \
+        else np.log(eps * R_com.max())
+    n_hi = DefaultRunner._node_bound(gr, rad_max, len(gr))
+    rows = tcm.halo_rows((t(gz), t(gm), t(gr)), t(table), packed, n_hi)
+    rt = hpx.RingTables(nside, dtype=torch.float64, device="cpu")
+    pix = hpx.pixel_planes_device(nside, rt.z, rt.start, rt.npr, rt.shift,
+                                  p=hpx.nest2ring_all(nside, "cpu"))
+    base = [t(rng.normal(size=hpx.npix(nside)))
+            for _ in range(1 if mode == "paint" else 3)]
+    return (base, pix, dense, counts, (nside // nsc) ** 2,
+            tcm.slot_records(packed, eps), rows, float(gr[0]),
+            float(gr[1] - gr[0]), float(gr[n_hi - 1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["offsets", "offsets_rdelta", "paint"])
+@pytest.mark.parametrize("name", CELLMAJOR_CASES)
+def test_cellmajor_kernel_matches_plain(name, mode, dtype, cuda_device):
+    """One launch adds what the plain version adds, on the same inputs on
+    the card, to the same base planes: float64 to 1e-12 and float32 to
+    1e-5 of the largest sum added, plus 4 ulp of the base (the kernel
+    rounds operation for operation as the plain version)."""
+    (base, pix, dense, counts, F, recs, rows, g0, dg,
+     rad_hi) = cellmajor_case(name, mode)
+    counts_np = counts.numpy()
+    if name == "empty_cells":
+        assert (counts_np == 0).mean() > 0.3
+    if name == "k_hundreds":
+        assert counts_np.max() >= 100
+    assert torch.isnan(rows[0]).all()
+    on = lambda v: v.to(cuda_device, dtype if v.is_floating_point()
+                        else v.dtype)
+    args = (tuple(on(p) for p in pix), on(dense), on(counts), F, on(recs),
+            on(rows), g0, dg, rad_hi)
+    want = tuple(on(b) for b in base)
+    cmc.cellmajor_pass_reference(mode, want, *args)
+    got = tuple(on(b) for b in base)
+    before = cmc.LAUNCHES["cellmajor_pass"]
+    out = cmc.cellmajor_pass(mode, got, *args)
+    torch.cuda.synchronize()
+    assert cmc.LAUNCHES["cellmajor_pass"] == before + 1
+    assert all(o is g for o, g in zip(out, got))
+    added = max(float((w - on(b)).abs().max()) for w, b in zip(want, base))
+    assert added > 0
+    tol = ((1e-12 if dtype == torch.float64 else 1e-5) * added
+           + 4 * torch.finfo(dtype).eps * max(float(b.abs().max())
+                                              for b in base))
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+def test_cellmajor_refuses_bad_inputs(cuda_device):
+    (base, pix, dense, counts, F, recs, rows, g0, dg,
+     rad_hi) = cellmajor_case("f4", "paint")
+    on = lambda v: v.to(cuda_device)
+    planes = (on(base[0]),)
+    pix_d = tuple(on(p) for p in pix)
+    tail = (on(dense), on(counts), F, on(recs), on(rows), g0, dg, rad_hi)
+    with pytest.raises(ValueError, match="output planes"):
+        cmc.cellmajor_pass("offsets", planes, pix_d, *tail)
+    with pytest.raises(TypeError, match="int32"):
+        cmc.cellmajor_pass("paint", planes, pix_d, on(dense).long(),
+                           *tail[1:])
+    with pytest.raises(ValueError, match="must be on"):
+        cmc.cellmajor_pass("paint", planes, pix_d, dense, *tail[1:])
+    with pytest.raises(ValueError, match="cells of F"):
+        cmc.cellmajor_pass("paint", planes, pix_d, tail[0], tail[1], F * 4,
+                           *tail[3:])
+    with pytest.raises(ValueError, match="contiguous"):
+        big = torch.zeros(2 * planes[0].shape[0], dtype=torch.float64,
+                          device=cuda_device)
+        cmc.cellmajor_pass("paint", (big[::2],), pix_d, *tail)
 
 
 LEGENDRE_SIZES = [(16, 47), (32, 95), (256, 512)]

@@ -168,7 +168,7 @@ def test_paint_empty_catalog_and_p_keys(tabs):
                              device="cpu").process()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.PaintProfilesShell(cat, floor, epsilon_max=5, model=tabs[1],
-                             method="cellmajor", device="cpu")
+                             method="gather", device="cpu")
 
 
 def _delta_cl(pkg, halos, painted_map, cosmo, spectrum, **kw):

@@ -10,6 +10,7 @@ displacement table and once with the JAX table carried across.
 import subprocess
 import sys
 import textwrap
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -20,6 +21,7 @@ import baryonification_tpu as J
 import baryonification_tpu_torch as T
 from baryonification_tpu.ops import healpix as jhpx
 from baryonification_tpu_torch.ops import scatter_cuda
+from baryonification_tpu_torch.runners.shell_cellmajor import MAX_PROPS
 
 from test_profiles import PAR
 from test_runners import COSMO_DICT
@@ -140,25 +142,68 @@ def test_empty_catalog_is_a_no_op(inputs, cosmo_t):
     np.testing.assert_array_equal(out, mass_map)
 
 
+def _made(cls, inputs, model, device, **kw):
+    """A runner of ``cls`` on the inputs' catalog and shell (nothing is
+    computed, so "cuda" needs no GPU)."""
+    halos, mass_map = inputs
+    cat = T.HaloLightConeCatalog(cosmo=COSMO_DICT, **halos)
+    shell = T.LightconeShell(map=mass_map, cosmo=COSMO_DICT)
+    return cls(cat, shell, 20, model, device=device, **kw)
+
+
+class _PropsModel:
+    """A model stub with one extra table axis more than the cell-major
+    packed records hold (only ``p_keys`` is read when a runner is made)."""
+    p_keys = [f"p{i}" for i in range(MAX_PROPS + 1)]
+
+
 @pytest.mark.parametrize("method", ["cellmajor", "gather"])
 def test_unported_methods_raise(method, inputs, cosmo_t):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_runner(inputs, _port_model(cosmo_t), method=method)
+    """``gather`` is not ported and raises; an explicit ``cellmajor`` that
+    the model cannot use (more extra axes than MAX_PROPS) raises too, on
+    either device, naming the reason."""
+    if method == "gather":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _port_runner(inputs, _port_model(cosmo_t), method=method)
+        return
+    for device in ("cpu", "cuda"):     # no tensor is made here
+        with pytest.raises(ValueError, match="packed records"):
+            _made(T.BaryonifyShell, inputs, _PropsModel(), device,
+                  method=method)
 
 
 def test_auto_resolves_to_scatter_on_every_device(inputs, cosmo_t):
-    runner = _port_runner(inputs, _port_model(cosmo_t))
-    for device in ("cpu", "cuda"):     # no tensor is made here
-        runner_dev = T.BaryonifyShell(runner.HaloLightConeCatalog,
-                                      runner.LightconeShell, 20,
-                                      runner.model, device=device)
-        assert runner_dev.method == "scatter"
-    assert runner_dev.dtype == torch.float32
+    """With a model whose extra axes do not fit the packed records,
+    ``auto`` is ``scatter`` on the CPU and on CUDA, where it warns."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert _made(T.BaryonifyShell, inputs, _PropsModel(),
+                     "cpu").method == "scatter"
+    with pytest.warns(UserWarning, match="packed records"):
+        runner = _made(T.BaryonifyShell, inputs, _PropsModel(), "cuda")
+    assert runner.method == "scatter" and runner.dtype == torch.float32
+
+
+@pytest.mark.parametrize("device,method", [("cpu", "scatter"),
+                                           ("cuda", "cellmajor")])
+def test_auto_resolves_by_device(device, method, inputs, cosmo_t):
+    """``auto`` is ``scatter`` on the CPU and ``cellmajor`` on CUDA, as
+    in the JAX package (no tensor is made here); explicit methods are
+    taken on either device."""
+    model = _port_model(cosmo_t)
+    for cls in (T.BaryonifyShell, T.PaintProfilesShell):
+        assert _made(cls, inputs, model, device).method == method
+        for explicit in ("scatter", "cellmajor"):
+            assert _made(cls, inputs, model, device,
+                         method=explicit).method == explicit
+    with pytest.raises(ValueError, match="unknown method"):
+        _made(T.BaryonifyShell, inputs, model, device, method="halo-major")
 
 
 def test_port_never_imports_jax():
-    """Every module of the port imports, and a tiny process(), anafast
-    and paint run on the CPU, with ``jax`` made unimportable."""
+    """Every module of the port imports, and a tiny process() (both
+    methods), anafast and paint run on the CPU, with ``jax`` made
+    unimportable."""
     code = textwrap.dedent("""
         import sys, pkgutil, importlib
         sys.modules["jax"] = None
@@ -186,6 +231,11 @@ def test_port_never_imports_jax():
         out = T.BaryonifyShell(cat, shell, epsilon_max=20, model=model,
                                verbose=False, device="cpu").process()
         assert np.isfinite(out).all() and abs(out.sum() / 3072 - 1) < 1e-8
+        out_cm = T.BaryonifyShell(cat, shell, epsilon_max=20, model=model,
+                                  verbose=False, device="cpu",
+                                  method="cellmajor").process()
+        assert abs(out_cm.sum() / 3072 - 1) < 1e-8
+        assert np.abs(out_cm - out).max() < 1e-6 * np.abs(out - 1).max()
         from baryonification_tpu_torch.ops.spectra import anafast
         cl = anafast(torch.tensor(out), 16, 24)
         assert cl.shape == (25,) and torch.isfinite(cl).all()
