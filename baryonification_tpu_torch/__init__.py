@@ -6,15 +6,18 @@ JAX package stays the reference; every ported part is checked against it
 on the same inputs (``tests/test_torch_*.py``).
 
 Ported so far:
-- the shell-baryonify main path with its ``scatter`` method: Schneider19
-  profiles -> ``Baryonification2D`` displacement table ->
-  ``BaryonifyShell.process``;
+- the shell-baryonify main path: Schneider19 profiles ->
+  ``Baryonification2D`` / ``Baryonification3D`` displacement tables (with
+  extra parameter axes) -> ``BaryonifyShell.process``;
 - the C_ell path: ``TabulatedProfile`` -> ``PaintProfilesShell.process``
-  (``scatter`` method) -> ``ops.spectra`` (``anafast`` and the rest of
-  the SHT).
-The sorted scatter-add of both passes and the two Legendre recurrences
-of the SHT are hand-written CUDA kernels (``csrc/*.cu``, built at first
-use).
+  -> ``ops.spectra`` (``anafast`` and the rest of the SHT).
+Both shell runners have two methods: ``cellmajor`` (what ``"auto"`` takes
+on the card: candidate lists per coarse cell and one pass a bucket, the
+kernel ``csrc/cellmajor_pass.cu``) and ``scatter`` (halo windows ending
+in a scatter-add of unsorted rows, ``csrc/scatter_add.cu``; what
+``"auto"`` takes on the CPU). The two Legendre recurrences of the SHT
+are ``csrc/legendre_sht.cu``. Every kernel is written by hand in CUDA
+and built at first use.
 
 Devices and precision: every entry that makes tensors takes a
 ``device``, the card by default (``"cuda"``; without a GPU a defaulted

@@ -27,6 +27,14 @@ PyTorch version (``cellmajor_pass_reference``); CUDA tensors take the
 kernel, built at first use, or the call raises. There is no fallback from
 one to the other. ``LAUNCHES`` counts kernel launches; only a launch of
 the CUDA kernel adds to it.
+
+Where F is a multiple of 32 the kernel skips, for a patch of 32
+neighbouring pixels at once, the slots whose disc cannot reach any of
+them; what it skips adds nothing in the plain version either.
+``_cellmajor_pass_raw`` is the wrapper with two more arguments, for the
+tests and ``chip_smoke.py``: ``cull=False`` runs the kernel without that
+test (bit for bit the same result), and ``kept`` counts the (patch, slot)
+pairs that the patches walk.
 """
 
 import ctypes
@@ -36,13 +44,16 @@ import torch
 from .._cuda_build import load_library
 
 __all__ = ["cellmajor_pass", "cellmajor_pass_reference", "LAUNCHES",
-           "MODES"]
+           "MODES", "REC_COLS"]
 
 #: kernel launches by kernel name (read and reset by callers)
 LAUNCHES = {"cellmajor_pass": 0}
 
 #: mode name -> the kernel's mode number
 MODES = {"offsets": 0, "offsets_rdelta": 1, "paint": 2}
+
+#: values in a slot record (``runners.shell_cellmajor.slot_records``)
+REC_COLS = 8
 
 _FUNCS = {}
 
@@ -59,7 +70,7 @@ def _kernel(dtype):
         P, I, L, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_double)
         fn.argtypes = [I, P, P, P, P, P, P, P, P, P, P, L, L, I, I, D, D, D,
-                       P]
+                       I, P, P]
         fn.restype = I
         _FUNCS[dtype] = fn
     return _FUNCS[dtype]
@@ -89,8 +100,8 @@ def _check(mode, planes, pix, dense, counts, F, recs, rows):
         raise ValueError(f"{ncell} cells of F={F} pixels do not make "
                          f"{npix} pixels, or dense ({dense.shape[0]}) is "
                          f"not ncell * K_pad")
-    if recs.dtype != dt or recs.dim() != 2 or recs.shape[1] != 8:
-        raise ValueError(f"recs must be {dt} of shape (H, 8)")
+    if recs.dtype != dt or recs.dim() != 2 or recs.shape[1] != REC_COLS:
+        raise ValueError(f"recs must be {dt} of shape (H, {REC_COLS})")
     if rows.dtype != dt or rows.dim() != 2 or rows.shape[0] != recs.shape[0] \
             or rows.shape[1] < 2:
         raise ValueError(f"rows must be {dt} of shape (H, n_hi >= 2)")
@@ -115,6 +126,7 @@ def cellmajor_pass_reference(mode, planes, pix, dense, counts, F, recs, rows,
         return planes
     K_pad = dense.shape[0] // ncell
     n_hi = rows.shape[1]
+    inv_dg = 1.0 / dg
     dense2d = dense.reshape(ncell, K_pad)
     C = max(1, _CHUNK_PIXELS // F)
     for c0 in range(0, ncell, C):
@@ -129,7 +141,7 @@ def cellmajor_pass_reference(mode, planes, pix, dense, counts, F, recs, rows,
         for k in range(k_max):
             hid = dense2d[c0:c1, k].to(torch.int64)
             rec = recs[hid]
-            hvx, hvy, hvz, hD, ha, hReps, hlnR, cosr = (
+            hvx, hvy, hvz, cosr, hD, ha, hReps, hlnR = (
                 rec[:, j, None] for j in range(8))
             dx = (px - hvx) * hD
             dy = (py - hvy) * hD
@@ -146,7 +158,7 @@ def cellmajor_pass_reference(mode, planes, pix, dense, counts, F, recs, rows,
             cosang = px * hvx + py * hvy + pz * hvz
             inside = ((rad >= g0) & (rad <= rad_hi) & (r_com < hReps)
                       & (cosang >= cosr) & (k < cnt)[:, None])
-            t = (rad - g0) / dg
+            t = (rad - g0) * inv_dg
             tc = torch.clamp(t, 0.0, float(n_hi - 1))
             i = torch.clamp(torch.floor(tc).to(torch.int64), 0, n_hi - 2)
             w = tc - i.to(tc.dtype)
@@ -169,9 +181,10 @@ def cellmajor_pass_reference(mode, planes, pix, dense, counts, F, recs, rows,
             pdo = hD * (px * ofx + py * ofy + pz * ofz)
             osq = ofx * ofx + ofy * ofy + ofz * ofz
             sft = (2.0 * pdo + osq) / (nw_norm + hD)
-            dxn = (ofx - px * sft) / nw_norm
-            dyn = (ofy - py * sft) / nw_norm
-            dzn = (ofz - pz * sft) / nw_norm
+            inv_nw = 1.0 / nw_norm
+            dxn = (ofx - px * sft) * inv_nw
+            dyn = (ofy - py * sft) * inv_nw
+            dzn = (ofz - pz * sft) * inv_nw
             good = (torch.isfinite(dxn) & torch.isfinite(dyn)
                     & torch.isfinite(dzn))
             for a, dn in zip(acc, (dxn, dyn, dzn)):
@@ -186,6 +199,17 @@ def cellmajor_pass(mode, planes, pix, dense, counts, F, recs, rows, g0, dg,
     """Add one bucket's contributions to ``planes`` in place (see the
     module docstring). CUDA tensors go through the kernel in one launch;
     CPU tensors take the plain version. Returns ``planes``."""
+    return _cellmajor_pass_raw(mode, planes, pix, dense, counts, F, recs,
+                               rows, g0, dg, rad_hi)
+
+
+def _cellmajor_pass_raw(mode, planes, pix, dense, counts, F, recs, rows, g0,
+                        dg, rad_hi, cull=True, kept=None):
+    """``cellmajor_pass`` with the kernel's two measurement arguments (the
+    CPU's plain version ignores them): ``cull=False`` runs the kernel
+    without its patch cull, and ``kept`` (a (1,) int64 CUDA tensor) gets
+    the number of (patch, slot) pairs that the patches walk added to it
+    (F a multiple of 32). Returns ``planes``."""
     planes, pix = _check(mode, planes, pix, dense, counts, F, recs, rows)
     dev = planes[0].device
     if dev.type == "cpu":
@@ -208,12 +232,19 @@ def cellmajor_pass(mode, planes, pix, dense, counts, F, recs, rows, g0, dg,
     pix = tuple(v.contiguous() for v in pix)
     dense, counts = dense.contiguous(), counts.contiguous()
     recs, rows = recs.contiguous(), rows.contiguous()
+    if recs.data_ptr() % 16:           # the kernel reads 16-byte records
+        recs = recs.clone()
+    if kept is not None and (kept.dtype != torch.int64 or kept.device != dev
+                             or kept.numel() != 1):
+        raise ValueError(f"kept must be one int64 on {dev}")
     outs = [o.data_ptr() for o in planes] + [None] * (3 - len(planes))
     err = _kernel(planes[0].dtype)(
         MODES[mode], *(v.data_ptr() for v in pix), dense.data_ptr(),
         counts.data_ptr(), recs.data_ptr(), rows.data_ptr(), *outs, npix, F,
         dense.shape[0] // ncell, rows.shape[1], float(g0), float(dg),
-        float(rad_hi), torch.cuda.current_stream(dev).cuda_stream)
+        float(rad_hi), int(bool(cull)),
+        None if kept is None else kept.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cellmajor_pass launch failed: CUDA error {err}")
     LAUNCHES["cellmajor_pass"] += 1

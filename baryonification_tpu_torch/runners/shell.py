@@ -144,7 +144,8 @@ class DefaultRunner:
     asks for the CPU (without a GPU, ``process()`` on the default
     raises). ``precision`` is its hot-path dtype ("auto": float64 on the
     CPU, float32 on CUDA). ``method``: see
-    :func:`runners._method.resolve_method` ("auto" is "scatter").
+    :func:`runners._method.resolve_method` ("auto" is "cellmajor" on
+    CUDA and "scatter" on the CPU).
     """
 
     def __init__(self, HaloLightConeCatalog, LightconeShell, epsilon_max,

@@ -175,17 +175,18 @@ def halo_rows(grids, table, packed, n_hi):
 
 def slot_records(packed, eps_max):
     """(H, 8) per-halo records that the pass reads once a slot: unit
-    vector, D, a, eps_max * R_com, ln R_com, and cos(eps_max * R_com * a /
-    D), the cosine of the disc's angular radius."""
+    vector, cos_reach = cos(eps_max * R_com * a / D) (the cosine of the
+    disc's angular radius), then D, a, eps_max * R_com, ln R_com. The
+    kernel's angular test reads the first four values, one 16-byte load in
+    float32."""
     eps_R = eps_max * packed[:, 5]
     cos_reach = torch.cos(eps_R * packed[:, 4] / packed[:, 3])
-    return torch.stack([packed[:, 0], packed[:, 1], packed[:, 2],
-                        packed[:, 3], packed[:, 4], eps_R, packed[:, 6],
-                        cos_reach], dim=-1).contiguous()
+    return torch.stack([packed[:, 0], packed[:, 1], packed[:, 2], cos_reach,
+                        packed[:, 3], packed[:, 4], eps_R, packed[:, 6]],
+                       dim=-1).contiguous()
 
 
 def cell_reach_cos(radius, nside_c):
     """cos(radius + MARGIN * resol(nside_c)) in the radius's dtype."""
     return torch.cos(radius + radius.new_tensor(
         MARGIN * hpx.nside2resol(nside_c)))
-

@@ -338,21 +338,245 @@ def check_scatter(T, torch, sc, device, n_halo, nside):
                 bound_by="bytes", library_ms=ms["library"])
 
 
-# operations of one (pixel, candidate) slot of the cell-major pass, from
-# csrc/cellmajor_pass.cu (a sqrt, log, exp or division counted as one):
-# every slot runs the disc test (separation, ln r, the angular and radial
-# tests; one more with rdelta), a slot inside the disc also the readout
-# and, in offsets mode, the unit-sphere delta
-CM_TEST_FLOPS = 24
+# operations that the cell-major pass needs, from csrc/cellmajor_pass.cu
+# (a sqrt, log, exp or division counted as one). The disc's conditions
+# are a conjunction, so every listed (pixel, candidate) slot needs only
+# the angular test (a three-term dot product and a compare); a slot that
+# passes it, the rest of the disc test (separation, ln r, the radial
+# tests; one more with rdelta); a slot inside the disc, the readout and,
+# in offsets mode, the unit-sphere delta. The bound counts each where
+# this run's data needs it.
+CM_ANG_FLOPS = 6
+CM_DISC_FLOPS = {"offsets": 18, "offsets_rdelta": 19, "paint": 18}
 CM_READ_FLOPS = {"offsets": 56, "offsets_rdelta": 56, "paint": 12}
+# the first design's count, the whole disc test (6 + 18) for every
+# slot-pixel: logged beside the bound so that it compares with the
+# kernel's earlier records
+CM_TEST_FLOPS = 24
+
+# The issue bound of the cell-major kernel counts the SASS instructions a
+# lane issues in csrc/cellmajor_pass.cu where F is a multiple of 32, read
+# at run time from the build (cuobjdump -sass of the cellmajor_kernel
+# instances), on the fast path of each block (no division or sqrt slow
+# path, no launch count), each block counted where it runs: the set-up of
+# a pixel whose cell has candidates (the cell, the cap, the epilogue); the
+# chunk step, run by every lane once for 32 candidates (the ids, the patch
+# test, the ballot); a walked slot (the shuffle, the angular test, the
+# loop); a slot past the angular test (the separation, division, log and
+# radial tests); a slot inside its disc (the readout and, in offsets mode,
+# the unit-sphere delta). An FP64 instruction holds its pipe for two
+# clocks (64 lanes a clock and SM), so a float64 block costs the larger of
+# twice its FP64 instructions and all its instructions; the MUFU (SFU)
+# pipe issues 16 lanes a clock and SM.
+CM_BLOCKS = ("pixel set-up", "chunk step", "walked slot",
+             "past the angular test", "inside")
+CM_INSTANCES = {"IfLb0ELb0ELb1E": ("offsets", "float32"),
+                "IfLb1ELb0ELb1E": ("paint", "float32"),
+                "IdLb0ELb0ELb1E": ("offsets", "float64"),
+                "IdLb1ELb0ELb1E": ("paint", "float64")}
+MUFU_LANES_PER_SM = 16
 
 
-def cellmajor_census(T, torch, device, model, tab, n_halo, nside):
+def sass_functions(text):
+    """{function name: [(address, instruction)]} of cuobjdump -sass."""
+    import re
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = funcs.setdefault(line.split("Function :")[1].strip(), [])
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2).strip()))
+    return funcs
+
+
+def cellmajor_blocks(ins):
+    """(all, FP64, MUFU) instructions of each of CM_BLOCKS on its fast
+    path in one cellmajor_kernel instance's SASS ``ins``. The candidate
+    loop is found by its shapes: the walk loop holds the SHFL.IDX and ends
+    in a backward branch after the BSYNC that closes a slot; the chunk
+    loop's backward branch follows it. A conditional forward branch is
+    taken where it skips at most 24 instructions holding a CALL (a slow
+    path) or the launch count's REDG. Returns the counts and, for each
+    block, the SASS address ranges it was read from (to check against
+    ``cuobjdump -sass``); raises where a block lacks the instruction that
+    marks it (the ballot of the chunk step, the walk's shuffle, the MUFU
+    of the sqrt and log past the angular test)."""
+    import re
+
+    def target(t):
+        m = re.search(r"\bBRA\s+(?:!?U?P\w+,\s*)?(0x[0-9a-f]+)", t)
+        return int(m.group(1), 16) if m else None
+
+    idx = {a: i for i, (a, _) in enumerate(ins)}
+    shfl = next(i for i, (_, t) in enumerate(ins)
+                if t.startswith("SHFL.IDX"))
+    back, walk_head = next((i, target(t)) for i, (_, t) in enumerate(ins)
+                           if i > shfl and target(t) is not None
+                           and target(t) <= ins[shfl][0])
+    join = next(ins[j][0] for j in range(back, 0, -1)
+                if ins[j][1].startswith("BSYNC"))
+    cback, chunk_head = next((i, target(t)) for i, (_, t) in enumerate(ins)
+                             if i > back and target(t) is not None
+                             and target(t) < walk_head)
+
+    def skips(i, g):
+        return idx[g] - i <= 24 and any(
+            p in ins[j][1] for j in range(i + 1, idx[g])
+            for p in ("CALL", "REDG"))
+
+    def path(i, limit, last=None, until=None):
+        # from index i along the fast path, to the first instruction for
+        # which last() holds (kept) or up to the index where until()
+        # holds; returns ([(address, instruction)], the index after)
+        out = []
+        for _ in range(4000):
+            if until is not None and until(i):
+                return out, i
+            a, t = ins[i]
+            out.append((a, t))
+            if last is not None and last(t):
+                return out, i + 1
+            g = target(t)
+            if g is not None and (not t.startswith("@") or (
+                    a < g < limit and skips(i, g))):
+                i = idx[g]
+                continue
+            i += 1
+        raise RuntimeError("no end to a path in the SASS")
+
+    setup, _ = path(0, 1 << 40, until=lambda i: ins[i][0] == chunk_head)
+    setup += path(cback + 1, 1 << 40,
+                  last=lambda t: t.startswith("EXIT"))[0]
+    chunk, _ = path(idx[chunk_head], walk_head,
+                    until=lambda i: ins[i][0] == walk_head)
+    chunk += ins[back + 1:cback + 1]
+    walk, i = path(idx[walk_head], join, last=lambda t: target(t) == join)
+    walk += ins[idx[join]:back + 1]
+    radial, i = path(i, join, last=lambda t: target(t) == join)
+    inside, _ = path(i, join, until=lambda i: ins[i][0] == join)
+    blocks = (setup, chunk, walk, radial, inside)
+    for b, name, mark in ((chunk, "chunk step", "VOTE"),
+                          (walk, "walked slot", "SHFL.IDX"),
+                          (radial, "past the angular test", "MUFU")):
+        if not any(mark in t for _, t in b):
+            raise RuntimeError(f"the {name} block holds no {mark}")
+
+    def ranges(b):
+        out = []
+        for a, _ in b:
+            if out and a == out[-1][1] + 16:
+                out[-1][1] = a
+            else:
+                out.append([a, a])
+        return " ".join(f"{x:#x}-{y:#x}" for x, y in out)
+
+    return (tuple((len(b), sum(1 for _, t in b if re.match(
+        r"(@\S+\s+)?D(ADD|MUL|FMA|SETP|MNMX)", t)),
+                   sum(1 for _, t in b if "MUFU" in t)) for b in blocks),
+            tuple(ranges(b) for b in blocks))
+
+
+def cellmajor_sass():
+    """{(mode, dtype): CM_BLOCKS counts} of this checkout's built
+    cell-major library, by cuobjdump -sass, with each block's address
+    ranges logged; fails the run if an instance of CM_INSTANCES cannot be
+    read or parsed."""
+    import shutil
+    from baryonification_tpu_torch import _cuda_build as cb
+    lib = cb._LIBS.get("cellmajor_pass")
+    check(lib is not None, "the cell-major library is not loaded")
+    tool = shutil.which("cuobjdump") or str(
+        Path(cb.nvcc_path()).with_name("cuobjdump"))
+    check(Path(tool).exists(), f"no cuobjdump beside nvcc ({tool})")
+    out = subprocess.run([tool, "-sass", lib._name], capture_output=True,
+                         text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr[-300:]}")
+    counts = {}
+    for name, ins in sass_functions(out.stdout).items():
+        for key, md in CM_INSTANCES.items():
+            if "cellmajor_kernel" + key in name:
+                try:
+                    counts[md], where = cellmajor_blocks(ins)
+                except (StopIteration, RuntimeError, KeyError) as e:
+                    check(False, f"the SASS of cellmajor_kernel {md} has "
+                                 f"not the expected loop shape ({e!r})")
+                log(f"kernels: cellmajor_pass {md[0]} {md[1]} SASS address "
+                    f"ranges by block ({name}): " + "; ".join(
+                        f"{b}: {r}" for b, r in zip(CM_BLOCKS, where)))
+    check(set(counts) == set(CM_INSTANCES.values()),
+          f"cellmajor_kernel instances not found in the SASS: "
+          f"{sorted(set(CM_INSTANCES.values()) - set(counts))}")
+    return counts
+
+
+def slot_census(torch, cmc, c, mode):
+    """Slot-pixels of the pass's inputs ``c`` by the path the kernel
+    takes for them: {'slots': all, 'angular': passing the angular test,
+    'inside': inside their halo's disc and radial range (the slots that
+    run the readout), 'pixels': those of cells with candidates, 'chunks':
+    lane runs of the kernel's chunk step (32 candidates), 'patches': all
+    (patch, slot) pairs, 'culled_patches': those that the kernel's patch
+    test skips (its own count, from a ``mode`` run of the kernel),
+    'culled': the slot-pixels they cover}. Where the kernel does not cull
+    (F not a multiple of 32, or the first design's package from another
+    checkout, which has no cull and whose records hold cos_reach last)
+    the cull counts are None."""
+    F, counts, pix, recs = c["F"], c["counts"], c["pix"], c["recs"]
+    ncell = counts.shape[0]
+    dense2d = c["dense"].reshape(ncell, -1)
+    new_recs = hasattr(cmc, "_cellmajor_pass_raw")
+    i_cos, i_D, i_a, i_R = (3, 4, 5, 6) if new_recs else (7, 3, 4, 5)
+    has_cull = new_recs and F % 32 == 0
+    C = max(1, (1 << 20) // F)
+    n = dict(slots=0, pixels=0, chunks=0, angular=0, inside=0)
+    for c0 in range(0, ncell, C):
+        c1 = min(c0 + C, ncell)
+        cnt = counts[c0:c1]
+        n["slots"] += int(cnt.sum()) * F
+        n["pixels"] += int((cnt > 0).sum()) * F
+        n["chunks"] += int(((cnt + 31) // 32).sum()) * F
+        px, py, pz = (v[c0 * F:c1 * F].reshape(c1 - c0, F) for v in pix)
+        for k in range(int(cnt.max())):
+            live = (k < cnt)[:, None]
+            rec = recs[dense2d[c0:c1, k].long()]
+            h = [rec[:, j, None] for j in range(8)]
+            dx, dy, dz = ((p - hv) * h[i_D] for p, hv in
+                          ((px, h[0]), (py, h[1]), (pz, h[2])))
+            r_com = torch.sqrt(dx * dx + dy * dy + dz * dz) / h[i_a]
+            rad = torch.log(torch.clamp(r_com, min=1e-30))
+            ang = (px * h[0] + py * h[1] + pz * h[2] >= h[i_cos]) & live
+            ok = ((rad >= c["g0"]) & (rad <= c["rad_hi"])
+                  & (r_com < h[i_R]) & ang)
+            n["angular"] += int(ang.sum())
+            n["inside"] += int(ok.sum())
+    n["P"] = 32 if has_cull else None
+    if not has_cull:
+        n.update(patches=None, culled_patches=None, culled=None)
+        return n
+    kept = torch.zeros(1, dtype=torch.int64, device=counts.device)
+    planes = tuple(torch.zeros_like(pix[0])
+                   for _ in range(1 if mode == "paint" else 3))
+    cmc._cellmajor_pass_raw(mode, planes, pix, c["dense"], counts, F, recs,
+                            c["rows"], c["g0"], c["dg"], c["rad_hi"],
+                            kept=kept)
+    n["patches"] = int(counts.sum()) * (F // 32)
+    n["culled_patches"] = n["patches"] - int(kept)
+    n["culled"] = n["culled_patches"] * 32
+    return n
+
+
+def cellmajor_census(T, torch, cmc, device, model, tab, n_halo, nside):
     """The shell path's cell-major buckets, made as process() makes them
     (runner caches, float32): logs per bucket nside_c -> nside_c_eff, H,
-    K, F and the slot-pixels sum(counts) * F. Returns the pass's inputs
-    of the bucket with the most slot-pixels, for both modes (offsets rows
-    from the displacement table, paint rows from ``tab``'s log table)."""
+    K, F, the slot-pixels sum(counts) * F by the kernel's path (culled by
+    their patch, inside their disc) and the CUDA-event times of the parts
+    of its pass[...] stage: slot_records, halo_rows (the row blend) and
+    the kernel (offsets, float32; also without the patch cull). Returns
+    the pass's inputs of the bucket with the most slot-pixels, for both
+    modes (offsets rows from the displacement table, paint rows from
+    ``tab``'s log table), with that bucket's census."""
     from baryonification_tpu_torch.runners import shell_cellmajor as tcm
     cat, shell = catalog(T, n_halo, nside)
     runner = T.BaryonifyShell(cat, shell, epsilon_max=EPS_MAX, model=model,
@@ -361,9 +585,15 @@ def cellmajor_census(T, torch, device, model, tab, n_halo, nside):
     arrs = runner._halo_arrays(T.Cosmology.from_dict(COSMO, device=device))
     packed_all = runner._packed_records(arrs, dt)
     pix = runner._pixels_nested(nside, dt)
-    best, total = None, 0
+    has_cull = hasattr(cmc, "_cellmajor_pass_raw")
+    gd = tuple(g.to(device, dt) for g in model._grids)
+    t_off = model._table.to(device, dt)
+    t_off = torch.where(torch.isfinite(t_off), t_off, 0.0)
+    g2 = model._grids[2].cpu().numpy()
+    g0, dg = float(gd[2][0]), float(gd[2][1] - gd[2][0])
+    best, total = None, dict(slots=0, inside=0, culled=0)
     log(f"kernels: cell-major census at {n_halo} halos, NSIDE {nside} "
-        f"(one launch a bucket):")
+        f"(one launch a bucket; float32 offsets, CUDA events):")
     for bi, (nside_c, jidx, r_b, rcm_max) in enumerate(
             runner._cm_groups(arrs, nside)):
         dense, counts, K, nsc_eff = runner._dense_candidates(
@@ -371,15 +601,52 @@ def cellmajor_census(T, torch, device, model, tab, n_halo, nside):
                 k: arrs[k][jidx].to(dt) for k in ('theta', 'phi', 'radius')},
             r_b)
         F = (nside // nsc_eff) ** 2
-        slot_pix = int(counts.sum()) * F
-        total += slot_pix
-        log(f"kernels:   bucket {bi}: nside_c {nside_c} -> {nsc_eff}, "
-            f"H={jidx.shape[0]}, K={K}, F={F}, slot-pixels={slot_pix:.4e}")
-        if best is None or slot_pix > best[0]:
-            best = (slot_pix, bi, jidx, dense, counts, F, rcm_max)
-    slot_pix, bi, jidx, dense, counts, F, rcm_max = best
+        packed = packed_all[jidx]
+        n_hi = runner._node_bound(g2, np.log(EPS_MAX * rcm_max), len(g2))
+        recs = tcm.slot_records(packed, EPS_MAX)
+        rows = tcm.halo_rows(gd, t_off, packed, n_hi)
+        c = dict(pix=pix, dense=dense, counts=counts, F=F, recs=recs,
+                 rows=rows, g0=g0, dg=dg, rad_hi=float(gd[2][n_hi - 1]))
+        ms_rec = cuda_ms(torch, lambda: tcm.slot_records(packed, EPS_MAX), 5)
+        ms_rows = cuda_ms(torch, lambda: tcm.halo_rows(gd, t_off, packed,
+                                                       n_hi), 5)
+        planes = tuple(torch.zeros_like(pix[0]) for _ in range(3))
+        args = (planes, pix, dense, counts, F, recs, rows, g0, dg,
+                c["rad_hi"])
+        cmc.cellmajor_pass("offsets", *args)
+        ms_k = cuda_ms(torch, lambda: cmc.cellmajor_pass("offsets", *args), 5)
+        n = slot_census(torch, cmc, c, "offsets")
+        for key in total:
+            total[key] += n[key] or 0
+        line = (f"kernels:   bucket {bi}: nside_c {nside_c} -> {nsc_eff}, "
+                f"H={jidx.shape[0]}, K={K}, F={F}, n_hi={n_hi}: "
+                f"slot-pixels {n['slots']:.4e}, inside their disc "
+                f"{n['inside']:.4e} ({100 * n['inside'] / n['slots']:.1f}%), "
+                f"passing the angular test {n['angular']:.4e}")
+        if n["P"]:
+            ms_k0 = cuda_ms(torch, lambda: cmc._cellmajor_pass_raw(
+                "offsets", *args, cull=False), 5)
+            out = n["slots"] - n["inside"]
+            line += (f"; patch of {n['P']}: "
+                     f"{n['culled_patches']} of {n['patches']} "
+                     f"patch-slots culled (the kernel's count), covering "
+                     f"{n['culled']:.4e} slot-pixels ("
+                     f"{100 * n['culled'] / n['slots']:.1f}% of all, "
+                     f"{100 * n['culled'] / max(out, 1):.1f}% of those "
+                     f"outside); kernel {ms_k:.4f} ms (without the cull "
+                     f"{ms_k0:.4f} ms)")
+        else:
+            line += f"; kernel {ms_k:.4f} ms"
+        log(line + f", slot_records {ms_rec:.4f} ms, halo_rows {ms_rows:.4f}"
+            f" ms")
+        if best is None or n["slots"] > best[0]["slots"]:
+            best = (n, bi, jidx, dense, counts, F, rcm_max)
+    n, bi, jidx, dense, counts, F, rcm_max = best
     log(f"kernels: cell-major path-shaped input: bucket {bi} "
-        f"({slot_pix:.4e} of the path's {total:.4e} slot-pixels)")
+        f"({n['slots']:.4e} of the path's {total['slots']:.4e} slot-pixels;"
+        f" the path: {total['inside']:.4e} inside their disc"
+        + (f", {total['culled']:.4e} culled by their patch" if has_cull
+           else "") + ")")
     packed = packed_all[jidx]
     inputs = {}
     for mode, tabl, grids, fill in (
@@ -387,57 +654,43 @@ def cellmajor_census(T, torch, device, model, tab, n_halo, nside):
             ("paint", tab._ln2D, tab._grids, -1e30)):
         gh = grids[2].cpu().numpy()
         n_hi = runner._node_bound(gh, np.log(EPS_MAX * rcm_max), len(gh))
-        gd = tuple(g.to(device, dt) for g in grids)
+        gm = tuple(g.to(device, dt) for g in grids)
         t = tabl.to(device, dt)
         t = torch.where(torch.isfinite(t), t, fill)
-        g2d = gd[2].cpu()
+        g2d = gm[2].cpu()
         inputs[mode] = dict(
             pix=pix, dense=dense, counts=counts, F=F,
             recs=tcm.slot_records(packed, EPS_MAX),
-            rows=tcm.halo_rows(gd, t, packed, n_hi), g0=float(g2d[0]),
+            rows=tcm.halo_rows(gm, t, packed, n_hi), g0=float(g2d[0]),
             dg=float(g2d[1] - g2d[0]), rad_hi=float(g2d[n_hi - 1]))
+        inputs[mode]["census"] = (n if mode == "offsets" else
+                                  slot_census(torch, cmc, inputs[mode],
+                                              mode))
     return inputs
 
 
-def inside_slot_pixels(torch, c):
-    """Slot-pixels of the pass's inputs ``c`` that lie inside their
-    halo's disc and radial range (the slots that run the readout), by the
-    plain version's test, chunk by chunk."""
-    F, counts, pix, recs = c["F"], c["counts"], c["pix"], c["recs"]
-    ncell = counts.shape[0]
-    dense2d = c["dense"].reshape(ncell, -1)
-    C = max(1, (1 << 20) // F)
-    n = 0
-    for c0 in range(0, ncell, C):
-        c1 = min(c0 + C, ncell)
-        cnt = counts[c0:c1]
-        px, py, pz = (v[c0 * F:c1 * F].reshape(c1 - c0, F) for v in pix)
-        for k in range(int(cnt.max())):
-            rec = recs[dense2d[c0:c1, k].long()]
-            h = [rec[:, j, None] for j in range(8)]
-            dx, dy, dz = ((p - hv) * h[3] for p, hv in
-                          ((px, h[0]), (py, h[1]), (pz, h[2])))
-            r_com = torch.sqrt(dx * dx + dy * dy + dz * dz) / h[4]
-            rad = torch.log(torch.clamp(r_com, min=1e-30))
-            ok = ((rad >= c["g0"]) & (rad <= c["rad_hi"]) & (r_com < h[5])
-                  & (px * h[0] + py * h[1] + pz * h[2] >= h[7])
-                  & (k < cnt)[:, None])
-            n += int(ok.sum())
-    return n
-
-
-def check_cellmajor(T, torch, cmc, device, n_halo, nside):
+def check_cellmajor(T, torch, cmc, device, n_halo, nside, issue_bound):
     """The cell-major kernel against its plain version at the shell
     path's bucket with the most slot-pixels, offsets and paint, float64
-    and float32, with CUDA-event times and the bound. Returns the record
-    for the kernels line (float32 offsets, the main path's)."""
+    and float32, with CUDA-event times and the bound; the kernel with and
+    without its patch cull must agree bit for bit. With ``issue_bound``
+    also the issue bound (see CM_BLOCKS), from the SASS of this build.
+    Returns the record for the kernels line (float32 offsets, the main
+    path's)."""
     model = model_for(T, device, BENCH_GRID)
     tab = T.TabulatedProfile(T.DarkMatter(**dict(EX09_PAR, theta_ej=4.0)),
                              T.Cosmology.from_dict(COSMO, device=device))
     tab.setup_interpolator(z_min=0.05, z_max=1.2, N_samples_z=12,
                            M_min=1e12, M_max=1e16, N_samples_Mass=24,
                            R_min=1e-3, R_max=1e2, N_samples_R=100)
-    inputs = cellmajor_census(T, torch, device, model, tab, n_halo, nside)
+    inputs = cellmajor_census(T, torch, cmc, device, model, tab, n_halo,
+                              nside)
+    has_cull = hasattr(cmc, "_cellmajor_pass_raw")
+    sass = cellmajor_sass() if issue_bound else None
+    if issue_bound:
+        log("kernels: cellmajor_pass SASS instructions a lane by block ("
+            + ", ".join(CM_BLOCKS) + "; all, FP64, MUFU): " + (
+                "; ".join(f"{m} {d} {c}" for (m, d), c in sass.items())))
     rec = dict(name="cellmajor_pass", route="cuda",
                source="baryonification_tpu_torch/csrc/cellmajor_pass.cu",
                replaces="baryonification_tpu/runners/shell_cellmajor.py:255",
@@ -447,8 +700,10 @@ def check_cellmajor(T, torch, cmc, device, n_halo, nside):
         n_out = 1 if mode == "paint" else 3
         npix, ncell = c32["pix"][0].shape[0], c32["counts"].shape[0]
         H, n_hi = c32["rows"].shape
+        n_rec = c32["recs"].shape[1]
         slots = int(c32["counts"].sum())
-        n_in = inside_slot_pixels(torch, c32)
+        census = c32["census"]
+        n_in = census["inside"]
         for dt in (torch.float64, torch.float32):
             dname = str(dt).split(".")[1]
             c = {k: (tuple(p.to(dt) for p in v) if k == "pix" else
@@ -479,27 +734,78 @@ def check_cellmajor(T, torch, cmc, device, n_halo, nside):
             ms_k1, ms_k2 = cuda_ms(torch, k_fn, 10), cuda_ms(torch, k_fn, 10)
             ms_p2 = cuda_ms(torch, p_fn, 1)
             ms_k, ms_p = (ms_k1 + ms_k2) / 2, (ms_p1 + ms_p2) / 2
+            extra = ""
+            if has_cull:
+                raw = tuple(torch.zeros_like(w) for w in want)
+                cmc._cellmajor_pass_raw(mode, raw, *args, cull=False)
+                once = tuple(torch.zeros_like(w) for w in want)
+                cmc.cellmajor_pass(mode, once, *args)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(once, raw)),
+                      f"cellmajor_pass {mode} {dname}: the patch cull "
+                      f"changed the result")
+                ms_0 = cuda_ms(torch, lambda: cmc._cellmajor_pass_raw(
+                    mode, got, *args, cull=False), 10)
+                extra = (f"; without the patch cull {ms_0:.4f} ms, bit for "
+                         f"bit the same result")
             t = 8 if dt == torch.float64 else 4
-            flops = (slots * c["F"] * CM_TEST_FLOPS
+            flops = (slots * c["F"] * CM_ANG_FLOPS
+                     + census["angular"] * CM_DISC_FLOPS[mode]
                      + n_in * CM_READ_FLOPS[mode])
+            flops_pr5 = (slots * c["F"] * CM_TEST_FLOPS
+                         + n_in * CM_READ_FLOPS[mode])
             n_bytes = (npix * (2 * n_out + 3) * t + ncell * 4 + slots * 4
-                       + H * 8 * t + H * n_hi * t)
+                       + H * n_rec * t + H * n_hi * t)
             t_ops = flops / PEAK_FLOPS[dname] * 1e3
+            t_pr5 = flops_pr5 / PEAK_FLOPS[dname] * 1e3
             t_bytes = n_bytes / PEAK_BYTES * 1e3
             bound, by = ((t_ops, "operations") if t_ops >= t_bytes
                          else (t_bytes, "bytes"))
             log(f"kernels: cellmajor_pass {mode} {dname}: kernel {ms_k:.4f} "
-                f"ms (runs {ms_k1:.4f}, {ms_k2:.4f}), plain {ms_p:.2f} ms "
-                f"(runs {ms_p1:.2f}, {ms_p2:.2f}); {slots * c['F']:.4e} "
-                f"slot-pixels, {n_in:.4e} inside their disc; bound "
-                f"{bound:.4f} ms by {by} ({flops:.3e} flops at "
+                f"ms (runs {ms_k1:.4f}, {ms_k2:.4f}){extra}, plain "
+                f"{ms_p:.2f} ms (runs {ms_p1:.2f}, {ms_p2:.2f}); "
+                f"{slots * c['F']:.4e} slot-pixels, {census['angular']:.4e} "
+                f"passing the angular test, {n_in:.4e} inside their disc; "
+                f"bound {bound:.4f} ms by {by} ({flops:.3e} flops at "
                 f"{PEAK_FLOPS[dname] / 1e12:.0f} TFLOP/s, {n_bytes / 1e6:.1f} "
                 f"MB at {PEAK_BYTES / 1e12:.2f} TB/s); kernel at "
-                f"{100 * bound / ms_k:.1f}% of the bound")
+                f"{100 * bound / ms_k:.1f}% of the bound; by the first "
+                f"design's count ({CM_TEST_FLOPS} a slot-pixel, "
+                f"{flops_pr5:.3e} flops) {t_pr5:.4f} ms, kernel at "
+                f"{100 * t_pr5 / ms_k:.1f}% of it")
             if mode == "offsets" and dt == torch.float32:
                 rec.update(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
                            bound_ms=bound, bound_by=by)
+            if sass and census["P"]:
+                cellmajor_issue_bound(torch, mode, dname, census,
+                                      sass[mode, dname], k_fn, ms_k)
     return rec
+
+
+def cellmajor_issue_bound(torch, mode, dname, n, sass, k_fn, ms_k):
+    """Log the issue bound of one kernel call from the census ``n`` of
+    its inputs and the SASS counts ``sass`` of its blocks (CM_BLOCKS), at
+    the SM clock read while it runs."""
+    runs = (n["pixels"], n["chunks"], n["slots"] - n["culled"],
+            n["angular"], n["inside"])
+    mhz = sm_clock_under(torch, k_fn, 300)
+    issue = sum(r * max(a, 2 * f64) for r, (a, f64, _) in zip(runs, sass))
+    mufu = sum(r * m for r, (_, _, m) in zip(runs, sass))
+    issue_ms = issue / (N_SM * LANES_PER_SM * mhz * 1e6) * 1e3
+    mufu_ms = mufu / (N_SM * MUFU_LANES_PER_SM * mhz * 1e6) * 1e3
+    log(f"kernels: cellmajor_pass {mode} {dname}: lane runs of the "
+        f"kernel's blocks (pixel set-up, chunk step, walked slot, past the "
+        f"angular test, inside) "
+        + ", ".join(f"{r:.4e}" for r in runs) + " at "
+        + ", ".join(f"{a:g}" if not f64 else f"{a:g} ({f64:g} FP64)"
+                    for a, f64, _ in sass)
+        + " SASS instructions (MUFU "
+        + ", ".join(f"{m:g}" for _, _, m in sass)
+        + f"; cuobjdump -sass of this build): at the {mhz:.0f} MHz read "
+        f"during the run the issue bound is {issue_ms:.4f} ms ({N_SM} SMs "
+        f"x {LANES_PER_SM} lanes), the MUFU pipe's {mufu_ms:.4f} ms "
+        f"({MUFU_LANES_PER_SM} lanes a clock and SM); kernel at "
+        f"{100 * issue_ms / ms_k:.1f}% of the issue bound")
 
 
 def legendre_bound_ms(name, L, R, dtype):
@@ -1133,11 +1439,12 @@ def ptxas_summary(build_log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"\d([a-z_]+_kernel)I([fd])Li(\d+)", m.group(1))
-            b = re.search(r"\d(cellmajor_kernel)I([fd])Lb([01])ELb([01])",
-                          m.group(1))
+            b = re.search(r"\d(cellmajor_kernel)I([fd])Lb([01])ELb([01])"
+                          r"ELb([01])", m.group(1))
             entry = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else
                      f"{b.group(1)}<{b.group(2)},paint={b.group(3)},"
-                     f"rdelta={b.group(4)}>" if b else m.group(1))
+                     f"rdelta={b.group(4)},patch={b.group(5)}>" if b
+                     else m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -1233,7 +1540,8 @@ def main(argv=None):
         records.update(check_legendre(
             torch, lc, sp, device, issue_bound=args.root.resolve() == ROOT))
         records["cellmajor_pass"] = check_cellmajor(
-            T, torch, cmc, device, args.halos, args.nside)
+            T, torch, cmc, device, args.halos, args.nside,
+            issue_bound=args.root.resolve() == ROOT)
     if args.halos != 1_000_000 or args.nside != 1024:
         log(f"cut: paths at NSIDE {args.nside}, shell path at "
             f"{args.halos} halos")

@@ -18,7 +18,9 @@ packages:
   port's own table and the JAX table carried across), and the JAX tests'
   bar (atol 1e-6 max|change|, rtol 1e-6) against the port's scatter run;
   forced refinement and ``low_memory`` as in test_runners.py;
-- ``PaintProfilesShell(method="cellmajor")`` against JAX to rtol 1e-10.
+- ``PaintProfilesShell(method="cellmajor")`` against JAX to rtol 1e-10;
+- ``cellmajor_pass`` refuses bad inputs on the CPU, where it runs the
+  plain version and counts no launch.
 """
 
 import numpy as np
@@ -488,3 +490,51 @@ def test_paint_cellmajor_matches_jax(shell_inputs, gas_tables):
                       "reg", "pass", "n2r", "fetch_map"]
     p_sc = paint(T, gt, method="scatter", device="cpu").process()
     np.testing.assert_allclose(got, p_sc, rtol=1e-6, atol=1e-9 * p_sc.max())
+
+
+# ----- the wrapper's checks, on the CPU -----
+
+def _tiny_bucket():
+    """One bucket on NSIDE 2 pixels (12 cells of F = 4), 3 halos listed
+    in every cell, rows of 8 nodes: (planes, pix, dense, counts, F, recs,
+    rows, g0, dg, rad_hi) for ``cellmajor_pass`` in paint mode."""
+    rng = np.random.default_rng(5)
+    v = rng.normal(size=(48, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    recs = np.concatenate([v[:3], np.full((3, 1), 0.5), np.ones((3, 2)),
+                           np.full((3, 1), 1e30), np.zeros((3, 1))], axis=1)
+    return ((_t(np.zeros(48)),), tuple(_t(v[:, i]) for i in range(3)),
+            _t(np.tile(np.arange(3), 12), torch.int32),
+            _t(np.full(12, 3), torch.int32), 4, _t(recs),
+            _t(rng.normal(size=(3, 8))), -3.0, 0.5, 0.5)
+
+
+BAD_INPUTS = {
+    "mode": (lambda a: ("bogus",) + a[1:], ValueError, "mode must be"),
+    "planes": (lambda a: ("offsets",) + a[1:], ValueError, "output planes"),
+    "dtype": (lambda a: ("paint", (a[1][0].half(),)) + a[2:], TypeError,
+              "float32 or float64"),
+    "dense": (lambda a: a[:3] + (a[3].long(),) + a[4:], TypeError, "int32"),
+    "F": (lambda a: a[:5] + (8,) + a[6:], ValueError, "cells of F"),
+    "recs": (lambda a: a[:6] + (a[6][:, :7],) + a[7:], ValueError,
+             "recs must be"),
+    "rows": (lambda a: a[:7] + (a[7][:2],) + a[8:], ValueError,
+             "rows must be"),
+}
+
+
+@pytest.mark.parametrize("bad", list(BAD_INPUTS))
+def test_cellmajor_pass_refuses_bad_inputs_on_cpu(bad):
+    """The wrapper's argument checks hold on the CPU too (the card's are
+    test_torch_cuda.py::test_cellmajor_refuses_bad_inputs); a refused
+    call adds nothing and counts no launch, and the same call with good
+    inputs runs the plain version in place, counting no launch."""
+    good = ("paint",) + _tiny_bucket()
+    edit, err, match = BAD_INPUTS[bad]
+    before = cellmajor_cuda.LAUNCHES["cellmajor_pass"]
+    with pytest.raises(err, match=match):
+        cellmajor_cuda.cellmajor_pass(*edit(good))
+    assert float(good[1][0].abs().max()) == 0.0
+    out = cellmajor_cuda.cellmajor_pass(*good)
+    assert out[0] is good[1][0] and float(out[0].max()) > 0
+    assert cellmajor_cuda.LAUNCHES["cellmajor_pass"] == before

@@ -8,10 +8,13 @@ its own:
 Without a GPU every test here skips. The sorted scatter cases are those
 of tests/test_ops.py::TestPallasScatter, and the window cases are unsorted
 rows shaped like the shell runner's; test_torch_scatter.py holds the plain
-version against the JAX package on the same cases. The Legendre cases hold
-each SHT kernel against its plain version on the card, at the (nside,
-lmax) of tests/test_spectra.py and one larger size, and at the shapes
-that both kernels' tiling has to get right.
+version against the JAX package on the same cases. The cell-major cases
+hold the kernel against its plain version, with discs whose edges graze
+pixel centres and patch caps, and show that its patch cull skips only
+what adds nothing (bit for bit the result without the cull). The
+Legendre cases hold each SHT kernel against its plain version on the
+card, at the (nside, lmax) of tests/test_spectra.py and one larger size,
+and at the shapes that both kernels' tiling has to get right.
 """
 
 import numpy as np
@@ -427,6 +430,160 @@ def test_cellmajor_refuses_bad_inputs(cuda_device):
         big = torch.zeros(2 * planes[0].shape[0], dtype=torch.float64,
                           device=cuda_device)
         cmc.cellmajor_pass("paint", (big[::2],), pix_d, *tail)
+
+
+# F -> (nside, nside_c) of the grazing cases
+GRAZE_F = {4: (16, 8), 16: (32, 8), 64: (32, 4), 1024: (64, 2)}
+
+
+def grazing_case(F, dtype, seed=0):
+    """A bucket on the CPU in ``dtype`` whose disc edges graze pixel
+    centres and patch caps: 48 halos, a third of them with discs smaller
+    than one pixel, the others up to 6 pixels. Halos 0-23 sit near pixel
+    centres; halos 24-47 sit on the great circle from a patch's cap
+    centre (the normalised sum of its 32 pixels, as the kernel takes it)
+    through its farthest pixel q, beyond q, so
+    that the patch test of csrc/cellmajor_pass.cu is as tight as it gets.
+    Each disc's cos_reach is the computed cosine (the kernel's
+    operations, in ``dtype``) of one pixel (the one nearest its edge, or
+    q), moved by -2 to 2 ulps, so that pixel lies just inside, on or just
+    outside the disc. Every cell lists every halo; the chord and radial
+    tests never reject (eps_R is huge, the radial grid spans 1e-6 to 1e4
+    Mpc), so the angular test decides. Returns (pix, dense, counts, F,
+    recs, g0, dg, n_hi, cosang) with cosang the (npix, H) computed
+    cosines."""
+    nside, nsc = GRAZE_F[F]
+    rng = np.random.default_rng(seed + F)
+    rt = hpx.RingTables(nside, dtype=torch.float64, device="cpu")
+    pix = tuple(p.to(dtype) for p in hpx.pixel_planes_device(
+        nside, rt.z, rt.start, rt.npr, rt.shift,
+        p=hpx.nest2ring_all(nside, "cpu")))
+    p64 = np.stack([p.double().numpy() for p in pix], axis=-1)
+    resol = hpx.nside2resol(nside)
+    H, half = 48, 24
+    theta = resol * np.where(np.arange(H) % 3 == 0,
+                             rng.uniform(0.05, 0.9, H),
+                             rng.uniform(1.0, 6.0, H))
+    v = p64[rng.integers(0, p64.shape[0], half)]
+    v = v + rng.normal(scale=0.3 * resol, size=v.shape)
+    P = 32
+    patch = rng.integers(0, p64.shape[0] // P, half)
+    lanes = p64[patch[:, None] * P + np.arange(P)[None, :]]
+    c = lanes.sum(axis=1)
+    c /= np.linalg.norm(c, axis=-1, keepdims=True)
+    q_lane = np.einsum("hpk,hk->hp", lanes, c).argmin(axis=1)
+    q_id = patch * P + q_lane
+    q = p64[q_id]
+    t = q - np.sum(q * c, axis=-1, keepdims=True) * c
+    t /= np.linalg.norm(t, axis=-1, keepdims=True)
+    a = np.arccos(np.clip(np.sum(q * c, axis=-1), -1, 1)) + theta[half:]
+    v = np.concatenate([v, np.cos(a)[:, None] * c + np.sin(a)[:, None] * t])
+    hv = torch.tensor(v / np.linalg.norm(v, axis=-1, keepdims=True)).to(dtype)
+    cosang = (pix[0][:, None] * hv[None, :, 0]
+              + pix[1][:, None] * hv[None, :, 1]
+              + pix[2][:, None] * hv[None, :, 2])
+    ang = np.arccos(np.clip(cosang.double().numpy(), -1, 1))
+    edge = np.abs(ang - theta[None, :]).argmin(axis=0)
+    edge[half:] = q_id
+    cosr = cosang[edge, np.arange(H)].clone()
+    for h, k in enumerate(rng.integers(-2, 3, H)):
+        for _ in range(abs(int(k))):
+            cosr[h] = torch.nextafter(cosr[h], cosr.new_tensor(np.sign(k)))
+    col = lambda x: torch.full((H,), x, dtype=dtype)
+    recs = torch.stack([hv[:, 0], hv[:, 1], hv[:, 2], cosr, col(1000.0),
+                        col(0.8), col(1e30), col(0.0)], dim=-1).contiguous()
+    ncell = 12 * nsc**2
+    dense = torch.arange(H, dtype=torch.int32).repeat(ncell)
+    counts = torch.full((ncell,), H, dtype=torch.int32)
+    n_hi = 64
+    g0, g1 = np.log(1e-6), np.log(1e4)
+    return (pix, dense, counts, F, recs, g0, (g1 - g0) / (n_hi - 1), n_hi,
+            cosang)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("F", list(GRAZE_F))
+def test_cellmajor_grazing_discs(F, dtype, cuda_device):
+    """Disc edges within ulps of pixel centres, discs below one pixel, F
+    = 4 to 1024: the kernel counts exactly the (pixel, slot) pairs that
+    the plain version counts (paint of rows of log 0 adds 1 a pair), with
+    and without its patch cull, bit for bit; offsets agree at the bars of
+    test_cellmajor_kernel_matches_plain and reach the same pixels."""
+    pix, dense, counts, F, recs, g0, dg, n_hi, cosang = grazing_case(F, dtype)
+    on = lambda v: v.to(cuda_device)
+    H = recs.shape[0]
+    rad_hi = g0 + (n_hi - 1) * dg
+    args = (tuple(on(p) for p in pix), on(dense), on(counts), F, on(recs))
+    zeros = lambda n: tuple(torch.zeros(pix[0].shape[0], dtype=dtype,
+                                        device=cuda_device) for _ in range(n))
+    ones_rows = on(torch.zeros((H, n_hi), dtype=dtype))
+    want = cmc.cellmajor_pass_reference("paint", zeros(1), *args, ones_rows,
+                                        g0, dg, rad_hi)[0]
+    for cull in (True, False):
+        got = cmc._cellmajor_pass_raw("paint", zeros(1), *args, ones_rows,
+                                      g0, dg, rad_hi, cull=cull)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), cull
+    inside = (cosang >= recs[:, 3][None, :]).sum(dim=1).to(dtype)
+    assert torch.equal(want.cpu(), inside)
+    assert 0 < float(want.sum()) < cosang.numel()
+
+    rng = np.random.default_rng(F)
+    rows = on(torch.tensor(0.01 * np.exp(g0 + dg * np.arange(n_hi))[None, :]
+                           * rng.uniform(0.5, 1.5, (H, 1)), dtype=dtype))
+    want = cmc.cellmajor_pass_reference("offsets", zeros(3), *args, rows, g0,
+                                        dg, rad_hi)
+    got = cmc.cellmajor_pass("offsets", zeros(3), *args, rows, g0, dg,
+                             rad_hi)
+    raw = cmc._cellmajor_pass_raw("offsets", zeros(3), *args, rows, g0, dg,
+                                  rad_hi, cull=False)
+    torch.cuda.synchronize()
+    added = max(float(w.abs().max()) for w in want)
+    assert added > 0
+    tol = (1e-12 if dtype == torch.float64 else 1e-5) * added
+    reached = lambda planes: sum(p != 0 for p in planes) > 0
+    assert torch.equal(reached(got), reached(want))
+    for g, r, w in zip(got, raw, want):
+        assert torch.equal(g, r)
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cellmajor_all_culled(dtype, cuda_device):
+    """Every cell lists only halos on the far side of the sky: the planes
+    stay bit-unchanged, and the kernel's count of the (patch, slot) pairs
+    its patches walk is 0 (every patch culled every slot), against all of
+    them without the cull."""
+    pix, _, _, F, recs, g0, dg, n_hi, _ = grazing_case(64, dtype, seed=1)
+    nside, nsc = GRAZE_F[F]
+    rt = hpx.RingTables(nsc, dtype=torch.float64, device="cpu")
+    cv = hpx.pixel_planes_device(nsc, rt.z, rt.start, rt.npr, rt.shift,
+                                 p=hpx.nest2ring_all(nsc, "cpu"))
+    far = (cv[0][:, None] * recs[None, :, 0].double()
+           + cv[1][:, None] * recs[None, :, 1].double()
+           + cv[2][:, None] * recs[None, :, 2].double()) < -0.2
+    order = torch.argsort((~far).to(torch.int8), dim=1, stable=True)
+    dense = order.to(torch.int32).reshape(-1)
+    counts = far.sum(dim=1).to(torch.int32)
+    assert int(counts.min()) > 0
+    on = lambda v: v.to(cuda_device)
+    rows = on(torch.zeros((recs.shape[0], n_hi), dtype=dtype))
+    base = torch.tensor(np.random.default_rng(2).normal(size=pix[0].shape[0]),
+                        dtype=dtype, device=cuda_device)
+    pairs = int(counts.sum()) * F // 32
+    for cull, walked in ((True, 0), (False, pairs)):
+        got = base.clone()
+        kept = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+        cmc._cellmajor_pass_raw("paint", (got,), tuple(on(p) for p in pix),
+                                on(dense), on(counts), F, on(recs), rows, g0,
+                                dg, g0 + (n_hi - 1) * dg, cull=cull,
+                                kept=kept)
+        torch.cuda.synchronize()
+        assert torch.equal(got, base)
+        assert int(kept) == walked, (cull, int(kept), walked)
 
 
 LEGENDRE_SIZES = [(16, 47), (32, 95), (256, 512)]
