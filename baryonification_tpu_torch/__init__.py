@@ -10,14 +10,19 @@ Ported so far:
   ``Baryonification2D`` / ``Baryonification3D`` displacement tables (with
   extra parameter axes) -> ``BaryonifyShell.process``;
 - the C_ell path: ``TabulatedProfile`` -> ``PaintProfilesShell.process``
-  -> ``ops.spectra`` (``anafast`` and the rest of the SHT).
-Both shell runners have two methods: ``cellmajor`` (what ``"auto"`` takes
-on the card: candidate lists per coarse cell and one pass a bucket, the
-kernel ``csrc/cellmajor_pass.cu``) and ``scatter`` (halo windows ending
-in a scatter-add of unsorted rows, ``csrc/scatter_add.cu``; what
-``"auto"`` takes on the CPU). The two Legendre recurrences of the SHT
-are ``csrc/legendre_sht.cu``. Every kernel is written by hand in CUDA
-and built at first use.
+  -> ``ops.spectra`` (``anafast`` and the rest of the SHT);
+- the grid runners: ``BaryonifyGrid`` and ``PaintProfilesGrid`` on 2D
+  flat-sky maps and 3D boxes (``HaloNDCatalog``, ``GriddedMap``), with
+  ``ParamTabulatedProfile`` for painting with per-halo parameters.
+Every runner has two methods: ``cellmajor`` (what ``"auto"`` takes on the
+card: candidate lists per coarse cell or block and one pass a bucket; the
+shell's pass is the kernel ``csrc/cellmajor_pass.cu``, the grid's plain
+PyTorch ops) and ``scatter`` (halo windows ending in a scatter-add of
+unsorted rows, ``csrc/scatter_add.cu``; what ``"auto"`` takes on the
+CPU). The grid runners end both methods in a CIC redeposit through that
+scatter kernel. The two Legendre recurrences of the SHT are
+``csrc/legendre_sht.cu``. Every kernel is written by hand in CUDA and
+built at first use.
 
 Devices and precision: every entry that makes tensors takes a
 ``device``, the card by default (``"cuda"``; without a GPU a defaulted
@@ -34,15 +39,17 @@ from . import cosmology
 from .cosmology import Cosmology, MassDef
 from . import utils
 from . import io
-from .io import HaloLightConeCatalog, LightconeShell
+from .io import (HaloLightConeCatalog, HaloNDCatalog, LightconeShell,
+                 GriddedMap)
 from . import profiles
 from .profiles import (SchneiderProfiles, DarkMatter, TwoHalo, Stars, Gas,
                        CollisionlessMatter, DarkMatterOnly, DarkMatterBaryon)
 from .displacement import (BaryonificationClass, Baryonification2D,
                            Baryonification3D)
 from . import runners
-from .runners import DefaultRunner, BaryonifyShell, PaintProfilesShell
-from .tabulate import TabulatedProfile
+from .runners import (DefaultRunner, BaryonifyShell, PaintProfilesShell,
+                      DefaultRunnerGrid, BaryonifyGrid, PaintProfilesGrid)
+from .tabulate import TabulatedProfile, ParamTabulatedProfile
 from .default_params import DEFAULT_PARAMS, default_params
 
 __version__ = "0.1.0"

@@ -1,7 +1,7 @@
-"""Data objects: halo lightcone catalogs and HEALPix lightcone shells.
+"""Data objects: halo catalogs, HEALPix lightcone shells and gridded maps.
 
-The port of the two io objects of ``baryonification_tpu.io`` that the
-shell runner reads. They are host-side numpy containers, identical in
+The port of the io objects of ``baryonification_tpu.io`` that the shell
+and grid runners read. They are host-side numpy containers, identical in
 layout to the JAX package's, so one catalog recipe feeds both packages;
 the runners move what they need to the device.
 """
@@ -10,7 +10,8 @@ import warnings
 
 import numpy as np
 
-__all__ = ['HaloLightConeCatalog', 'LightconeShell']
+__all__ = ['HaloLightConeCatalog', 'HaloNDCatalog', 'LightconeShell',
+           'GriddedMap']
 
 _COSMO_KEYS = ('Omega_m', 'sigma8', 'h', 'Omega_b', 'n_s', 'w0')
 
@@ -77,6 +78,52 @@ class HaloLightConeCatalog:
                 f"{self.cat['z'].min()} < z < {self.cat['z'].max()}.")
 
 
+class HaloNDCatalog:
+    """Halos at Cartesian x, y (, z) [comoving Mpc] at one redshift; a 2D
+    catalog when ``z`` is None. Extra columns may be multi-dimensional
+    (e.g. ``A_ell`` of shape (H, 2))."""
+
+    def __init__(self, x, y, M, redshift, cosmo, z=None, **arrays):
+        t = np.float64
+        dtype = [('M', t), ('x', t), ('y', t), ('z', t)]
+        for name, arr in arrays.items():
+            arr = np.asarray(arr)
+            dtype.append((name, t, arr.shape[1:]) if arr.ndim > 1
+                         else (name, t))
+        x = np.atleast_1d(np.asarray(x, dtype=t))
+        cat = np.zeros(len(x), dtype)
+        cat['x'] = x
+        cat['y'] = y
+        cat['z'] = z if z is not None else np.nan
+        cat['M'] = M
+        for name, arr in arrays.items():
+            cat[name] = arr
+
+        self.cat = cat
+        self.redshift = redshift
+        self.is2D = z is None
+        self.cosmo = _validate_cosmo(cosmo)
+
+    @property
+    def data(self):
+        return self.cat
+
+    @property
+    def cosmology(self):
+        return self.cosmo
+
+    def __len__(self):
+        return self.cat.size
+
+    def __getitem__(self, key):
+        other = {k: self.cat[k][key] for k in self.cat.dtype.names
+                 if k not in ('x', 'y', 'M', 'z')}
+        z = None if self.is2D else self.cat['z'][key]
+        return HaloNDCatalog(x=self.cat['x'][key], y=self.cat['y'][key],
+                             M=self.cat['M'][key], redshift=self.redshift,
+                             cosmo=self.cosmo, z=z, **other)
+
+
 class LightconeShell:
     """A full-sky HEALPix map (RING) of mass (or any field) plus a cosmology
     dict. ``path`` reads a ``.npy`` map (FITS input is not ported yet)."""
@@ -97,6 +144,36 @@ class LightconeShell:
         if 12 * nside * nside != npix:
             raise ValueError(f"Map size {npix} is not a valid HEALPix size")
         self.NSIDE = nside
+        self.cosmo = _validate_cosmo(cosmo)
+
+    @property
+    def data(self):
+        return self.map
+
+    @property
+    def cosmology(self):
+        return self.cosmo
+
+
+class GriddedMap:
+    """A square (2D) or cubic (3D) periodic grid of mass (or any field)
+    with the cell-centre coordinates ``bins`` [comoving Mpc], uniformly
+    spaced by ``res``. No coordinate meshgrid is kept: the runners make
+    the coordinates they need on the device."""
+
+    def __init__(self, map=None, redshift=None, bins=None, cosmo=None):
+        self.map = np.asarray(map)
+        self.redshift = redshift
+        self.Npix = self.map.shape[0]
+        self.bins = np.asarray(bins)
+        self.res = float(self.bins[1] - self.bins[0])
+        self.is2D = self.map.ndim == 2
+        if self.is2D:
+            assert self.map.shape[0] == self.map.shape[1], \
+                "Maps have to be square"
+        else:
+            assert (self.map.shape[0] == self.map.shape[1]
+                    == self.map.shape[2]), "Maps have to be cubic"
         self.cosmo = _validate_cosmo(cosmo)
 
     @property

@@ -1,9 +1,10 @@
 """Tensor operations: FFTLog, interpolation, HEALPix geometry, the
-spectra (power spectra and SHT), and the hand-written kernels
-(scatter-add, Legendre recurrences, the cell-major shell pass)."""
+spectra (power spectra and SHT), the CIC and HEALPix redeposits, and the
+hand-written kernels (scatter-add, Legendre recurrences, the cell-major
+shell pass)."""
 
 from . import (cellmajor_cuda, fftlog, healpix, interp, legendre_cuda,
-               scatter_cuda, spectra)
+               scatter, scatter_cuda, spectra)
 
 __all__ = ["cellmajor_cuda", "fftlog", "healpix", "interp", "legendre_cuda",
-           "scatter_cuda", "spectra"]
+           "scatter", "scatter_cuda", "spectra"]

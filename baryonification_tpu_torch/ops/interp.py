@@ -9,8 +9,8 @@ the batch as leading dimensions: ``(..., N)`` curves, with the knots
   ``PchipInterpolator``), used by every mass-profile inversion;
 - ``masked_compact``: fixed-shape compaction of masked curves;
 - ``ndlinear_interp``: multilinear interpolation, NaN outside the grid;
-- ``blend_table_radial`` + ``radial_readout``: the runners' per-halo
-  table readout.
+- ``blend_table_radial`` (``blend_rows``) + ``radial_readout``: the
+  runners' per-halo table readout.
 """
 
 import math
@@ -18,7 +18,8 @@ import math
 import torch
 
 __all__ = ["pchip_derivatives", "pchip_eval", "masked_compact",
-           "ndlinear_interp", "blend_table_radial", "radial_readout"]
+           "ndlinear_interp", "blend_table_radial", "blend_rows",
+           "radial_readout"]
 
 
 def pchip_derivatives(x, y):
@@ -147,20 +148,28 @@ def blend_table_radial(grids, table, scalar_coords):
     per pixel into a 1-D lerp per pixel.
     """
     other_axes = [0, 1] + list(range(3, len(grids)))
-    table_r = table.movedim(2, -1)                  # (z, M, props..., r)
+    return blend_rows([grids[ax] for ax in other_axes],
+                      table.movedim(2, -1), scalar_coords)
+
+
+def blend_rows(grids, table_r, coords):
+    """Multilinear blend of ``table_r`` (len(g) for g in grids..., Nr)
+    over its leading axes at (H,) per-row coordinates ``coords``, one per
+    grid: the (H, Nr) rows, NaN where a coordinate lies outside its
+    grid."""
     idxs, ws = [], []
     inb = True
-    for ax, c in zip(other_axes, scalar_coords):
-        i, t, ok = _bracket(grids[ax], c)
+    for g, c in zip(grids, coords):
+        i, t, ok = _bracket(g, c)
         inb = inb & ok
         idxs.append(i)
         ws.append(t)
 
     prof = 0.0
-    for corner in range(2 ** len(other_axes)):
+    for corner in range(2 ** len(grids)):
         w = 1.0
         ind = []
-        for d in range(len(other_axes)):
+        for d in range(len(grids)):
             b = (corner >> d) & 1
             ind.append(idxs[d] + b)
             w = w * (ws[d] if b else 1.0 - ws[d])

@@ -1,0 +1,597 @@
+"""2D/3D grid runners: baryonify and paint profiles on periodic maps.
+
+The port of ``baryonification_tpu.runners.grid`` for ``BaryonifyGrid``
+and ``PaintProfilesGrid``, both methods, 2D (flat-sky maps) and 3D.
+Halos are bucketed by cutout size (``Nsize``); each bucket has one cutout
+half-window, ``half``, and a halo only reaches the cells of the
+[cen - half, cen + half) window around its nearest bin on every axis
+(periodic), as in the reference's per-halo cutouts.
+
+- ``method="cellmajor"`` (what ``"auto"`` takes on the card): candidate
+  lists per Morton block and one dense pass a bucket
+  (``runners/grid_cellmajor.py``; plain PyTorch ops, XLA in the JAX
+  package);
+- ``method="scatter"`` (the reference semantics, ``"auto"`` on the CPU):
+  per-halo windowed cutouts, chunks of halos, one scatter-add of the
+  offsets (or painted values) a chunk (``ops.scatter_cuda``, the
+  hand-written CUDA kernel on a GPU).
+
+``BaryonifyGrid.process`` ends both methods in the CIC redeposit of the
+original map at the displaced cell positions (``ops.scatter``: one
+launch of the scatter kernel of 2^d N^d rows on the card), then the
+mass-conservation check. 2D runs support the reference's ellipticity
+(a galsim-style shear of the radius grid, :func:`build_Rmat`); 3D
+ellipticity raises, as in the reference.
+
+Precision: ``precision="auto"`` is float64 on the CPU and float32 on
+CUDA, as in the JAX package. The per-halo preprocessing (radii, buckets,
+nearest bins) runs in float64 on the host, as there.
+
+Not ported yet: ``process_device`` (the differentiable core), ``mesh=``
+and ``PaintProfilesAnisGrid``.
+"""
+
+import numpy as np
+import torch
+
+from ..cosmology import Cosmology, MassDef
+from ..ops.interp import blend_table_radial, radial_readout
+from ..ops.scatter import cic_deposit_2d, cic_deposit_3d
+from ..ops.scatter_cuda import scatter_add_accum
+from ..utils import resolve_device
+from . import grid_cellmajor as gcm
+from ._method import resolve_method
+from .shell import DefaultRunner
+from .shell_cellmajor import dense_cell_candidates
+
+__all__ = ['build_Rmat', 'DefaultRunnerGrid', 'BaryonifyGrid',
+           'PaintProfilesGrid']
+
+
+def build_Rmat(A, q):
+    """2D shear matrix mapping grid coordinates to the elliptical-radius
+    frame of a halo with axis vector A and axis ratio q (galsim Shear
+    conventions, in closed form: |g| = (1 - q)/(1 + q) and the position
+    angle beta = arccos(A_x) in [0, pi] enters only through cos/sin(2
+    beta), so the sign of A_y is dropped, as in the reference). The
+    matrix is area-preserving: coordinates along A are stretched by
+    q^(-1/2), perpendicular ones shrunk by q^(1/2)."""
+    ax, ay = np.asarray(A, dtype=np.float64) / np.linalg.norm(A)
+    gmod = (1.0 - q) / (1.0 + q)
+    g1 = gmod * (2.0 * ax * ax - 1.0)        # |g| cos(2 beta)
+    g2 = gmod * (2.0 * ax * abs(ay))         # |g| sin(2 beta)
+    det = np.sqrt(1.0 - gmod * gmod)
+    return np.array([[1.0 + g1, g2], [g2, 1.0 - g1]]) / det
+
+
+class DefaultRunnerGrid:
+    """Shared configuration for the grid runners.
+
+    ``device`` is where the runner computes: the card unless the caller
+    asks for the CPU. ``precision`` is its hot-path dtype ("auto":
+    float64 on the CPU, float32 on CUDA). ``method``: see
+    :func:`runners._method.resolve_method` ("auto" is "cellmajor" on CUDA
+    and "scatter" on the CPU; "scatter" with a warning for 3D
+    ellipticity or a model with more extra table axes than the packed
+    records hold).
+    """
+
+    _stage = DefaultRunner._stage
+    _stage_t0 = DefaultRunner._stage_t0
+
+    def __init__(self, HaloNDCatalog, GriddedMap, epsilon_max, model,
+                 use_ellipticity=False, mass_def=None, verbose=True,
+                 halo_chunk=64, n_buckets=8, precision="auto",
+                 method="auto", *, device="cuda"):
+        self.HaloNDCatalog = HaloNDCatalog
+        self.GriddedMap = GriddedMap
+        self.cosmo = HaloNDCatalog.cosmology
+        self.model = model
+        self.epsilon_max = epsilon_max
+        self.mass_def = mass_def if mass_def is not None else MassDef(200, 'critical')
+        self.verbose = verbose
+        self.halo_chunk = halo_chunk
+        self.n_buckets = n_buckets
+        self.use_ellipticity = use_ellipticity
+        self.device = torch.device(device)
+        if precision == "auto":
+            precision = ("float64" if self.device.type == "cpu"
+                         else "float32")
+        self.dtype = getattr(torch, precision) if isinstance(precision, str) \
+            else precision
+        p_keys = getattr(model, 'p_keys', []) or []
+        max_props = gcm.MAX_PROPS_2D if GriddedMap.is2D else gcm.MAX_PROPS_3D
+        why_not = None
+        if not GriddedMap.is2D and use_ellipticity:
+            why_not = "3D ellipticity has no cell-major formulation"
+        elif len(p_keys) > max_props:
+            why_not = (f"model has {len(p_keys)} extra parameter axes; "
+                       f"the packed records fit at most {max_props}")
+        self.method = resolve_method(method, why_not, "scatter",
+                                     self.device.type)
+        if use_ellipticity:
+            names = HaloNDCatalog.cat.dtype.names
+            assert 'q_ell' in names, ("The 'q_ell' column is missing, but "
+                                      "you set use_ellipticity = True")
+            if not GriddedMap.is2D:
+                raise NotImplementedError(
+                    "use_ellipticity is not implemented for 3D maps, as in "
+                    "the reference")
+            assert 'A_ell' in names, ("The 'A_ell' column is missing, but "
+                                      "you set use_ellipticity = True")
+
+    def _halo_arrays(self, cosmo, comoving_R=False):
+        """(a, per-halo float64 numpy arrays): positions, M, R_Delta
+        (physical, or comoving with ``comoving_R``), the shear matrices
+        and their largest stretch ``qfac``, and the property columns."""
+        cat = self.HaloNDCatalog.cat
+        a = 1.0 / (1.0 + self.HaloNDCatalog.redshift)
+        R = self.mass_def.get_radius(
+            cosmo, torch.as_tensor(cat['M'], dtype=torch.float64,
+                                   device=cosmo.device), a).cpu().numpy()
+        if comoving_R:
+            R = R / a
+        out = dict(x=cat['x'].copy(), y=cat['y'].copy(), M=cat['M'].copy(),
+                   R=R)
+        if not self.GriddedMap.is2D:
+            out['z'] = cat['z'].copy()
+        if self.use_ellipticity:
+            out['Rmat'] = np.stack([build_Rmat(Av, qv) for Av, qv in
+                                    zip(cat['A_ell'], cat['q_ell'])])
+            # the eps_max * R cutoff on the ELLIPTICAL radius reaches
+            # q^(-1/2) farther in circular distance (registration bound)
+            q = np.asarray(cat['q_ell'], dtype=np.float64)
+            out['qfac'] = np.sqrt(np.maximum(q, 1.0 / np.maximum(q, 1e-8)))
+        else:
+            out['Rmat'] = np.tile(np.eye(2), (cat.size, 1, 1))
+            out['qfac'] = np.ones(cat.size)
+        p_keys = getattr(self.model, 'p_keys', []) or []
+        out['props'] = (np.stack([cat[k] for k in p_keys], axis=-1)
+                        if p_keys else np.zeros((cat.size, 0)))
+        return a, out
+
+    def _tensor(self, x, dt):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device=self.device)
+
+    # ----- cell-major staging (cached per catalog) -----
+    def _check_gcaches(self):
+        """Drop the per-catalog caches if the catalog object was swapped."""
+        if getattr(self, '_gcache_cat', None) is not self.HaloNDCatalog:
+            for attr in ('_gpacked_cache', '_gdense_cache'):
+                self.__dict__.pop(attr, None)
+            self._gcache_cat = self.HaloNDCatalog
+
+    _node_bound = staticmethod(DefaultRunner._node_bound)
+
+    def _nearest_bins(self, x):
+        """Nearest-bin index per halo per axis, as argmin(|bins - x|)
+        (ties -> the lower index)."""
+        gm = self.GriddedMap
+        bins = np.asarray(gm.bins, dtype=np.float64)
+        N = len(bins)
+        cand = np.clip(np.floor((x - bins[0]) / gm.res).astype(np.int64),
+                       0, N - 2)
+        lo = np.abs(bins[cand] - x)
+        hi = np.abs(bins[cand + 1] - x)
+        return (cand + (hi < lo)).astype(np.int64)
+
+    def _grid_packed(self, arrs, R_com, dt):
+        """(H, 16) packed records of the catalog on the device, cached per
+        dtype: 3D [x, y, z, R_com, lnM, lnRc, cen_x, cen_y, cen_z |
+        props], 2D [x, y, R_com, lnM, lnRc, cen_x, cen_y, Rm00, Rm01,
+        Rm10, Rm11 | props]."""
+        cache = self.__dict__.setdefault('_gpacked_cache', {})
+        if dt not in cache:
+            gm = self.GriddedMap
+            pos = [arrs[c] for c in ('x', 'y', 'z')[:2 if gm.is2D else 3]]
+            cols = pos + [R_com, np.log(arrs['M']), np.log(R_com)] + [
+                self._nearest_bins(p) for p in pos]
+            if gm.is2D:
+                cols += list(arrs['Rmat'].reshape(-1, 4).T)
+            props = arrs['props']
+            cols = np.stack(cols + list(props.T), axis=-1)
+            cache[dt] = self._tensor(np.pad(cols, ((0, 0),
+                                                   (0, 16 - cols.shape[1]))),
+                                     dt)
+        return cache[dt]
+
+    def _grid_dense(self, bi, B, sel, arrs, reach, R_q_sel, dt):
+        """Block candidates of bucket ``bi`` (cached per catalog):
+        (dense, counts, counts on the host, K, B_eff). Each halo's reach
+        is min(bucket window, eps_max * R): the radial cutoff zeroes
+        everything beyond it. While K is long the lists are refined to
+        blocks half the edge (:func:`grid_cellmajor.refine_block_
+        candidates`): the pass's work is N^d * K."""
+        cache = self.__dict__.setdefault('_gdense_cache', {})
+        key = (bi, B, dt)
+        if key not in cache:
+            gm = self.GriddedMap
+            dim = 2 if gm.is2D else 3
+            N = gm.Npix
+            nb = N // B
+            L = float(N * gm.res)
+            hb = L / nb
+            # every block whose centre can be within reach + hb/2 (per
+            # axis) of a halo anywhere in its block
+            W = min(2 * int(np.ceil(reach / hb + 1.0)) + 1, nb)
+            rr = np.minimum(reach, np.asarray(R_q_sel))
+            x0 = np.asarray(gm.bins)[0] - gm.res / 2
+            pos = [np.mod(arrs[c][sel] - x0, L)
+                   for c in ('x', 'y', 'z')[:dim]]
+            pos_d = [self._tensor(p, dt) for p in pos]
+            rr_d = self._tensor(rr, dt)
+            register = (gcm.register_halos_grid_2d if gm.is2D
+                        else gcm.register_halos_grid)
+            hids, cell_start, K = register(nb, W, L, *pos_d, rr_d)
+            dense, counts = dense_cell_candidates(nb ** dim, max(K, 1),
+                                                  hids, cell_start)
+            hrec = torch.stack(pos_d + [rr_d], dim=-1)
+            refine = (gcm.refine_block_candidates_2d if gm.is2D
+                      else gcm.refine_block_candidates)
+            B_eff = B
+            k_min = getattr(self, 'refine_k_min', 48)
+            while K >= k_min and B_eff % 2 == 0 and B_eff // 2 >= 4:
+                B_eff //= 2
+                nb2 = N // B_eff
+                dense2d, counts, K = refine(nb2, dense, counts, hrec,
+                                            L / nb2, L)
+                dense = dense2d[:, :max(K, 1)].reshape(-1).contiguous()
+            cache[key] = (dense, counts, counts.cpu().numpy(), K, B_eff)
+        return cache[key]
+
+    def _grid_inv_perm(self, N, B):
+        """Row-major voxel/pixel id -> block-major position (to unsort the
+        pass outputs), cached per (N, B)."""
+        cache = self.__dict__.setdefault('_gperm_cache', {})
+        dim = 2 if self.GriddedMap.is2D else 3
+        if (N, B, dim) not in cache:
+            perm = (gcm.block_perm_2d(N, B, self.device) if dim == 2
+                    else gcm.block_perm(N, B, self.device))
+            inv = torch.empty_like(perm)
+            inv[perm] = torch.arange(N ** dim, device=self.device)
+            cache[(N, B, dim)] = inv
+        return cache[(N, B, dim)]
+
+    def _cic_coords(self, N, dim, dt):
+        """Row-major integer cell-coordinate planes on the device, cached
+        per (N, dim, dtype)."""
+        cache = self.__dict__.setdefault('_ccoord_cache', {})
+        key = (N, dim, dt)
+        if key not in cache:
+            i = torch.arange(N ** dim, device=self.device)
+            cache[key] = tuple(((i // N ** (dim - 1 - d)) % N).to(dt)
+                               for d in range(dim))
+        return cache[key]
+
+    def _cic_offsets(self, gm, offsets, vals, dt):
+        """CIC redeposit of the original map ``vals`` (flat, on the
+        device) at the displaced cell positions."""
+        N = gm.Npix
+        planes = self._cic_coords(N, 2 if gm.is2D else 3, dt)
+        pos = [o + c for o, c in zip(offsets, planes)]
+        deposit = cic_deposit_2d if gm.is2D else cic_deposit_3d
+        return deposit(N, *pos, vals, dtype=dt)
+
+    def _cellmajor_buckets(self, gm, arrs, R_com, Nsize, idx_all, grids,
+                           table_z, mode, planes, label):
+        """The cell-major pass of every bucket, added to the row-major
+        ``planes`` (in place). ``table_z`` is the z-blended table with
+        finite nodes only. Stages: packed_records, then reg[...] and
+        pass[...] a bucket. A list in ``self.census`` gets each bucket's
+        counts (see ``grid_cellmajor._grid_pass``; for measurement only:
+        it synchronises once a step)."""
+        dt = self.dtype
+        dim = 2 if gm.is2D else 3
+        N, res = gm.Npix, gm.res
+        L = float(N * res)
+        eps = float(self.epsilon_max)
+        bins0 = float(np.asarray(gm.bins)[0])
+        g2_np = self.model._grids[2].cpu().numpy()
+        # the radial grid's nodes as the hot dtype holds them
+        g_hot = g2_np.astype(str(dt).split('.')[-1])
+        g0, dg = float(g_hot[0]), float(g_hot[1] - g_hot[0])
+        p0 = gcm.PROP_COL0_2D if gm.is2D else gcm.PROP_COL0_3D
+        n_props = len(grids) - 3
+        lnM_col = 3 if gm.is2D else 4
+        t0 = self._stage_t0()
+        packed = self._grid_packed(arrs, R_com, dt)
+        self._stage("packed_records", t0, packed)
+        for bi, idx in enumerate(_nsize_buckets(Nsize[idx_all],
+                                                self.n_buckets)):
+            sel = idx_all[idx]
+            half = int(Nsize[sel].max() // 2)
+            B = gcm.pick_block_size(N, max(half, 4))
+            t0 = self._stage_t0()
+            dense, counts, counts_host, K, B_eff = self._grid_dense(
+                bi, B, sel, arrs, (half + 1) * res,
+                eps * R_com[sel] * arrs['qfac'][sel], dt)
+            self._stage(f"reg[b{bi} B{B}->{B_eff} H{len(sel)}]", t0, counts)
+            rad_max = (np.log(eps) if mode == "offsets_rdelta"
+                       else np.log(eps * R_com[sel].max()))
+            n_hi = self._node_bound(g2_np, rad_max, len(g2_np))
+            if self.verbose:
+                print(f"{label}: bucket {bi + 1} ({len(sel)} halos, "
+                      f"B={B}->{B_eff}, K={K}, F={B_eff ** dim}, "
+                      f"n_hi={n_hi})")
+            t0 = self._stage_t0()
+            pk = packed[torch.as_tensor(sel, device=self.device)]
+            rows = gcm.halo_rows(grids[1], grids[3:], table_z, pk[:, lnM_col],
+                                 pk[:, p0:p0 + n_props], n_hi)
+            out_bm = tuple(torch.zeros(N ** dim, dtype=dt, device=self.device)
+                           for _ in planes)
+            args = (B_eff, n_hi, N, half, dense, counts, counts_host, pk,
+                    rows, g0, dg, float(g_hot[n_hi - 1]), eps, L, res, bins0)
+            census = None
+            if getattr(self, 'census', None) is not None:
+                census = dict(bucket=bi, H=len(sel), B=B, B_eff=B_eff, K=K,
+                              F=B_eff ** dim, n_hi=n_hi, slots=0, inside=0,
+                              steps=0)
+                self.census.append(census)
+            if mode == "paint":
+                fn = gcm.grid_paint_pass_2d if gm.is2D else gcm.grid_paint_pass
+                fn(*args, out_bm[0], census=census)
+            else:
+                fn = (gcm.grid_offsets_pass_2d if gm.is2D
+                      else gcm.grid_offsets_pass)
+                fn(mode == "offsets_rdelta", *args, out_bm, census=census)
+            inv = self._grid_inv_perm(N, B_eff)
+            for p, o in zip(planes, out_bm):
+                _permute_add(p, o, inv)
+            self._stage(f"pass[b{bi} B{B_eff} K{K} n_hi{n_hi}]", t0,
+                        planes[0])
+        return planes
+
+    def _windowed(self, gm, a, arrs, R_com, Nsize, idx_all, grids, table,
+                  use_rdelta, planes, label):
+        """The scatter method: the bucketed windowed cutouts of every halo
+        in ``idx_all``, one scatter-add a chunk into ``planes`` (the dim
+        offset planes, or one paint plane when ``use_rdelta`` is None)."""
+        dt = self.dtype
+        paint = use_rdelta is None
+        bins = self._tensor(gm.bins, dt)
+        n_props = len(grids) - 3
+        for bi, idx in enumerate(_nsize_buckets(Nsize[idx_all],
+                                                self.n_buckets)):
+            sel = idx_all[idx]
+            half = int(Nsize[sel].max() // 2)
+            chunk = min(self.halo_chunk, len(sel))
+            if self.verbose:
+                print(f"{label}: bucket {bi + 1} ({len(sel)} halos, window "
+                      f"{2 * half}, chunk {chunk})")
+            cols = {k: self._tensor(arrs[k][sel], dt)
+                    for k in ('x', 'y', 'z', 'M', 'Rmat', 'props')
+                    if k in arrs}
+            cols['R'] = self._tensor(R_com[sel], dt)
+            for c0 in range(0, len(sel), chunk):
+                c = {k: v[c0:c0 + chunk] for k, v in cols.items()}
+                args = (gm.Npix, half, n_props, gm.is2D, grids, table,
+                        float(self.epsilon_max), a, gm.res, bins, c['x'],
+                        c['y'], c.get('z'), c['M'], c['R'], c['Rmat'],
+                        c['props'], planes)
+                if paint:
+                    _accumulate_grid_paint(*args)
+                else:
+                    _accumulate_grid_offsets(*args, use_rdelta=use_rdelta)
+        return planes
+
+    def _prepare(self, table):
+        """(cosmology, grids and table in the hot dtype) on the device."""
+        dev, dt = resolve_device(self.device), self.dtype
+        cosmo = Cosmology.from_dict(self.cosmo, device=dev)
+        grids = tuple(g.to(device=dev, dtype=dt) for g in self.model._grids)
+        return cosmo, grids, table.to(device=dev, dtype=dt)
+
+
+def _cutout_coords(x_h, bins, half, res, Npix):
+    """Periodic cutout indices and each cell's coordinate relative to the
+    halo, along one axis, for a batch of halos: ((H, 2 half) int64,
+    (H, 2 half)). The cutout starts half cells below the halo's nearest
+    bin."""
+    x_cen = torch.argmin(torch.abs(bins[None, :] - x_h[:, None]), dim=1)
+    ar = torch.arange(2 * half, device=x_h.device) - half
+    inds = torch.remainder(x_cen[:, None] + ar, Npix)
+    dx = bins[x_cen] - x_h
+    return inds, ar.to(x_h.dtype) * res + dx[:, None]
+
+
+def _window_geometry(Npix, half, is2D, bins, res, xs, ys, zs, Rmats):
+    """Flat cell ids, circular offsets (gx, gy[, gz]) and the readout
+    radius (elliptical in 2D) of every cutout cell of a chunk of halos:
+    each (H, W^d)."""
+    H = xs.shape[0]
+    xi, rx = _cutout_coords(xs, bins, half, res, Npix)
+    yi, ry = _cutout_coords(ys, bins, half, res, Npix)
+    if is2D:
+        # rows vary x, columns y; the flat id follows the map's [x, y]
+        gx, gy = rx[:, :, None], ry[:, None, :]
+        ex = Rmats[:, 0, 0, None, None] * gx + Rmats[:, 1, 0, None, None] * gy
+        ey = Rmats[:, 0, 1, None, None] * gx + Rmats[:, 1, 1, None, None] * gy
+        r = torch.sqrt(ex * ex + ey * ey)
+        flat = xi[:, :, None] * Npix + yi[:, None, :]
+        g = (gx, gy)
+    else:
+        zi, rz = _cutout_coords(zs, bins, half, res, Npix)
+        gx, gy, gz = rx[:, :, None, None], ry[:, None, :, None], \
+            rz[:, None, None, :]
+        r = torch.sqrt(gx * gx + gy * gy + gz * gz)
+        flat = (xi[:, :, None, None] * Npix * Npix
+                + yi[:, None, :, None] * Npix + zi[:, None, None, :])
+        g = (gx, gy, gz)
+    shape = r.shape
+    return (flat.reshape(H, -1),
+            tuple(c.expand(shape).reshape(H, -1) for c in g),
+            r.reshape(H, -1))
+
+
+def _halo_profiles(grids, table, a_scale, Ms, props, n_props):
+    """(H, Nr) radial rows of a chunk's halos at (ln(1/a), ln M,
+    props...)."""
+    lnz = torch.full_like(Ms, float(np.log(1.0 / a_scale)))
+    return blend_table_radial(grids, table, [lnz, torch.log(Ms)] + [
+        props[:, j] for j in range(n_props)])
+
+
+def _accumulate_grid_offsets(Npix, half, n_props, is2D, grids, table,
+                             eps_max, a_scale, res, bins, xs, ys, zs, Ms, Rs,
+                             Rmats, props, offsets, use_rdelta=False):
+    """Add the displacement offsets (pixel units) of one chunk of halos to
+    the row-major ``offsets`` planes (in place): each halo's cutout read
+    at the (elliptical) radius (over R_com with ``use_rdelta``), pushed
+    along the circular unit vector."""
+    flat, g, r = _window_geometry(Npix, half, is2D, bins, res, xs, ys, zs,
+                                  Rmats)
+    lnr = torch.log(torch.clamp(r, min=1e-30))
+    rad = lnr - torch.log(Rs)[:, None] if use_rdelta else lnr
+    prof = _halo_profiles(grids, table, a_scale, Ms, props, n_props)
+    d = radial_readout(prof, grids[2], rad)
+    d = torch.where(r < eps_max * Rs[:, None], d, 0.0)
+    d = torch.where(torch.isfinite(d), d, 0.0) / res
+    r_c = torch.sqrt(sum(c * c for c in g)) if is2D else r
+    r_c = torch.clamp(r_c, min=1e-30)
+    return scatter_add_accum(offsets, flat.reshape(-1).to(torch.int32),
+                             tuple((d * (c / r_c)).reshape(-1) for c in g))
+
+
+def _accumulate_grid_paint(Npix, half, n_props, is2D, grids, table, eps_max,
+                           a_scale, res, bins, xs, ys, zs, Ms, Rs, Rmats,
+                           props, new_map):
+    """Add the tabulated profile of one chunk of halos to ``new_map``
+    (a one-plane tuple, in place); readouts that are not finite paint
+    nothing."""
+    flat, _, r = _window_geometry(Npix, half, is2D, bins, res, xs, ys, zs,
+                                  Rmats)
+    prof = _halo_profiles(grids, table, a_scale, Ms, props, n_props)
+    paint = torch.exp(radial_readout(prof, grids[2],
+                                     torch.log(torch.clamp(r, min=1e-30))))
+    paint = torch.where((r < eps_max * Rs[:, None]) & torch.isfinite(paint),
+                        paint, 0.0)
+    return scatter_add_accum(new_map, flat.reshape(-1).to(torch.int32),
+                             (paint.reshape(-1),))
+
+
+def _nsize_buckets(Nsizes, n_buckets):
+    order = np.argsort(Nsizes)
+    return [s for s in np.array_split(order, n_buckets) if s.size > 0]
+
+
+def _permute_add(acc_rm, plane_bm, inv):
+    """acc_rm[i] += plane_bm[inv[i]]: unsort one bucket's block-major
+    output into the row-major accumulator (in place)."""
+    return acc_rm.add_(plane_bm[inv])
+
+
+class BaryonifyGrid(DefaultRunnerGrid):
+    """Baryonify a 2D/3D mass grid. The input grid must be a MASS grid
+    (empty cells = 0)."""
+
+    def process(self):
+        model = self.model
+        if not hasattr(model, '_table'):
+            raise NameError("Displacement model has no table. Run "
+                            "setup_interpolator() first")
+        gm = self.GriddedMap
+        orig_map = np.asarray(gm.map, dtype=np.float64)
+        if self.HaloNDCatalog.cat.size == 0:
+            # an empty catalog leaves the map untouched
+            return orig_map.copy()
+        cosmo, grids, table = self._prepare(model._table)
+        dt, dev = self.dtype, cosmo.device
+        t0 = self._stage_t0()
+        a, arrs = self._halo_arrays(cosmo, comoving_R=False)
+        self._stage("halo_arrays", t0)
+        # query radius in comoving Mpc, clipped to half the box
+        R_q = np.clip(self.epsilon_max * arrs['R'] / a, 0,
+                      np.max(gm.bins) / 2)
+        Nsize = (2 * R_q / gm.res).astype(np.int64) // 2 * 2
+        idx_all = np.where(Nsize >= 2)[0]       # tiny halos move nothing
+        use_rdelta = bool(getattr(model, 'Rdelta_sampling', False))
+        dim = 2 if gm.is2D else 3
+        R_com = arrs['R'] / a                   # table masking radius
+        offsets = tuple(torch.zeros(gm.Npix ** dim, dtype=dt, device=dev)
+                        for _ in range(dim))
+        if self.method == "cellmajor":
+            self._check_gcaches()
+            table_z, inb_z = gcm.blend_table_z(
+                table, grids[0], float(np.log(1.0 / a)))
+            if inb_z and idx_all.size:
+                self._cellmajor_buckets(
+                    gm, arrs, R_com, Nsize, idx_all, grids,
+                    torch.where(torch.isfinite(table_z), table_z, 0.0),
+                    "offsets_rdelta" if use_rdelta else "offsets", offsets,
+                    "Baryonifying matter")
+        else:
+            t0 = self._stage_t0()
+            self._windowed(gm, a, arrs, R_com, Nsize, idx_all, grids, table,
+                           use_rdelta, offsets, "Baryonifying matter")
+            self._stage("pass", t0, offsets[0])
+        t0 = self._stage_t0()
+        offsets = tuple(torch.where(torch.isfinite(o), o, 0.0)
+                        for o in offsets)
+        new_map = self._cic_offsets(
+            gm, offsets, self._tensor(orig_map.reshape(-1), dt), dt)
+        self._stage("cic", t0, new_map)
+        t0 = self._stage_t0()
+        new_map = new_map.to(torch.float64).cpu().numpy()
+        self._stage("fetch_map", t0)
+        new_sum, old_sum = new_map.sum(), orig_map.sum()
+        assert np.isclose(new_sum, old_sum), (
+            "ERROR in pixel regridding, sum(new_map) [%0.14e] != "
+            "sum(oldmap) [%0.14e]" % (new_sum, old_sum))
+        return new_map
+
+
+class PaintProfilesGrid(DefaultRunnerGrid):
+    """Paint profiles onto a 2D/3D grid: 2D grids read the projected
+    table (``_ln2D``), 3D grids the real-space one (``_ln3D``).
+    ``process()`` returns the painted-only map (float64 numpy)."""
+
+    def process(self):
+        model = self.model
+        gm = self.GriddedMap
+        p_keys = getattr(model, 'p_keys', []) or []
+        if len(p_keys) > 0:
+            from ..tabulate import ParamTabulatedProfile
+            assert isinstance(model, ParamTabulatedProfile), (
+                f"You asked to use {p_keys} properties in painting. You "
+                f"must pass a ParamTabulatedProfile as the model.")
+        attr = '_ln2D' if gm.is2D else '_ln3D'
+        if not hasattr(model, attr):
+            raise NameError(
+                "PaintProfilesGrid requires a tabulated model "
+                "(TabulatedProfile / ParamTabulatedProfile).")
+        dim = 2 if gm.is2D else 3
+        shape = (gm.Npix,) * dim
+        if self.HaloNDCatalog.cat.size == 0:
+            # an empty catalog paints nothing
+            return np.zeros(shape, dtype=np.float64)
+        cosmo, grids, table = self._prepare(getattr(model, attr))
+        dt, dev = self.dtype, cosmo.device
+        t0 = self._stage_t0()
+        a, arrs = self._halo_arrays(cosmo, comoving_R=True)
+        self._stage("halo_arrays", t0)
+        R_com = arrs['R']
+        Nsize = (2 * self.epsilon_max * R_com / gm.res).astype(np.int64)
+        Nsize = np.clip(Nsize // 2 * 2, 2, len(gm.bins) // 2)
+        idx_all = np.arange(len(R_com))
+        new_map = torch.zeros(gm.Npix ** dim, dtype=dt, device=dev)
+        if self.method == "cellmajor":
+            self._check_gcaches()
+            table_z, inb_z = gcm.blend_table_z(
+                table, grids[0], float(np.log(1.0 / a)))
+            if inb_z:
+                # log-profile tables carry -inf where the profile is 0: a
+                # large negative finite stand-in keeps the blend NaN-free
+                # and still paints exp(...) = 0 there
+                self._cellmajor_buckets(
+                    gm, arrs, R_com, Nsize, idx_all, grids,
+                    torch.where(torch.isfinite(table_z), table_z, -1e30),
+                    "paint", (new_map,), "Painting Profile")
+        else:
+            t0 = self._stage_t0()
+            self._windowed(gm, a, arrs, R_com, Nsize, idx_all, grids, table,
+                           None, (new_map,), "Painting Profile")
+            self._stage("pass", t0, new_map)
+        t0 = self._stage_t0()
+        out = new_map.to(torch.float64).cpu().numpy().reshape(shape)
+        self._stage("fetch_map", t0)
+        return out

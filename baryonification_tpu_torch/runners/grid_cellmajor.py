@@ -1,0 +1,505 @@
+"""Cell-major grid passes: candidate lists per block, one dense pass.
+
+The port of ``baryonification_tpu.runners.grid_cellmajor`` without the
+anisotropic paint pass. As in the shell's cell-major method, the loop is
+inverted: voxels (3D) or pixels (2D) are taken in BLOCK-major order, B^d
+of them a block, blocks in Morton order (consecutive ids are spatially
+compact and the 2^d children of block b at the next finer level are ids
+2^d b .. 2^d b + 2^d - 1). Each halo registers in every block its reach
+can touch (a stable sort of the (block, halo) pairs, so each block lists
+its halos in ascending id, as in the JAX package), the lists are refined
+to finer blocks while they are long, and one dense pass a bucket sums,
+for every voxel, its block's candidates. Each voxel is written once a
+bucket; there is no scatter.
+
+The passes keep the JAX package's semantics, including the reference's
+per-bucket cutout: a halo only reaches voxels whose index lies, on every
+axis, in the window [cen - half, cen + half) around its nearest bin
+(periodic). In the JAX package they are XLA; here they are plain PyTorch
+ops, with what the TPU needed left out: the redshift axis is blended once
+a pass (:func:`blend_table_z`), each halo's radial row once a bucket
+(:func:`halo_rows`; no one-hot matmuls), and the readout is a direct lerp
+of two nodes. The candidate loop takes a group of candidate slots of a
+chunk of blocks at once, as one (blocks, slots, voxels) tensor of at most
+``PASS_BUDGET`` elements, so a chunk costs a few dozen launches, not a few
+dozen a candidate.
+
+The packed records carry the nearest-bin indices as floats: exact for
+N <= 2^24 in float32.
+"""
+
+import numpy as np
+import torch
+
+from ..ops.interp import blend_rows
+
+__all__ = ["morton3", "demorton3", "morton2", "demorton2",
+           "pick_block_size", "block_perm", "block_perm_2d",
+           "register_halos_grid", "register_halos_grid_2d",
+           "refine_block_candidates", "refine_block_candidates_2d",
+           "blend_table_z", "halo_rows",
+           "grid_offsets_pass", "grid_paint_pass", "grid_offsets_pass_2d",
+           "grid_paint_pass_2d", "PROP_COL0_3D", "PROP_COL0_2D",
+           "MAX_PROPS_3D", "MAX_PROPS_2D", "PASS_BUDGET"]
+
+# packed-record column where the extra table-axis coordinates start
+# (16-wide records; the columns before it are geometry)
+PROP_COL0_3D = 9      # [x y z R lnM lnR cenx ceny cenz | props]
+PROP_COL0_2D = 11     # [x y R lnM lnR cenx ceny Rm00 Rm01 Rm10 Rm11 | props]
+MAX_PROPS_3D = 16 - PROP_COL0_3D
+MAX_PROPS_2D = 16 - PROP_COL0_2D
+
+# window rows (halos x window blocks) registered at once
+REG_ROW_BUDGET = 1 << 24
+# (blocks x slots x voxels) elements of one step of a pass. The plain
+# pass is one launch an op, so small steps leave it bound by its launches
+# on the host: at 2^23 the 3D grid of bench_runners.py (256^3, 1e5
+# halos) took 308 steps and 39k launches a process(), at 2^25 88 steps
+# and 11k (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W). A step's
+# temporaries, and so the pass's peak memory, grow with it
+PASS_BUDGET = 1 << 25
+
+
+# ----- Morton ids (int64: no shift overflows for nb <= 1024) -----
+
+def _spread3(v):
+    """Spread the low 10 bits of v to every third bit."""
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    return (v | (v << 2)) & 0x09249249
+
+
+def _compact3(v):
+    """Inverse of _spread3."""
+    v = v & 0x09249249
+    v = (v | (v >> 2)) & 0x030C30C3
+    v = (v | (v >> 4)) & 0x0300F00F
+    v = (v | (v >> 8)) & 0x030000FF
+    return (v | (v >> 16)) & 0x000003FF
+
+
+def morton3(x, y, z):
+    """Z-order id of 3D integer coordinates (< 1024 each), int64."""
+    x, y, z = (t.to(torch.int64) for t in (x, y, z))
+    return _spread3(x) | (_spread3(y) << 1) | (_spread3(z) << 2)
+
+
+def demorton3(c):
+    """Morton id -> (x, y, z), int64."""
+    c = c.to(torch.int64)
+    return _compact3(c), _compact3(c >> 1), _compact3(c >> 2)
+
+
+def _spread2(v):
+    """Spread the low 16 bits of v to every other bit."""
+    v = (v | (v << 8)) & 0x00FF00FF
+    v = (v | (v << 4)) & 0x0F0F0F0F
+    v = (v | (v << 2)) & 0x33333333
+    return (v | (v << 1)) & 0x55555555
+
+
+def _compact2(v):
+    """Inverse of _spread2."""
+    v = v & 0x55555555
+    v = (v | (v >> 1)) & 0x33333333
+    v = (v | (v >> 2)) & 0x0F0F0F0F
+    v = (v | (v >> 4)) & 0x00FF00FF
+    return (v | (v >> 8)) & 0x0000FFFF
+
+
+def morton2(x, y):
+    """Z-order id of 2D integer coordinates (< 65536 each), int64."""
+    return _spread2(x.to(torch.int64)) | (_spread2(y.to(torch.int64)) << 1)
+
+
+def demorton2(c):
+    """Morton id -> (x, y), int64."""
+    c = c.to(torch.int64)
+    return _compact2(c), _compact2(c >> 1)
+
+
+def _demorton(c, dim):
+    return demorton3(c) if dim == 3 else demorton2(c)
+
+
+def _morton(coords):
+    return morton3(*coords) if len(coords) == 3 else morton2(*coords)
+
+
+def pick_block_size(N, reach_vox):
+    """Block edge (voxels): blocks per axis nb must be a power of two
+    (Morton ids) dividing N; edge B = N / nb ~ the largest reach, B >= 4."""
+    nb = 1
+    while (nb * 2 <= N // 4 and N % (nb * 2) == 0
+           and N // (nb * 2) >= max(reach_vox, 4.0)):
+        nb *= 2
+    return N // nb
+
+
+def _block_offsets(B, dim, device):
+    """(F,) per-axis offsets of a block's voxels, block-local row-major
+    (f = (ox B + oy) B + oz)."""
+    f = torch.arange(B ** dim, device=device)
+    out = []
+    for d in range(dim):
+        out.append((f // B ** (dim - 1 - d)) % B)
+    return out
+
+
+def _block_perm(N, B, dim, device):
+    F = B ** dim
+    i = torch.arange(N ** dim, device=device)
+    bc = _demorton(i // F, dim)
+    of = _block_offsets(B, dim, device)
+    f = i % F
+    flat = 0
+    for b, o in zip(bc, of):
+        flat = flat * N + (b * B + o[f])
+    return flat
+
+
+def block_perm(N, B, device="cpu"):
+    """(N^3,) int64: the row-major voxel id ((x N + y) N + z) of each
+    block-major position b B^3 + f, b the block's Morton id and
+    f = (ox B + oy) B + oz."""
+    return _block_perm(N, B, 3, device)
+
+
+def block_perm_2d(N, B, device="cpu"):
+    """(N^2,) int64: the row-major pixel id (x N + y) of each block-major
+    position b B^2 + f, f = ox B + oy."""
+    return _block_perm(N, B, 2, device)
+
+
+# ----- registration and refinement -----
+
+def _register(nb, W, L, pos, reach, row_budget):
+    dim = len(pos)
+    dev, dt = reach.device, reach.dtype
+    hb = L / nb
+    nc = nb ** dim
+    H = reach.shape[0]
+    w = torch.arange(W, device=dev) - (W - 1) // 2
+    step = max(1, row_budget // W ** dim)
+    cells_all, hids_all = [], []
+    for h0 in range(0, H, step):
+        rr = reach[h0:h0 + step]
+        h = rr.shape[0]
+        bcs, oks = [], []
+        for p in pos:
+            x0 = p[h0:h0 + step]
+            b = torch.remainder(torch.floor(x0 / hb).to(torch.int64)[:, None]
+                                + w, nb)
+            # per-axis min-image distance from the halo to the block centre
+            d = (b.to(dt) + 0.5) * hb - x0[:, None]
+            d = d - L * torch.round(d / L)
+            bcs.append(b)
+            oks.append(d.abs() <= rr[:, None] + 0.5 * hb)
+        shape = (h,) + (W,) * dim
+        grids = []
+        ok = (rr >= 0).reshape((h,) + (1,) * dim)
+        for d in range(dim):
+            view = [h] + [1] * dim
+            view[1 + d] = W
+            grids.append(bcs[d].reshape(view))
+            ok = ok & oks[d].reshape(view)
+        cells = _morton([g.expand(shape) for g in grids])
+        ok = ok.expand(shape)
+        hid = torch.arange(h0, h0 + h, device=dev).reshape(
+            (h,) + (1,) * dim).expand(shape)
+        cells_all.append(cells[ok])
+        hids_all.append(hid[ok])
+    cells = torch.cat(cells_all)
+    cells_s, order = torch.sort(cells, stable=True)
+    hids_s = torch.cat(hids_all)[order]
+    cell_start = torch.searchsorted(cells_s, torch.arange(nc + 1, device=dev))
+    counts = cell_start[1:] - cell_start[:-1]
+    return hids_s, cell_start, int(counts.max()) if nc else 0
+
+
+def register_halos_grid(nb, W, L, xh, yh, zh, reach,
+                        row_budget=REG_ROW_BUDGET):
+    """Register halos in every B^3-voxel block their reach may touch.
+
+    nb : blocks per axis; W : window (blocks per axis per halo)
+    xh, yh, zh : (H,) halo positions in box coordinates [0, L)
+    reach : (H,) search radius; the test adds half a block edge per axis.
+            reach < 0 registers nothing.
+    Returns (halo ids sorted by Morton block, int64; cell_start
+    (nb^3 + 1,); K = the most halos in one block). The sort is stable, so
+    each block lists its halos in ascending id."""
+    return _register(nb, W, L, (xh, yh, zh), reach, row_budget)
+
+
+def register_halos_grid_2d(nb, W, L, xh, yh, reach,
+                           row_budget=REG_ROW_BUDGET):
+    """2D version of :func:`register_halos_grid` (B^2-pixel blocks)."""
+    return _register(nb, W, L, (xh, yh), reach, row_budget)
+
+
+def _refine(dim, nb_child, dense_parent, counts_parent, hrec, hb_child, L,
+            cell_budget):
+    kids = 2 ** dim
+    ncp = (nb_child // 2) ** dim
+    K_pad = dense_parent.shape[0] // ncp
+    nc = nb_child ** dim
+    dev, dt = hrec.device, hrec.dtype
+    dense_p2d = dense_parent.reshape(ncp, K_pad)
+    k = torch.arange(K_pad, device=dev)[None, :]
+    Cc = max(kids, (cell_budget // max(K_pad, 1)) // kids * kids)
+    hid_out, cnt_out = [], []
+    for c0 in range(0, nc, Cc):
+        c1 = min(c0 + Cc, nc)
+        cc = _demorton(torch.arange(c0, c1, device=dev), dim)
+        # Morton is hierarchical: the children of parent b are ids
+        # kids * b .. kids * b + kids - 1
+        hid = torch.repeat_interleave(dense_p2d[c0 // kids:c1 // kids], kids,
+                                      dim=0)
+        cnt = torch.repeat_interleave(counts_parent[c0 // kids:c1 // kids],
+                                      kids)
+        rec = hrec[hid.to(torch.int64)]                 # (Cc, K_pad, dim+1)
+        lim = rec[..., dim] + 0.5 * hb_child
+        ok = k < cnt[:, None]
+        for d in range(dim):
+            ctr = (cc[d].to(dt) + 0.5) * hb_child
+            dd = ctr[:, None] - rec[..., d]
+            dd = dd - L * torch.round(dd / L)
+            ok = ok & (dd.abs() <= lim)
+        # stable compaction: kept slots first, in their parent order
+        order = torch.argsort(torch.where(ok, k, K_pad + k), dim=1)
+        hid_out.append(torch.gather(hid, 1, order))
+        cnt_out.append(ok.sum(dim=1).to(torch.int32))
+    counts = torch.cat(cnt_out)
+    return torch.cat(hid_out), counts, int(counts.max()) if nc else 0
+
+
+def refine_block_candidates(nb_child, dense_parent, counts_parent, hrec,
+                            hb_child, L, cell_budget=1 << 22):
+    """Split blocks 2x finer per axis and keep, for each child block, the
+    parent's candidates that can reach it.
+
+    The registration margin adds half a block edge per axis; each level
+    halves it, and the pass's work is proportional to the list length.
+
+    dense_parent : ((nb_child / 2)^3 * K_pad,) Morton-block candidates
+    counts_parent : ((nb_child / 2)^3,)
+    hrec : (H, 4) per-halo [x, y, z, reach], reach the halo's own
+           per-axis reach (min(bucket window, eps_max * R))
+    Returns (dense_child (nb_child^3, K_pad) with the kept slots first in
+    their parent order, counts_child int32, K = the largest count)."""
+    return _refine(3, nb_child, dense_parent, counts_parent, hrec, hb_child,
+                   L, cell_budget)
+
+
+def refine_block_candidates_2d(nb_child, dense_parent, counts_parent, hrec,
+                               hb_child, L, cell_budget=1 << 22):
+    """2D version of :func:`refine_block_candidates`; hrec is (H, 3)
+    [x, y, reach]."""
+    return _refine(2, nb_child, dense_parent, counts_parent, hrec, hb_child,
+                   L, cell_budget)
+
+
+# ----- table readout -----
+
+def blend_table_z(table, gz, z_coord):
+    """Blend the (Nz, NM, Nr [, P...]) table down to (NM, Nr [, P...]) at
+    the catalog's single ln(1+z) (linear, as the table readout's z axis).
+    Returns (table_z, inb_z), inb_z a Python bool."""
+    z = torch.as_tensor(z_coord, dtype=gz.dtype, device=gz.device)
+    i = int(torch.clamp(torch.searchsorted(gz, z.reshape(1), right=True) - 1,
+                        0, gz.shape[0] - 2))
+    t = (z - gz[i]) / (gz[i + 1] - gz[i])
+    inb = bool((z >= gz[0]) & (z <= gz[-1]))
+    return (1.0 - t) * table[i] + t * table[i + 1], inb
+
+
+def halo_rows(gM, gprops, table_z, lnM, props, n_hi):
+    """(H, n_hi) radial rows of a bucket's halos: ``table_z`` (NM, Nr,
+    P...) blended at each halo's ln M and extra-axis coordinates
+    (``props`` (H, n_props)), nodes [0, n_hi) only. Rows of halos outside
+    the grid are NaN, so the pass adds nothing for them. ``table_z`` must
+    hold finite values (the runners put 0 or -1e30 in place of non-finite
+    nodes first)."""
+    t = table_z.narrow(1, 0, n_hi).movedim(1, -1)       # (NM, P..., n_hi)
+    return blend_rows([gM] + list(gprops), t,
+                      [lnM] + [props[:, j] for j in range(len(gprops))]
+                      ).contiguous()
+
+
+# ----- the passes -----
+
+# geometry columns of the packed records, by dimension:
+# (positions, R_com, ln R_com, nearest-bin indices, shear matrix)
+_COLS = {3: dict(pos=(0, 1, 2), R=3, lnR=5, cen=(6, 7, 8), Rm=None),
+         2: dict(pos=(0, 1), R=2, lnR=4, cen=(5, 6), Rm=(7, 8, 9, 10))}
+
+
+def _grid_pass(mode, dim, B, n_hi, N, half, dense, counts, counts_host,
+               packed, rows, g0, dg, rad_hi, eps_max, L, res, bins0, planes,
+               census=None):
+    """One bucket of ``mode`` ('offsets', 'offsets_rdelta' or 'paint')
+    over every voxel in block-major order, added in place to ``planes``
+    (dim offset planes, or one paint plane, of N^dim each). A ``census``
+    dict gets the voxel-slots listed ('slots'), those that pass every
+    test and read the table ('inside') and the steps ('steps'); it
+    synchronises once a step, so it is for measurement only."""
+    dev, dt = packed.device, packed.dtype
+    cols = _COLS[dim]
+    nb = N // B
+    F = B ** dim
+    ncell = counts.shape[0]
+    K = dense.shape[0] // ncell
+    dense2 = dense.reshape(ncell, K).to(torch.int64)
+    counts = counts.to(torch.int64)
+    paint = mode == "paint"
+    rdelta = mode == "offsets_rdelta"
+    rows_flat = rows.reshape(-1)
+    # the per-halo columns a slot reads, and each halo's window start
+    hcols = [packed[:, c] for c in cols['pos']] + [eps_max * packed[:, cols['R']]]
+    if rdelta:
+        hcols.append(packed[:, cols['lnR']])
+    if dim == 2:
+        hcols += [packed[:, c] for c in cols['Rm']]
+    hrec = torch.stack(hcols, dim=-1)
+    lo = packed[:, list(cols['cen'])].to(torch.int64) - half
+    o = torch.arange(B, device=dev)
+
+    def ax(v, d):
+        """(C, G, B) per-axis values (B = 1: per slot) -> broadcastable
+        over the block's B^dim voxels along axis d."""
+        shape = [1] * dim
+        shape[d] = v.shape[2]
+        return v.reshape(v.shape[:2] + tuple(shape))
+
+    C = max(1, min(ncell, PASS_BUDGET // (F * max(1, min(K, 16)))))
+    for c0 in range(0, ncell, C):
+        c1 = min(c0 + C, ncell)
+        k_max = int(counts_host[c0:c1].max())
+        if k_max == 0:
+            continue
+        # a voxel's coordinate on axis d depends on its block and its
+        # offset on that axis only: the per-axis terms are (C, G, B) and
+        # broadcast to (C, G, B^dim) where they meet
+        bc = _demorton(torch.arange(c0, c1, device=dev), dim)
+        iv = [b[:, None] * B + o[None, :] for b in bc]            # (C, B)
+        xv = [(bins0 + i.to(dt) * res)[:, None, :] for i in iv]
+        G = max(1, min(k_max, PASS_BUDGET // ((c1 - c0) * F)))
+        acc = [torch.zeros((c1 - c0, F), dtype=dt, device=dev)
+               for _ in planes]
+        for k0 in range(0, k_max, G):
+            k1 = min(k0 + G, k_max)
+            hid = dense2[c0:c1, k0:k1]                            # (C, G)
+            ok = (torch.arange(k0, k1, device=dev)[None, :]
+                  < counts[c0:c1, None])
+            rec = hrec[hid]                                       # (C, G, .)
+            hl = lo[hid]
+            dx, win = [], ax(ok[..., None], 0)
+            for d in range(dim):
+                dd = xv[d] - rec[..., d, None]
+                dx.append(dd - L * torch.round(dd / L))
+                win = win & ax(torch.remainder(iv[d][:, None, :]
+                                               - hl[..., d, None], N)
+                               < 2 * half, d)
+            sq = ax(dx[0] * dx[0], 0) + ax(dx[1] * dx[1], 1)
+            if dim == 3:
+                sq = sq + ax(dx[2] * dx[2], 2)
+            r_c = torch.sqrt(sq)
+            if dim == 2:
+                Rm = [ax(rec[..., dim + 1 + j + rdelta, None], 0)
+                      for j in range(4)]
+                gx, gy = ax(dx[0], 0), ax(dx[1], 1)
+                ex = Rm[0] * gx + Rm[2] * gy
+                ey = Rm[1] * gx + Rm[3] * gy
+                r = torch.sqrt(ex * ex + ey * ey)
+            else:
+                r = r_c
+            rad = torch.log(torch.clamp(r, min=1e-30))
+            if rdelta:
+                rad = rad - ax(rec[..., dim + 1, None], 0)
+            t = (rad - g0) / dg
+            i = torch.clamp(torch.floor(t), 0, n_hi - 2)
+            w = t - i
+            base = ax(hid[..., None], 0) * n_hi + i.to(torch.int64)
+            a0, a1 = rows_flat[base], rows_flat[base + 1]
+            live = ((rad >= g0) & (rad <= rad_hi)
+                    & (r < ax(rec[..., dim, None], 0)) & win)
+            if census is not None:
+                census['slots'] += int(ok.sum()) * F
+                census['inside'] += int(live.sum())
+                census['steps'] += 1
+            # the lerp of two nodes (also at a -1e30 paint node: a weight
+            # of 0 or 1 gives the other node exactly, any other weight a
+            # value whose exp is 0)
+            val = torch.lerp(a0, a1, w)
+            if paint:
+                val = torch.exp(val)
+                val = torch.where(live & torch.isfinite(val), val, 0.0)
+                acc[0] += val.sum(dim=1).reshape(c1 - c0, F)
+            else:
+                val = torch.where(live & torch.isfinite(val), val, 0.0)
+                scale = (val / res) / torch.clamp(r_c, min=1e-30)
+                for d, (a, dd) in enumerate(zip(acc, dx)):
+                    a += (scale * ax(dd, d)).sum(dim=1).reshape(c1 - c0, F)
+        for p, a in zip(planes, acc):
+            p[c0 * F:c1 * F] += a.reshape(-1)
+    return planes
+
+
+def grid_offsets_pass(use_rdelta, B, n_hi, N, half, dense, counts,
+                      counts_host, packed, rows, g0, dg, rad_hi, eps_max, L,
+                      res, bins0, planes, census=None):
+    """One bucket's displacement pass over every voxel of an N^3 grid in
+    block-major order, added in place to the three block-major offset
+    ``planes`` (pixel units).
+
+    dense, counts : the bucket's (ncell * K,) Morton-block candidates and
+                    (ncell,) counts (``counts_host`` a host copy)
+    packed : (H, 16) the bucket's records [x, y, z, R_com, lnM, lnRc,
+             cen_x, cen_y, cen_z | props]
+    rows : (H, n_hi) the halos' radial rows (:func:`halo_rows`) of the
+           displacement table, on the uniform grid of ln r (ln r/R_com
+           with ``use_rdelta``) from ``g0`` in steps ``dg``; ``rad_hi`` is
+           its node n_hi - 1 (the three in the hot dtype's values)
+    half : the bucket's cutout half-window (voxels)
+    census : None, or a dict of counts to add to (see ``_grid_pass``)
+    """
+    return _grid_pass("offsets_rdelta" if use_rdelta else "offsets", 3, B,
+                      n_hi, N, half, dense, counts, counts_host, packed,
+                      rows, g0, dg, rad_hi, eps_max, L, res, bins0, planes,
+                      census)
+
+
+def grid_paint_pass(B, n_hi, N, half, dense, counts, counts_host, packed,
+                    rows, g0, dg, rad_hi, eps_max, L, res, bins0, new_map,
+                    census=None):
+    """One bucket's painting pass over an N^3 grid (rows of a log-profile
+    table, non-finite nodes replaced by -1e30), added in place to the
+    block-major ``new_map``."""
+    return _grid_pass("paint", 3, B, n_hi, N, half, dense, counts,
+                      counts_host, packed, rows, g0, dg, rad_hi, eps_max, L,
+                      res, bins0, (new_map,), census)[0]
+
+
+def grid_offsets_pass_2d(use_rdelta, B, n_hi, N, half, dense, counts,
+                         counts_host, packed, rows, g0, dg, rad_hi, eps_max,
+                         L, res, bins0, planes, census=None):
+    """2D version of :func:`grid_offsets_pass` (two planes). ``packed``
+    is [x, y, R_com, lnM, lnRc, cen_x, cen_y, Rm00, Rm01, Rm10, Rm11 |
+    props]: the shear matrix maps pixel offsets to the elliptical frame
+    (the identity for isotropic halos); the displacement is read at the
+    elliptical radius and pushes along the circular unit vector."""
+    return _grid_pass("offsets_rdelta" if use_rdelta else "offsets", 2, B,
+                      n_hi, N, half, dense, counts, counts_host, packed,
+                      rows, g0, dg, rad_hi, eps_max, L, res, bins0, planes,
+                      census)
+
+
+def grid_paint_pass_2d(B, n_hi, N, half, dense, counts, counts_host, packed,
+                       rows, g0, dg, rad_hi, eps_max, L, res, bins0, new_map,
+                       census=None):
+    """2D version of :func:`grid_paint_pass` (read at the elliptical
+    radius)."""
+    return _grid_pass("paint", 2, B, n_hi, N, half, dense, counts,
+                      counts_host, packed, rows, g0, dg, rad_hi, eps_max, L,
+                      res, bins0, (new_map,), census)[0]

@@ -550,15 +550,16 @@ def _accumulate_shell_offsets(nside, n_rings, n_phi, n_props, use_rdelta,
     return scatter_add_accum(offsets, idx, vals)
 
 
-def _accumulate_shell_paint(nside, n_rings, n_phi, tables, vx, vy, vz,
-                            grids, table, eps_max, theta, phi, M, a, R_com,
-                            D, new_map):
+def _accumulate_shell_paint(nside, n_rings, n_phi, n_props, tables, vx, vy,
+                            vz, grids, table, eps_max, theta, phi, M, a,
+                            R_com, D, props, new_map):
     """Add the tabulated projected profile of one chunk of H halos to the
     single ``new_map`` plane (in place).
 
     Per halo: query the window pixels, compute the physical separation,
-    read the log projected profile at the comoving separation and add
-    its exponential. ``table`` holds log profiles, so zero profile nodes
+    read the log projected profile at the comoving separation (and the
+    halo's ``props``, its n_props extra-axis coordinates) and add its
+    exponential. ``table`` holds log profiles, so zero profile nodes
     are -inf; readouts that are not finite (those nodes, or a halo
     outside the table) paint nothing, as in the JAX package.
     """
@@ -578,7 +579,8 @@ def _accumulate_shell_paint(nside, n_rings, n_phi, tables, vx, vy, vz,
 
     r_com = torch.clamp(r_sep / a_h, min=1e-30)
     prof_h = blend_table_radial(grids, table,             # log-profile
-                                [torch.log(1.0 / a), torch.log(M)])
+                                [torch.log(1.0 / a), torch.log(M)]
+                                + [props[:, i] for i in range(n_props)])
     paint = torch.exp(radial_readout(prof_h, grids[2], torch.log(r_com)))
     paint = torch.where(torch.isfinite(paint) & valid, paint, 0.0)
     # invalid window rows go to the sentinel Npix (see
@@ -690,7 +692,8 @@ class PaintProfilesShell(DefaultRunner):
     """Paint a tabulated projected profile onto a shell.
 
     ``model`` is a :class:`~baryonification_tpu_torch.tabulate.
-    TabulatedProfile` with ``setup_interpolator()`` run. ``process()``
+    TabulatedProfile`, or a ``ParamTabulatedProfile`` whose extra axes
+    the catalog carries as columns, with its table set up. ``process()``
     returns the painted-only map (float64 numpy, RING order); the
     ``LightconeShell`` supplies NSIDE and the cosmology only."""
 
@@ -702,10 +705,11 @@ class PaintProfilesShell(DefaultRunner):
             raise ValueError("You must provide a model")
         p_keys = getattr(model, 'p_keys', []) or []
         if p_keys:
-            raise NotImplementedError(
-                f"painting with the halo properties {p_keys} needs "
-                f"ParamTabulatedProfile, which is not ported to PyTorch "
-                f"yet (ROADMAP item A8)")
+            from ..tabulate import ParamTabulatedProfile
+            assert isinstance(model, ParamTabulatedProfile), (
+                f"You asked to use {p_keys} properties in painting. You "
+                f"must pass a ParamTabulatedProfile as the model. You have "
+                f"passed {type(model)} instead")
         if not hasattr(model, '_ln2D'):
             raise NameError(
                 "PaintProfilesShell requires a TabulatedProfile with "
@@ -743,9 +747,10 @@ class PaintProfilesShell(DefaultRunner):
             for n_rings, n_phi, c in self._halo_chunks(arrs, nside,
                                                        "Painting Profile"):
                 _accumulate_shell_paint(
-                    nside, n_rings, n_phi, tables, vx, vy, vz, grids, table,
-                    float(self.epsilon_max), c['theta'], c['phi'], c['M'],
-                    c['a'], c['R_com'], c['D'], new_map)
+                    nside, n_rings, n_phi, len(p_keys), tables, vx, vy, vz,
+                    grids, table, float(self.epsilon_max), c['theta'],
+                    c['phi'], c['M'], c['a'], c['R_com'], c['D'],
+                    c['props'], new_map)
             self._stage("pass", t0, new_map)
         t0 = self._stage_t0()
         out = new_map.to(torch.float64).cpu().numpy()

@@ -1,15 +1,16 @@
 """Tabulated halo profiles on the device.
 
-The port of ``baryonification_tpu.tabulate.TabulatedProfile``: the real
-and projected profiles of a model are computed once on a
-(log(1+z), log M, log r) grid, in float64 on the cosmology's device, and
-read out by multilinear interpolation in log space. ``projected`` tables
-store ``projected * a`` (comoving -> physical). Zero profile values log
-to -inf, as in the JAX package; the paint pass treats readouts that are
-not finite as painting nothing.
+The port of ``baryonification_tpu.tabulate``'s ``TabulatedProfile`` and
+``ParamTabulatedProfile``: the real and projected profiles of a model are
+computed once on a (log(1+z), log M, log r [, extra parameters...]) grid,
+in float64 on the cosmology's device, and read out by multilinear
+interpolation in log space. ``projected`` tables store ``projected * a``
+(comoving -> physical). Zero profile values log to -inf, as in the JAX
+package; the paint passes treat readouts that are not finite as painting
+nothing. ``from_arrays`` installs tables made elsewhere (the JAX
+package's ``_grids``, ``_ln3D`` and ``_ln2D``).
 
-``ParamTabulatedProfile`` and ``TabulatedCorrelation3D`` are not ported
-yet (ROADMAP items A8 and A13).
+``TabulatedCorrelation3D`` is not ported yet.
 """
 
 import numpy as np
@@ -17,9 +18,32 @@ import torch
 
 from .cosmology.massdef import MassDef
 from .ops.interp import ndlinear_interp
-from .profiles.base import HaloProfile
+from .profiles.base import HaloProfile, _set_parameter
 
-__all__ = ['TabulatedProfile']
+__all__ = ['TabulatedProfile', 'ParamTabulatedProfile']
+
+
+def _grid_ranges(z_min, z_max, N_samples_z, z_linear_sampling, M_min, M_max,
+                 N_samples_Mass, R_min, R_max, N_samples_R):
+    """The (z, M, r) sample points, made with numpy as in the JAX package
+    so that both tabulate at the same points to the last bit."""
+    M_range = np.geomspace(M_min, M_max, N_samples_Mass)
+    r = np.geomspace(R_min, R_max, N_samples_R)
+    z_range = (np.linspace(z_min, z_max, N_samples_z) if z_linear_sampling
+               else np.geomspace(z_min, z_max, N_samples_z))
+    return z_range, M_range, r
+
+
+def _install(obj, grids, ln3D, ln2D, device, dtype):
+    """Put the grids and log tables on ``device`` as ``dtype``."""
+    device = (obj.cosmo.device if device is None else torch.device(device))
+    as_t = lambda x: (x.to(device=device, dtype=dtype) if torch.is_tensor(x)
+                      else torch.tensor(np.asarray(x), dtype=dtype,
+                                        device=device))
+    obj._grids = tuple(as_t(g) for g in grids)
+    obj._ln3D = as_t(ln3D)
+    obj._ln2D = as_t(ln2D)
+    return obj
 
 
 class TabulatedProfile(HaloProfile):
@@ -40,14 +64,10 @@ class TabulatedProfile(HaloProfile):
             raise ValueError(
                 "TabulatedProfile has no extra parameter axes; "
                 f"other_params={sorted(other_params)} needs "
-                "ParamTabulatedProfile (not ported yet, ROADMAP A8)")
-        # the grids are made with numpy, as in the JAX package, so both
-        # tabulate at the same radii to the last bit
-        M_range = np.geomspace(M_min, M_max, N_samples_Mass)
-        r = np.geomspace(R_min, R_max, N_samples_R)
-        z_range = (np.linspace(z_min, z_max, N_samples_z)
-                   if z_linear_sampling
-                   else np.geomspace(z_min, z_max, N_samples_z))
+                "ParamTabulatedProfile")
+        z_range, M_range, r = _grid_ranges(
+            z_min, z_max, N_samples_z, z_linear_sampling, M_min, M_max,
+            N_samples_Mass, R_min, R_max, N_samples_R)
         t = self.cosmo.tensor
         real, proj = [], []
         for z_j in z_range:
@@ -61,6 +81,20 @@ class TabulatedProfile(HaloProfile):
                        t(np.log(r)))
         self._ln3D = torch.log(torch.stack(real))
         self._ln2D = torch.log(torch.stack(proj))
+
+    def from_arrays(self, grids, ln3D, ln2D, p_keys=(), *, device=None,
+                    dtype=torch.float64):
+        """Install tables from arrays: ``grids`` the axis coordinates
+        (log(1+z), log M, log r), ``ln3D`` and ``ln2D`` the (z, M, r) log
+        tables. This is what ``baryonification_tpu``'s ``_grids``,
+        ``_ln3D`` and ``_ln2D`` hold, so a table built by either package
+        paints in the other. The tensors go to ``device`` (default: the
+        cosmology's) as ``dtype``. Returns ``self``."""
+        if len(p_keys):
+            raise ValueError(f"TabulatedProfile has no extra parameter axes "
+                             f"(got {list(p_keys)}); use "
+                             f"ParamTabulatedProfile")
+        return _install(self, grids, ln3D, ln2D, device, dtype)
 
     def _check_built(self):
         if not hasattr(self, '_ln3D'):
@@ -84,3 +118,108 @@ class TabulatedProfile(HaloProfile):
     def _projected(self, cosmo, r, M, a):
         self._check_built()
         return self._readout(r, M, a, self._ln2D)
+
+
+class ParamTabulatedProfile:
+    """Tabulated profile with extra parameter axes: the profiles of
+    ``model`` on a (log(1+z), log M, log r, p_1, ..., p_n) grid, one axis
+    per key of ``other_params``, for runners whose catalogs carry those
+    parameters per halo (e.g. ``cdelta``). ``real`` and ``projected``
+    take the parameters as keyword arguments."""
+
+    def __init__(self, model, cosmo, mass_def=None):
+        assert not isinstance(model, TabulatedProfile), \
+            "Input model cannot be 'TabulatedProfile' object."
+        self.model = model
+        self.cosmo = cosmo
+        self.mass_def = (mass_def if mass_def is not None
+                         else MassDef(200, 'critical'))
+
+    def setup_interpolator(self, z_min=1e-2, z_max=5, N_samples_z=30,
+                           z_linear_sampling=False,
+                           M_min=1e12, M_max=1e16, N_samples_Mass=30,
+                           R_min=1e-3, R_max=1e2, N_samples_R=100,
+                           other_params={}, verbose=True):
+        z_range, M_range, r = _grid_ranges(
+            z_min, z_max, N_samples_z, z_linear_sampling, M_min, M_max,
+            N_samples_Mass, R_min, R_max, N_samples_R)
+        p_keys = list(other_params.keys())
+        p_vals = [np.asarray(other_params[k]) for k in p_keys]
+        p_sizes = tuple(len(v) for v in p_vals)
+        combos = (np.stack([g.ravel() for g in
+                            np.meshgrid(*p_vals, indexing="ij")], axis=-1)
+                  if p_keys else np.zeros((1, 0)))
+        t = self.cosmo.tensor
+        real, proj = [], []
+        saved = {k: getattr(self.model, k, None) for k in p_keys}
+        try:
+            for z_j in z_range:
+                a_j = 1.0 / (1.0 + float(z_j))
+                for pv in combos:
+                    for key, v in zip(p_keys, pv):
+                        _set_parameter(self.model, key, float(v))
+                    real.append(self.model.real(self.cosmo, t(r),
+                                                t(M_range), a_j))
+                    proj.append(self.model.projected(
+                        self.cosmo, t(r), t(M_range), a_j) * a_j)
+        finally:
+            for k, v in saved.items():
+                _set_parameter(self.model, k, v)
+        # (z, p..., M, r) -> (z, M, r, p...)
+        shape = (len(z_range),) + p_sizes + (len(M_range), len(r))
+        nP = len(p_keys)
+        tables = [torch.stack(x).reshape(shape).movedim(
+            tuple(range(1, 1 + nP)), tuple(range(3, 3 + nP)))
+            for x in (real, proj)]
+        self._grids = tuple([t(np.log(1 + z_range)), t(np.log(M_range)),
+                             t(np.log(r))] + [t(v) for v in p_vals])
+        self._ln3D, self._ln2D = (torch.log(x) for x in tables)
+        self.p_keys = p_keys
+
+    def from_arrays(self, grids, ln3D, ln2D, p_keys, *, device=None,
+                    dtype=torch.float64):
+        """Install tables from arrays: ``grids`` the axis coordinates
+        (log(1+z), log M, log r, then one per parameter), ``ln3D`` and
+        ``ln2D`` the (z, M, r, p...) log tables, ``p_keys`` the parameter
+        names, as ``baryonification_tpu``'s ParamTabulatedProfile holds
+        them. The tensors go to ``device`` (default: the cosmology's) as
+        ``dtype``. Returns ``self``."""
+        self.p_keys = [str(k) for k in p_keys]
+        return _install(self, grids, ln3D, ln2D, device, dtype)
+
+    def _check_built(self):
+        if not hasattr(self, '_ln3D'):
+            raise NameError(
+                "No Table created. Run setup_interpolator() method first")
+
+    def _readout(self, r, M, a, table, **kwargs):
+        """exp of the table read at every (M, r) pair and the given
+        parameter values: shape (M, r)."""
+        t = self.cosmo.tensor
+        r_use, M_use = torch.atleast_1d(t(r)), torch.atleast_1d(t(M))
+        lnr = torch.log(r_use)[None, :]
+        lnM = torch.log(M_use)[:, None]
+        ln_z = torch.full_like(lnr, float(np.log(1.0 / a)))
+        coords = torch.broadcast_tensors(
+            ln_z, lnM, lnr, *[t(kwargs[k]) * torch.ones_like(lnr)
+                              for k in self.p_keys])
+        prof = torch.exp(ndlinear_interp(self._grids, table, coords))
+        if np.ndim(r) == 0:
+            prof = prof[:, 0]
+        if np.ndim(M) == 0:
+            prof = prof[0]
+        return prof
+
+    def real(self, cosmo, r, M, a, **kwargs):
+        self._check_built()
+        for k in self.p_keys:
+            assert k in kwargs, ("Need to provide %s as input into `real'. "
+                                 "Table was built with this." % k)
+        return self._readout(r, M, a, self._ln3D, **kwargs)
+
+    def projected(self, cosmo, r, M, a, **kwargs):
+        self._check_built()
+        for k in self.p_keys:
+            assert k in kwargs, ("Need to provide %s as input into "
+                                 "`projected'. Table was built with this." % k)
+        return self._readout(r, M, a, self._ln2D, **kwargs)

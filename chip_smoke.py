@@ -12,10 +12,11 @@ and fails on any fault:
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the shapes its path gives it, with both times (CUDA events) and
      the least time the card could take (the bound). The scatter takes
-     unsorted rows, as the runners make them, at two inputs (a real chunk
-     of the shell path, and 4M clustered rows), with the whole call, the
-     library call doing the same function, and the device launches a
-     call; both Legendre kernels also get their issue bound; the
+     unsorted rows, as the runners make them, at three inputs (a real
+     chunk of the shell path, 4M clustered rows, and the 1.34e8 CIC rows
+     that the grid path's auto method gives it at 256^3), with the whole
+     call, the library call doing the same function, and the device
+     launches a call; both Legendre kernels also get their issue bound; the
      cell-major pass runs in both modes at the shell path's bucket with
      the most slot-pixels, after a census of the path's buckets;
   4. shell path: the Schneider19 displacement table built on the card
@@ -25,20 +26,31 @@ and fails on any fault:
      kernel launched, no scatter) and with method="scatter" (the scatter
      kernel launched); asserts mass conservation and that the map
      changed, and compares the two maps;
-  5. C_ell path: examples/09_delta_cls_shells.py at its full resolution
+  5. grid and grid2d paths: bench_runners.py's 3D grid (256^3, 1e5
+     halos) and 2D map (2048^2, 2e5 halos) runs, Baryonification3D/2D
+     tables built on the card: BaryonifyGrid cold and warm with stages
+     under "auto" (the cell-major method: plain PyTorch passes, then the
+     CIC redeposit, one scatter launch) and with method="scatter"; the
+     2D run also paints a TabulatedProfile(Gas). Mass conserved, the two
+     methods' maps compared, the census of each pass (voxel-slots listed
+     and inside) with its operations bound, and the device launches,
+     idle share and peak memory of a warm call;
+  6. C_ell path: examples/09_delta_cls_shells.py at its full resolution
      (NSIDE 1024, lmax 2048): paint a DMO shell from 3000 halos, baryonify
      it for theta_ej in {2, 4, 8}, and assert the example's four shape
      checks on the anafast ratios; the cell-major and analysis kernels
      must have been launched;
-  6. synthesis path: synfast then anafast at NSIDE 1024 / lmax 2048
+  7. synthesis path: synfast then anafast at NSIDE 1024 / lmax 2048
      (recovered C_ell inside cosmic variance), and alm2map then
      map2alm(iter=3) (residual below iter=0's); the synthesis kernel must
      have been launched;
-  7. reference: a small shell (both methods), anafast, alm2map and paint
+  8. reference: a small shell (both methods), anafast, alm2map and paint
      (both methods) at NSIDE 64 on the card (float64 and float32) against
      the port's CPU float64 runs, the two shell methods against each other
-     on the card in float64, and a small table built on the card against
-     the CPU build.
+     on the card in float64, a small table built on the card against
+     the CPU build, small 3D and 2D grids (both methods, an other_params
+     axis, 2D ellipticity) and a ParamTabulatedProfile shell paint
+     against the CPU.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last lines are a JSON record of the kernels, the
@@ -137,24 +149,28 @@ def cuda_ms(torch, fn, n_iter):
 
 
 def device_launches(torch, fn):
-    """(count, total device ms) of the device activities (kernels and
-    copies) that one fn() puts on the card, by torch.profiler; (None,
-    None) if the profiler saw none in three tries."""
+    """(count, total device ms, wall s) of the device activities (kernels
+    and copies) that one fn() puts on the card, by torch.profiler, and
+    the host-clock time of that same profiled fn() up to its last device
+    activity; (None, None, None) if the profiler saw none in three
+    tries."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         evs = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
         if evs:
             return (sum(e.count for e in evs),
                     sum(getattr(e, "self_device_time_total", 0.0)
-                        for e in evs) / 1e3)
-    return None, None
+                        for e in evs) / 1e3, wall)
+    return None, None, None
 
 
 def clustered_rows(npix, n_rows, seed=0):
@@ -300,7 +316,7 @@ def scatter_input_check(torch, sc, device, label, idx, npix, n_iter):
     ms["bound"] = n_bytes / PEAK_BYTES * 1e3
 
     def on_device(k):
-        n_launch, dev_ms = n_dev[k]
+        n_launch, dev_ms, _ = n_dev[k]
         if n_launch is None:
             return "device launches not measured"
         return (f"{n_launch} device launches a call, {dev_ms:.4f} ms on the "
@@ -319,10 +335,11 @@ def scatter_input_check(torch, sc, device, label, idx, npix, n_iter):
 
 
 def check_scatter(T, torch, sc, device, n_halo, nside):
-    """The scatter kernel vs its plain version on unsorted rows, as both
-    runners produce them, at two inputs: a real chunk of the shell path,
-    and 4M clustered rows with heavy duplicates. Returns the record for
-    the kernels line (the times of the path-shaped input)."""
+    """The scatter kernel vs its plain version on unsorted rows, as the
+    runners produce them, at three inputs: a real chunk of the shell path,
+    4M clustered rows with heavy duplicates, and the CIC rows of grid-256.
+    Returns the record for the kernels line (the times of the CIC rows,
+    the input of the path that launches the kernel under auto)."""
     npix = 12 * nside**2
     idx_path = path_chunk_rows(T, torch, device, n_halo, nside)
     err_p, ms = scatter_input_check(torch, sc, device, "path-shaped",
@@ -330,12 +347,118 @@ def check_scatter(T, torch, sc, device, n_halo, nside):
     idx_cl = torch.tensor(clustered_rows(npix, 4_000_000), device=device)
     err_c, _ = scatter_input_check(torch, sc, device, "clustered-4M",
                                    idx_cl, npix, 20)
+    del idx_cl
+    err_g = 0.0
+    if hasattr(T, "BaryonifyGrid"):     # not in a checkout before the grid
+        # the input of the path that launches the kernel under auto: the
+        # CIC redeposit of the grid runners
+        err_g, ms = check_scatter_cic(T, torch, sc, device)
     return dict(name="scatter_add", route="cuda",
                 source="baryonification_tpu_torch/csrc/scatter_add.cu",
                 replaces="baryonification_tpu/ops/scatter_pallas.py:117",
-                max_abs_err=max(err_p, err_c), ms=ms["call"],
+                max_abs_err=max(err_p, err_c, err_g), ms=ms["call"],
                 plain_ms=ms["plain"], bound_ms=ms["bound"],
                 bound_by="bytes", library_ms=ms["library"])
+
+
+def cic_rows(T, torch, device, cell="grid"):
+    """The CIC rows of a grid cell's redeposit, as its ``auto`` path
+    makes them: one process() with ops.scatter's deposit recorded (its
+    cell positions and the map's values, float32), then the 2^d N^d
+    (destination, value) rows that the deposit hands the kernel."""
+    from baryonification_tpu_torch.ops import scatter as tsc
+    from baryonification_tpu_torch.runners import grid as tgrid
+    dim, N, L, n_halo = GRID_CELLS[cell]
+    cat, gm = nd_catalog(T, dim, N, L, n_halo)
+    name = "cic_deposit_2d" if dim == 2 else "cic_deposit_3d"
+    orig, seen = getattr(tgrid, name), []
+
+    def record(N_, *args, dtype):
+        seen.append((args[:-1], args[-1], dtype))
+        return orig(N_, *args, dtype=dtype)
+
+    setattr(tgrid, name, record)
+    try:
+        T.BaryonifyGrid(cat, gm, epsilon_max=GRID_EPS,
+                        model=grid_model(T, torch, device, dim),
+                        verbose=False, device=device).process()
+    finally:
+        setattr(tgrid, name, orig)
+    pos, vals, dt = seen[0]
+    return tsc._cic_rows(N, pos, vals, dt), N ** dim
+
+
+def check_scatter_cic(T, torch, sc, device):
+    """The scatter kernel against its plain version on the CIC rows of
+    grid-256 (one plane; float32 as the path, and float64), with the
+    whole call's CUDA-event time, the library call (mask, compaction, one
+    index_add_), the device launches a call and the bytes bound. Returns
+    (max float32 error, dict of times in ms)."""
+    (idx, v32), npix = cic_rows(T, torch, device)
+    v32 = v32.to(torch.float32)
+    n = idx.shape[0]
+    per_pix = torch.bincount(idx.long(), minlength=npix)
+    n_touched = int((per_pix > 0).sum())
+    log(f"kernels: scatter_add grid-256 CIC input: Npix={npix} C=1 "
+        f"rows={n} touched pixels={n_touched} max rows/pixel="
+        f"{int(per_pix.max())} mean rows/touched pixel={n / n_touched:.2f}")
+    del per_pix
+    errs = {}
+    for dt, name in ((torch.float64, "f64"), (torch.float32, "f32")):
+        v = (v32.to(dt),)
+        want = sc.scatter_add_accum_reference(
+            (torch.zeros(npix, dtype=dt, device=device),), idx, v)[0]
+        got = sc.scatter_add_accum(
+            (torch.zeros(npix, dtype=dt, device=device),), idx, v)[0]
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if dt == torch.float64:
+            bad = bool(((got - want).abs() > 1e-12 * want.abs()).any())
+            tol = "rtol 1e-12"
+        else:
+            bound = 1e-5 * float(want.abs().max())
+            bad = err > bound
+            tol = f"atol 1e-5*max|sum| = {bound:.3e}"
+        errs[name] = err
+        check(not bad, f"scatter_add grid-256 CIC {name} disagrees with the "
+              f"plain version: max err {err:.3e} ({tol})")
+        log(f"kernels: scatter_add grid-256 CIC {name} agrees with plain "
+            f"index_add_: max|err|={err:.3e} ({tol})")
+        del want, got, v
+    acc = torch.zeros(npix, dtype=torch.float32, device=device)
+
+    def library():
+        ok = idx < npix
+        acc.index_add_(0, idx[ok].to(torch.int64), v32[ok])
+
+    fns = dict(call=lambda: sc.scatter_add_accum((acc,), idx, (v32,)),
+               plain=lambda: sc.scatter_add_accum_reference((acc,), idx,
+                                                            (v32,)),
+               library=library)
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    runs = {k: [] for k in fns}
+    for k in ("plain", "library", "call", "call", "library", "plain"):
+        runs[k].append(cuda_ms(torch, fns[k], 5))
+    ms = {k: sum(r) / len(r) for k, r in runs.items()}
+    n_dev = {k: device_launches(torch, fns[k]) for k in ("call", "library")}
+    # the formula of the other inputs: every row's int32 index and float32
+    # value read once, every touched pixel read and written once
+    n_bytes = n * 4 + n * 4 + n_touched * 4 * 2
+    ms["bound"] = n_bytes / PEAK_BYTES * 1e3
+    on_dev = {k: ("device launches not measured" if c is None else
+                  f"{c} device launches a call, {d:.4f} ms on the device")
+              for k, (c, d, _) in n_dev.items()}
+    log(f"kernels: scatter_add grid-256 CIC f32 C=1: whole call "
+        f"(scatter_add_accum) {ms['call']:.4f} ms (runs "
+        + ", ".join(f"{x:.4f}" for x in runs["call"])
+        + f"; {on_dev['call']}); plain (mask + index_add_) "
+        f"{ms['plain']:.4f} ms; library (mask, compaction, one index_add_) "
+        f"{ms['library']:.4f} ms ({on_dev['library']}); bound "
+        f"{ms['bound']:.5f} ms ({n_bytes / 1e6:.2f} MB at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s)")
+    return errs["f32"], ms
 
 
 # operations that the cell-major pass needs, from csrc/cellmajor_pass.cu
@@ -1076,12 +1199,17 @@ def read_counts(path, expected):
     return launches
 
 
-def run_process(torch, runner, label, expected, absent=()):
+def run_process(torch, runner, label, expected, absent=(), paint=False):
     """process() cold, then warm with its stages. Fails unless the map
-    conserves mass and changed, every kernel of ``expected`` was launched
-    in the cold run and none of ``absent``. Returns (map, launch counts
-    of the cold run)."""
-    shell = runner.LightconeShell
+    conserves mass and changed (``paint``: is finite, non-negative and
+    not empty), every kernel of ``expected`` was launched in the cold run
+    and none of ``absent``. Works for the shell and the grid runners.
+    Returns (map, launch counts of the cold run, warm seconds)."""
+    grid = hasattr(runner, "GriddedMap")
+    src = runner.GriddedMap if grid else runner.LightconeShell
+    cat = runner.HaloNDCatalog if grid else runner.HaloLightConeCatalog
+    size = (f"N={src.Npix}^{src.map.ndim}" if grid else
+            f"NSIDE={src.NSIDE}")
     reset_counts()
     t0 = time.perf_counter()
     new_map = runner.process()
@@ -1089,29 +1217,36 @@ def run_process(torch, runner, label, expected, absent=()):
     launches = read_counts(label, expected)
     for k in absent:
         check(launches[k] == 0, f"the {label} launched kernel {k}")
-    log(f"main: {label}: process() cold {t_cold:.2f} s, NSIDE="
-        f"{shell.NSIDE}, {runner.HaloLightConeCatalog.cat.size} halos, "
-        f"method={runner.method}, dtype={runner.dtype}")
-    check(new_map.shape == shell.map.shape and np.isfinite(new_map).all(),
+    log(f"main: {label}: process() cold {t_cold:.2f} s, {size}, "
+        f"{cat.cat.size} halos, method={runner.method}, "
+        f"dtype={runner.dtype}")
+    check(new_map.shape == src.map.shape and np.isfinite(new_map).all(),
           "map of the wrong shape or not finite")
-    new_sum, old_sum = new_map.sum(), shell.map.sum()
-    check(np.isclose(new_sum, old_sum),
-          f"mass not conserved: {new_sum!r} != {old_sum!r}")
-    check(not np.allclose(new_map, shell.map), "the map did not change")
-    log(f"main: {label}: mass conserved: sum(new)={new_sum:.10e} "
-        f"sum(old)={old_sum:.10e} (np.isclose); max|change|="
-        f"{np.abs(new_map - shell.map).max():.4e}")
+    new_sum, old_sum = new_map.sum(), src.map.sum()
+    if paint:
+        check(new_sum > 0 and new_map.min() >= 0, "the paint is empty or "
+              "negative")
+        log(f"main: {label}: painted sum {new_sum:.10e}, max "
+            f"{new_map.max():.4e}")
+    else:
+        check(np.isclose(new_sum, old_sum),
+              f"mass not conserved: {new_sum!r} != {old_sum!r}")
+        check(not np.allclose(new_map, src.map), "the map did not change")
+        log(f"main: {label}: mass conserved: sum(new)={new_sum:.10e} "
+            f"sum(old)={old_sum:.10e} (np.isclose); max|change|="
+            f"{np.abs(new_map - src.map).max():.4e}")
 
     runner.profile = True
     runner.stage_times = []
     t0 = time.perf_counter()
     warm_map = runner.process()
     t_warm = time.perf_counter() - t0
+    runner.profile = False
     stages = ", ".join(f"{k} {v:.3f} s" for k, v in runner.stage_times)
     log(f"main: {label}: process() warm {t_warm:.2f} s (stages, synced: "
         f"{stages})")
-    check(np.isclose(warm_map.sum(), old_sum), "warm run lost mass")
-    return new_map, launches
+    check(np.isclose(warm_map.sum(), new_sum), "the warm run differs")
+    return new_map, launches, t_warm
 
 
 def main_path(T, torch, device, n_halo, nside):
@@ -1132,13 +1267,14 @@ def main_path(T, torch, device, n_halo, nside):
                               verbose=False, device=device)
     check(runner.method == "cellmajor",
           f"method 'auto' resolved to {runner.method!r} on the card")
-    cm_map, cm_launches = run_process(torch, runner,
-                                      "shell path (auto = cellmajor)",
-                                      CELLMAJOR, SCATTER)
+    cm_map, cm_launches, _ = run_process(torch, runner,
+                                         "shell path (auto = cellmajor)",
+                                         CELLMAJOR, SCATTER)
     runner = T.BaryonifyShell(cat, shell, epsilon_max=EPS_MAX, model=model,
                               verbose=False, device=device, method="scatter")
-    sc_map, sc_launches = run_process(torch, runner, "shell path (scatter)",
-                                      SCATTER, CELLMAJOR)
+    sc_map, sc_launches, _ = run_process(torch, runner,
+                                         "shell path (scatter)", SCATTER,
+                                         CELLMAJOR)
     rms = np.sqrt(np.mean((cm_map - sc_map) ** 2)) / shell.map.mean()
     rel = np.abs(cm_map - sc_map).max() / np.abs(sc_map - shell.map).max()
     log(f"main: cell-major vs scatter map (float32 both): rms/mean = "
@@ -1197,6 +1333,316 @@ def reference_check(T, torch, device):
         f"max|change| = {1e-6 * change:.3e}, rtol 1e-6)")
     check(change > 0 and excess.max() <= 0,
           "cellmajor and scatter differ on the card")
+
+
+# bench_runners.py's grid and grid2d runs (bench_grid, bench_grid2d): its
+# table grid, eps_max 15 (5 to paint), redshift 0.25, catalog seed 3
+RUNNERS_GRID = dict(z_min=0.05, z_max=1.0, N_samples_z=8, M_min=1e12,
+                    M_max=1e16, N_samples_Mass=24, R_min=1e-3, R_max=1e2,
+                    N_samples_R=100)
+GRID_EPS, GRID_PAINT_EPS = 15.0, 5.0
+# cell -> (dim, N, box L [Mpc], halos)
+GRID_CELLS = {"grid": (3, 256, 500.0, 100_000),
+              "grid2d": (2, 2048, 1000.0, 200_000)}
+# float32 bar of the two methods' maps (and of a small grid on the card
+# against the CPU's float64): rms/mean. The JAX tests hold the methods to
+# atol 1e-8 max|change| + rtol 1e-8 in float64 only; float32 cell
+# positions i + offset round at ~6e-8 i, and the port's float32 runs of
+# the small reference grids sit at 1.1e-6 (3D) and 1.7e-6 (2D) rms/mean
+# of float64 on the CPU
+GRID_F32_BAR = 1e-5
+# float32 bar of a grid paint, rms/mean: against a float64 paint of the
+# same inputs (on the card, or the CPU's for the small reference grids),
+# and the two methods' float32 paints against each other. Each method's
+# float32 paint is off its float64 paint by the same amount: 8.8e-5
+# (cell-major) and 9.6e-5 (scatter) at grid2d-2048, 1.08e-4 and 1.10e-4
+# on the small 3D grid, 2.2e-5 and 2.3e-5 on the small 2D grid, and at
+# grid2d-2048 by 5.6e-3 of max at one pixel, the same in both; the two
+# float32 paints differ by 3.9e-5 (NVIDIA H100 80GB HBM3, 700 W)
+GRID_PAINT_F32_BAR = 3e-4
+# operations the cell-major grid pass needs (a sqrt, log, exp or division
+# counted as one), from runners/grid_cellmajor.py: every listed
+# voxel-slot takes the min-image deltas (5 a dimension: subtract, divide,
+# round, multiply, subtract), the squared radius and its compare against
+# (eps_max R)^2; the 2D runs also shear the deltas (6) for the elliptical
+# radius (3); one that passes reads the table: the window test (3 a
+# dimension), sqrt, log, t (2), the node and weight (3), the lerp (3) and
+# either exp and an add (paint) or the circular radius, two divisions and
+# a multiply-add a dimension (offsets)
+GRID_TEST_FLOPS = {3: 3 * 5 + 5 + 1, 2: 2 * 5 + 6 + 3 + 1}
+GRID_READ_FLOPS = {("offsets", 3): 9 + 1 + 1 + 2 + 3 + 3 + 2 + 6,
+                   ("offsets", 2): 6 + 1 + 1 + 2 + 3 + 3 + 4 + 2 + 4,
+                   ("paint", 3): 9 + 1 + 1 + 2 + 3 + 3 + 2,
+                   ("paint", 2): 6 + 1 + 1 + 2 + 3 + 3 + 2}
+_GRID_MODELS = {}
+
+
+def grid_model(T, torch, device, dim, kind="displacement"):
+    """bench_runners.py's Baryonification3D (3D) or 2D table built on the
+    card, or (``kind="gas"``) examples/17's TabulatedProfile(Gas) on the
+    same grid; cached, the build time logged once."""
+    key = (dim, kind, str(device))
+    if key not in _GRID_MODELS:
+        t0 = time.perf_counter()
+        cosmo = T.Cosmology.from_dict(COSMO, device=device)
+        if kind == "gas":
+            model = T.TabulatedProfile(T.Gas(**PAR), cosmo)
+            model.setup_interpolator(**RUNNERS_GRID)
+        else:
+            cls = T.Baryonification3D if dim == 3 else T.Baryonification2D
+            model = cls(T.DarkMatterOnly(**PAR), T.DarkMatterBaryon(**PAR),
+                        cosmo, epsilon_max=GRID_EPS)
+            model.setup_interpolator(verbose=False, **RUNNERS_GRID)
+        torch.cuda.synchronize()
+        tab = model._ln3D if kind == "gas" else model._table
+        log(f"grid: {type(model).__name__} ({dim}D) table "
+            f"{tuple(tab.shape)} built on {device} in float64: "
+            f"{time.perf_counter() - t0:.2f} s")
+        _GRID_MODELS[key] = model
+    return _GRID_MODELS[key]
+
+
+def nd_catalog(T, dim, N, L, n_halo, seed=3):
+    """bench_runners.py's grid inputs, drawn in its order from one
+    generator: uniform positions in [0, L), power-law masses in
+    [1e13, 1e15] of slope -0.8, redshift 0.25; a uniform(0.5, 1.5) mass
+    map on N^dim cells."""
+    rng = np.random.default_rng(seed)
+    pos = {c: rng.uniform(0, L, n_halo) for c in "xyz"[:dim]}
+    u = rng.uniform(0, 1, n_halo)
+    M = 1e13 * (1 - u * (1 - (1e15 / 1e13) ** -0.8)) ** (1 / -0.8)
+    cat = T.HaloNDCatalog(M=M, redshift=0.25, cosmo=COSMO, **pos)
+    gm = T.GriddedMap(map=rng.uniform(0.5, 1.5, (N,) * dim), redshift=0.25,
+                      bins=(np.arange(N) + 0.5) * (L / N), cosmo=COSMO)
+    return cat, gm
+
+
+def grid_census(torch, runner, label, mode, dim, dname):
+    """One more warm process() with the pass's census (it synchronises
+    once a step), and one under torch.profiler (no stage syncs) for the
+    device's launches and busy time; logs per bucket the voxel-slots
+    listed and inside, the pass's steps, the operations bound, the
+    device-idle share of the profiled call (its busy time over its own
+    wall time, which holds the profiler's host cost too), and the peak
+    device memory of a warm call. Returns (voxel-slots, inside,
+    operations bound ms)."""
+    runner.census = []
+    torch.cuda.reset_peak_memory_stats()
+    runner.process()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    census, runner.census = runner.census, None
+    slots = sum(c["slots"] for c in census)
+    inside = sum(c["inside"] for c in census)
+    flops = (slots * GRID_TEST_FLOPS[dim]
+             + inside * GRID_READ_FLOPS[mode, dim])
+    bound = flops / PEAK_FLOPS[dname] * 1e3
+    for c in census:
+        log(f"grid: {label} census bucket {c['bucket']}: H={c['H']}, "
+            f"B={c['B']}->{c['B_eff']}, K={c['K']}, F={c['F']}, "
+            f"n_hi={c['n_hi']}: voxel-slots {c['slots']:.4e}, inside "
+            f"{c['inside']:.4e} ({100 * c['inside'] / max(c['slots'], 1):.1f}"
+            f"%), {c['steps']} steps")
+    n_launch, dev_ms, wall = device_launches(torch, runner.process)
+    idle = ("not measured" if n_launch is None else
+            f"{100 * max(0.0, 1 - dev_ms / (1e3 * wall)):.1f}% of that "
+            f"profiled call's {wall:.3f} s")
+    log(f"grid: {label}: the pass lists {slots:.4e} voxel-slots, "
+        f"{inside:.4e} inside; operations bound {bound:.4f} ms "
+        f"({flops:.3e} flops at {PEAK_FLOPS[dname] / 1e12:.0f} TFLOP/s); "
+        f"one warm process() puts {n_launch} device launches on the card, "
+        f"{dev_ms if dev_ms is None else round(dev_ms, 3)} ms busy; "
+        f"device idle {idle}; peak device memory {peak:.2f} GiB")
+    return slots, inside, bound
+
+
+def compare_maps(label, a, b, base):
+    """Log and check rms/mean of two baryonified maps of one run in
+    float32."""
+    rms = np.sqrt(np.mean((a - b) ** 2)) / base.mean()
+    log(f"grid: {label}: rms/mean {rms:.3e}, max|diff|/max|change| "
+        f"{np.abs(a - b).max() / np.abs(b - base).max():.3e} (bar rms/mean "
+        f"{GRID_F32_BAR:g})")
+    check(rms < GRID_F32_BAR, f"{label} differ: rms/mean {rms:.3e}")
+
+
+def grid_path(T, torch, device, cell):
+    """One of bench_runners.py's grid runs on the card: BaryonifyGrid cold
+    and warm with stages under ``auto`` (the cell-major method: the
+    scatter kernel launched once, for the CIC redeposit; the cell-major
+    shell kernel never) and with method="scatter" (the kernel launched
+    once a chunk and for the CIC), the two maps compared; grid2d also
+    paints a TabulatedProfile(Gas) both ways, and once more both ways in
+    float64, against which each float32 paint is held. Returns the launch
+    counts of every cold run, by run."""
+    dim, N, L, n_halo = GRID_CELLS[cell]
+    model = grid_model(T, torch, device, dim)
+    cat, gm = nd_catalog(T, dim, N, L, n_halo)
+    out = {}
+    dname = "float32"
+    runs = [("BaryonifyGrid", model, GRID_EPS, "offsets")]
+    if dim == 2:
+        runs.append(("PaintProfilesGrid",
+                     grid_model(T, torch, device, dim, "gas"),
+                     GRID_PAINT_EPS, "paint"))
+    for name, mdl, eps, mode in runs:
+        paint = mode == "paint"
+        mk = lambda **kw: getattr(T, name)(cat, gm, epsilon_max=eps,
+                                           model=mdl, verbose=False,
+                                           device=device, **kw)
+        runner = mk()
+        check(runner.method == "cellmajor",
+              f"method 'auto' resolved to {runner.method!r} on the card")
+        label = f"{cell} {name} (auto = cellmajor)"
+        cm_map, out[label], _ = run_process(
+            torch, runner, label, [] if paint else SCATTER,
+            CELLMAJOR + (SCATTER if paint else []), paint=paint)
+        if not paint:
+            check(out[label]["scatter_add"] == 1,
+                  f"{label}: the CIC redeposit is one scatter launch, got "
+                  f"{out[label]['scatter_add']}")
+        grid_census(torch, runner, label, mode, dim, dname)
+        label_s = f"{cell} {name} (scatter)"
+        sc_map, out[label_s], _ = run_process(
+            torch, mk(method="scatter"), label_s, SCATTER, CELLMAJOR,
+            paint=paint)
+        if paint:
+            check_paint_f32(cell, name, mk, cm_map, sc_map)
+        else:
+            compare_maps(f"{cell} {name} cell-major vs scatter (float32 "
+                         f"both)", cm_map, sc_map, gm.map)
+    return out
+
+
+def check_paint_f32(cell, name, mk, cm_map, sc_map):
+    """The float32 paint of both methods held against the same paint in
+    float64 on the card (each method against its own float64 run), the
+    two float64 paints against each other at the JAX tests' bar (rtol
+    1e-8, atol 1e-10 max), and the two float32 paints against each other.
+    Every reading is logged before any is checked."""
+    f64 = {}
+    for method in ("cellmajor", "scatter"):
+        t0 = time.perf_counter()
+        f64[method] = mk(method=method, precision="float64").process()
+        log(f"grid: {cell} {name} ({method}, float64) process() "
+            f"{time.perf_counter() - t0:.2f} s, painted sum "
+            f"{f64[method].sum():.10e}")
+    pairs = (("cell-major float32 vs float64", cm_map, f64["cellmajor"]),
+             ("scatter float32 vs float64", sc_map, f64["scatter"]),
+             ("cell-major vs scatter (float32 both)", cm_map, sc_map))
+    rms = {}
+    for what, a, b in pairs:
+        rms[what] = np.sqrt(np.mean((a - b) ** 2)) / b.mean()
+        log(f"grid: {cell} {name} {what}: rms/mean {rms[what]:.3e}, "
+            f"max|diff|/max {np.abs(a - b).max() / np.abs(b).max():.3e} "
+            f"(bar rms/mean {GRID_PAINT_F32_BAR:g})")
+    cm64, sc64 = f64["cellmajor"], f64["scatter"]
+    excess = np.abs(cm64 - sc64) - (1e-10 * sc64.max() + 1e-8 * np.abs(sc64))
+    log(f"grid: {cell} {name} cell-major vs scatter (float64 both): "
+        f"max|diff|/max {np.abs(cm64 - sc64).max() / sc64.max():.3e}, rms/"
+        f"mean {np.sqrt(np.mean((cm64 - sc64) ** 2)) / sc64.mean():.3e} "
+        f"(bar atol 1e-10 max, rtol 1e-8)")
+    check(sc64.sum() > 0 and excess.max() <= 0,
+          f"{cell} {name}: the float64 paints of the two methods differ")
+    for what, r in rms.items():
+        check(r < GRID_PAINT_F32_BAR, f"{cell} {name} {what}: rms/mean "
+              f"{r:.3e}")
+
+
+def reference_grid(T, torch, device):
+    """Small grids on the card in float64 and float32 against the port's
+    CPU float64 runs, both methods: 3D (N = 32) and 2D with ellipticity
+    (N = 64), a table with an other_params axis (catalog column
+    theta_ej); and a ParamTabulatedProfile paint on an NSIDE-64 shell.
+    On the same small grids PaintProfilesGrid paints that
+    ParamTabulatedProfile(Gas) (both methods, the same catalog column).
+    float64 to rms/mean < 1e-10 (the shell paint: max|diff|/max), float32
+    to GRID_F32_BAR (the grid paint: GRID_PAINT_F32_BAR; the shell paint:
+    1e-3 of max, as the shell's reference paint)."""
+    cosmo = T.Cosmology.from_dict(COSMO, device="cpu")
+    theta = {'theta_ej': np.array([2.0, 4.0, 8.0])}
+    ptab = T.ParamTabulatedProfile(T.Gas(**PAR), cosmo)
+    ptab.setup_interpolator(other_params=theta, **SMALL_GRID)
+    rng = np.random.default_rng(8)
+    for dim, N, L, n in ((3, 32, 80.0, 40), (2, 64, 90.0, 40)):
+        cls = T.Baryonification3D if dim == 3 else T.Baryonification2D
+        model = cls(T.DarkMatterOnly(**PAR), T.DarkMatterBaryon(**PAR),
+                    cosmo, epsilon_max=GRID_EPS)
+        model.setup_interpolator(verbose=False, other_params=theta,
+                                 **SMALL_GRID)
+        kw = {c: rng.uniform(0, L, n) for c in "xyz"[:dim]}
+        kw['theta_ej'] = rng.uniform(2.5, 7.5, n)
+        ell = dim == 2
+        if ell:
+            kw.update(q_ell=rng.uniform(0.4, 0.9, n),
+                      A_ell=rng.normal(size=(n, 2)))
+        cat = T.HaloNDCatalog(M=10 ** rng.uniform(13.3, 14.8, n),
+                              redshift=0.25, cosmo=COSMO, **kw)
+        gm = T.GriddedMap(map=rng.uniform(0.5, 1.5, (N,) * dim),
+                          redshift=0.25, bins=(np.arange(N) + 0.5) * (L / N),
+                          cosmo=COSMO)
+        args = dict(epsilon_max=GRID_EPS, model=model, use_ellipticity=ell,
+                    verbose=False)
+        for method in ("scatter", "cellmajor"):
+            want = T.BaryonifyGrid(cat, gm, device="cpu", method=method,
+                                   **args).process()
+            for prec, bar in (("float64", 1e-10), ("float32", GRID_F32_BAR)):
+                got = T.BaryonifyGrid(cat, gm, device=device, method=method,
+                                      precision=prec, **args).process()
+                rms = np.sqrt(np.mean((got - want) ** 2)) / gm.map.mean()
+                log(f"reference: {dim}D grid N={N} ({method}, theta_ej "
+                    f"axis{', ellipticity' if ell else ''}) on {device} in "
+                    f"{prec} vs cpu float64: rms/mean = {rms:.3e} (bar "
+                    f"{bar:g})")
+                check(np.isfinite(got).all() and rms < bar,
+                      f"{prec} {method} {dim}D grid on the card differs: "
+                      f"{rms:.3e}")
+        args.update(epsilon_max=GRID_PAINT_EPS, model=ptab)
+        bad = []
+        for method in ("scatter", "cellmajor"):
+            want = T.PaintProfilesGrid(cat, gm, device="cpu", method=method,
+                                       **args).process()
+            check(want.sum() > 0, f"the {dim}D grid paint is empty")
+            for prec, bar in (("float64", 1e-10),
+                              ("float32", GRID_PAINT_F32_BAR)):
+                got = T.PaintProfilesGrid(cat, gm, device=device,
+                                          method=method, precision=prec,
+                                          **args).process()
+                rms = np.sqrt(np.mean((got - want) ** 2)) / want.mean()
+                log(f"reference: {dim}D grid N={N} ParamTabulatedProfile "
+                    f"paint ({method}{', ellipticity' if ell else ''}) on "
+                    f"{device} in {prec} vs cpu float64: rms/mean = "
+                    f"{rms:.3e}, max|diff|/max = "
+                    f"{np.abs(got - want).max() / want.max():.3e} (bar "
+                    f"rms/mean {bar:g})")
+                if not (np.isfinite(got).all() and rms < bar):
+                    bad.append(f"{prec} {method} {dim}D grid paint on the "
+                               f"card differs: {rms:.3e}")
+        # every reading logged before any is checked
+        check(not bad, "; ".join(bad))
+
+    nside, n = 64, 400
+    cat = T.HaloLightConeCatalog(
+        ra=rng.uniform(0, 360, n),
+        dec=np.degrees(np.arcsin(rng.uniform(-1, 1, n))),
+        M=10 ** rng.uniform(13.2, 14.8, n), z=rng.uniform(0.1, 0.55, n),
+        theta_ej=rng.uniform(2.5, 7.5, n), cosmo=COSMO)
+    floor = T.LightconeShell(map=np.zeros(12 * nside**2), cosmo=COSMO)
+    kw = dict(epsilon_max=5, model=ptab, verbose=False)
+    for method in ("scatter", "cellmajor"):
+        want = T.PaintProfilesShell(cat, floor, device="cpu", method=method,
+                                    **kw).process()
+        check(want.sum() > 0, "the ParamTabulatedProfile paint is empty")
+        for prec, bar in (("float64", 1e-10), ("float32", 1e-3)):
+            got = T.PaintProfilesShell(cat, floor, device=device,
+                                       precision=prec, method=method,
+                                       **kw).process()
+            err = np.abs(got - want).max() / np.abs(want).max()
+            log(f"reference: NSIDE {nside} ParamTabulatedProfile paint "
+                f"({method}) on {device} in {prec} vs cpu float64: "
+                f"max|diff|/max = {err:.3e} (bar {bar:g})")
+            check(np.isfinite(got).all() and err < bar,
+                  f"{prec} {method} ParamTabulatedProfile paint on the card "
+                  f"differs: {err:.3e}")
 
 
 def synced(torch, fn):
@@ -1489,7 +1935,7 @@ def build_all(torch, sc, lc, cmc):
                 check(sp == 0, f"{e} spills {sp} bytes of registers")
 
 
-PHASES = ("kernels", "shell", "cl", "synth", "reference")
+PHASES = ("kernels", "shell", "grid", "grid2d", "cl", "synth", "reference")
 
 
 def main(argv=None):
@@ -1552,6 +1998,19 @@ def main(argv=None):
             sum(sc_launches[k] for k in SCATTER)
         records.setdefault("cellmajor_pass", {})["launches"] = \
             sum(cm_launches[k] for k in CELLMAJOR)
+    for cell in ("grid", "grid2d"):
+        if cell in phases:
+            runs = grid_path(T, torch, device, cell)
+            log(f"{cell}: scatter_add launches by run: " + ", ".join(
+                f"{k} {c['scatter_add']}" for k, c in runs.items()))
+            if cell == "grid":
+                # the kernels line's scatter time is taken on this run's
+                # CIC rows: its launches are this run's
+                auto = f"{cell} BaryonifyGrid (auto = cellmajor)"
+                records.setdefault("scatter_add", {})["launches"] = \
+                    runs[auto]["scatter_add"]
+                log(f"kernels line: scatter_add launches from the {auto} "
+                    f"run, whose CIC rows give its times")
     if "cl" in phases:
         _, launches = cl_path(T, torch, sp, device, args.nside)
         records.setdefault("legendre_alm", {})["launches"] = \
@@ -1563,6 +2022,7 @@ def main(argv=None):
     if "reference" in phases:
         reference_check(T, torch, device)
         reference_spectra(T, torch, sp, device)
+        reference_grid(T, torch, device)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -14,7 +14,11 @@ pixel centres and patch caps, and show that its patch cull skips only
 what adds nothing (bit for bit the result without the cull). The
 Legendre cases hold each SHT kernel against its plain version on the
 card, at the (nside, lmax) of tests/test_spectra.py and one larger size,
-and at the shapes that both kernels' tiling has to get right.
+and at the shapes that both kernels' tiling has to get right. The grid
+cases hold the CIC deposit through the scatter kernel against the plain
+version on the same rows (positions past both box edges), and small grid
+runs on the card in float64 against the CPU, with the launches that show
+the grid path going through the scatter kernel.
 """
 
 import numpy as np
@@ -800,3 +804,132 @@ def test_legendre_launch_refuses_bad_inputs(cuda_device):
     before = dict(lc.LAUNCHES)
     lc.legendre_synth(ar, ai, p, s0, x)
     assert lc.LAUNCHES["legendre_synth"] == before["legendre_synth"] + 1
+
+
+# ----- grid runners: the CIC redeposit through the scatter kernel -----
+
+def _cic_positions(N, dim, dtype, device, seed=0):
+    """Every cell displaced by up to 2.5 cells, some past both box edges
+    (negative offsets, and just below 0 and N)."""
+    rng = np.random.default_rng(seed)
+    pos = [np.arange(N ** dim) // N ** (dim - 1 - d) % N
+           + rng.uniform(-2.5, 2.5, N ** dim) for d in range(dim)]
+    pos[0][:4] = [-1e-9, N - 1e-12, -N - 0.5, 2 * N + 0.25]
+    vals = rng.uniform(0.5, 1.5, N ** dim)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    return [t(p) for p in pos], t(vals)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_cic_deposit_kernel_matches_plain(dim, dtype, cuda_device):
+    """cic_deposit_{2d,3d} on the card (one scatter launch of 2^d N^d
+    rows) against the plain version on the same rows on the card: float64
+    to rtol 1e-12 (the same sums in another order), float32 to 1e-5 of
+    max|map|; the total is conserved."""
+    from baryonification_tpu_torch.ops import scatter as tsc
+    N = 32 if dim == 3 else 128
+    pos, vals = _cic_positions(N, dim, dtype, cuda_device)
+    before = sc.LAUNCHES["scatter_add"]
+    fn = tsc.cic_deposit_2d if dim == 2 else tsc.cic_deposit_3d
+    got = fn(N, *pos, vals, dtype=dtype)
+    assert sc.LAUNCHES["scatter_add"] == before + 1
+    idx, rows = tsc._cic_rows(N, pos, vals, dtype)
+    assert idx.shape[0] == 2 ** dim * N ** dim
+    (want,) = sc.scatter_add_accum_reference(
+        (torch.zeros(N ** dim, dtype=dtype, device=cuda_device),), idx,
+        (rows,))
+    got, want = got.reshape(-1).cpu().numpy(), want.cpu().numpy()
+    if dtype == torch.float64:
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+    total = float(vals.double().sum())
+    assert np.isclose(got.sum(dtype=np.float64), total, rtol=1e-5)
+
+
+def _small_grids():
+    """A small 3D table and gas profile on the CPU; a 3D grid (N = 16,
+    L = 40) and a 2D one (N = 32, L = 60, with ellipticity) with 12 halos
+    each."""
+    import baryonification_tpu_torch as T
+    cd = dict(Omega_m=0.3, Omega_b=0.05, h=0.7, sigma8=0.8, n_s=0.96,
+              w0=-1.0)
+    par = T.default_params()
+    cosmo = T.Cosmology.from_dict(cd, device="cpu")
+    grid = dict(z_min=0.1, z_max=0.5, N_samples_z=3, M_min=1e13, M_max=1e15,
+                N_samples_Mass=4, R_min=1e-3, R_max=50, N_samples_R=32)
+    model = T.Baryonification3D(T.DarkMatterOnly(**par),
+                                T.DarkMatterBaryon(**par), cosmo)
+    model.setup_interpolator(**grid)
+    gas = T.TabulatedProfile(T.Gas(**par), cosmo)
+    gas.setup_interpolator(**grid)
+    rng = np.random.default_rng(4)
+    out = {}
+    for dim, N, L in ((3, 16, 40.0), (2, 32, 60.0)):
+        kw = dict(x=rng.uniform(0, L, 12), y=rng.uniform(0, L, 12),
+                  M=10 ** rng.uniform(13.5, 14.8, 12), redshift=0.25,
+                  cosmo=cd)
+        if dim == 3:
+            kw['z'] = rng.uniform(0, L, 12)
+        else:
+            kw.update(q_ell=rng.uniform(0.4, 0.9, 12),
+                      A_ell=rng.normal(size=(12, 2)))
+        gm = T.GriddedMap(map=rng.uniform(0.5, 1.5, (N,) * dim),
+                          redshift=0.25, bins=(np.arange(N) + 0.5) * (L / N),
+                          cosmo=cd)
+        out[dim] = T.HaloNDCatalog(**kw), gm
+    return T, model, gas, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cellmajor", "scatter"])
+def test_grid_runners_on_card_match_cpu(method, cuda_device):
+    """BaryonifyGrid and PaintProfilesGrid on the card in float64 against
+    the port's CPU float64 run of the same method (3D, and 2D with
+    ellipticity), to rms/mean < 1e-10. Every baryonify launches the
+    scatter kernel (the CIC redeposit, and the windows of the scatter
+    method), never the cell-major shell kernel; the cell-major paint
+    launches neither."""
+    T, model, gas, grids = _small_grids()
+    for dim, (cat, gm) in grids.items():
+        ell = dict(use_ellipticity=dim == 2, method=method, verbose=False)
+        for runner, mdl, eps in (("BaryonifyGrid", model, 10),
+                                 ("PaintProfilesGrid", gas, 5)):
+            cls = getattr(T, runner)
+            want = cls(cat, gm, epsilon_max=eps, model=mdl, device="cpu",
+                       **ell).process()
+            before = (sc.LAUNCHES["scatter_add"],
+                      cmc.LAUNCHES["cellmajor_pass"])
+            got = cls(cat, gm, epsilon_max=eps, model=mdl,
+                      device=cuda_device, precision="float64",
+                      **ell).process()
+            n_sc = sc.LAUNCHES["scatter_add"] - before[0]
+            assert cmc.LAUNCHES["cellmajor_pass"] == before[1]
+            if method == "scatter":
+                assert n_sc > (runner == "BaryonifyGrid")
+            else:
+                assert n_sc == (runner == "BaryonifyGrid")
+            scale = gm.map.mean() if runner == "BaryonifyGrid" \
+                else want.mean()
+            rms = np.sqrt(np.mean((got - want) ** 2)) / scale
+            assert np.isfinite(got).all() and rms < 1e-10, \
+                (dim, runner, rms)
+
+
+@pytest.mark.cuda
+def test_grid_auto_is_cellmajor_on_card(cuda_device):
+    """``auto`` resolves to the cell-major method on the card, and one
+    process() of BaryonifyGrid launches the scatter kernel exactly once:
+    the CIC redeposit (float32, the card's default)."""
+    T, model, _, grids = _small_grids()
+    cat, gm = grids[3]
+    runner = T.BaryonifyGrid(cat, gm, epsilon_max=10, model=model,
+                             verbose=False, device=cuda_device)
+    assert runner.method == "cellmajor" and runner.dtype == torch.float32
+    before = sc.LAUNCHES["scatter_add"]
+    out = runner.process()
+    assert sc.LAUNCHES["scatter_add"] == before + 1
+    assert np.isclose(out.sum(), gm.map.sum())

@@ -162,7 +162,7 @@ def test_paint_empty_catalog_and_p_keys(tabs):
     class WithProps(T.TabulatedProfile):
         p_keys = ["cdelta"]
 
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(AssertionError, match="ParamTabulatedProfile"):
         T.PaintProfilesShell(cat, floor, epsilon_max=5,
                              model=WithProps(None, None), verbose=False,
                              device="cpu").process()
