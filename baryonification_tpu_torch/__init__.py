@@ -6,11 +6,17 @@ JAX package stays the reference; every ported part is checked against it
 on the same inputs (``tests/test_torch_*.py``).
 
 Ported so far:
+- the model layer: the Schneider19 (with ShockedGas), Arico20, Mead20
+  and Battaglia families, the thermodynamic profiles (pressure,
+  temperature, gas density, Compton-y ``ThermalSZ``), and the pixel
+  windows (``ConvolvedProfile`` with ``HealPixel``, ``GridPixelApprox``
+  or ``NoPix``);
 - the shell-baryonify main path: Schneider19 profiles ->
   ``Baryonification2D`` / ``Baryonification3D`` displacement tables (with
   extra parameter axes) -> ``BaryonifyShell.process``;
-- the C_ell path: ``TabulatedProfile`` -> ``PaintProfilesShell.process``
-  -> ``ops.spectra`` (``anafast`` and the rest of the SHT);
+- the C_ell and painting path: ``TabulatedProfile`` (e.g. of a
+  pixel-convolved ``ThermalSZ``) -> ``PaintProfilesShell.process`` ->
+  ``ops.spectra`` (``anafast`` and the rest of the SHT);
 - the grid runners: ``BaryonifyGrid`` and ``PaintProfilesGrid`` on 2D
   flat-sky maps and 3D boxes (``HaloNDCatalog``, ``GriddedMap``), with
   ``ParamTabulatedProfile`` for painting with per-halo parameters.
@@ -43,12 +49,17 @@ from .io import (HaloLightConeCatalog, HaloNDCatalog, LightconeShell,
                  GriddedMap)
 from . import profiles
 from .profiles import (SchneiderProfiles, DarkMatter, TwoHalo, Stars, Gas,
-                       CollisionlessMatter, DarkMatterOnly, DarkMatterBaryon)
+                       ShockedGas, CollisionlessMatter, DarkMatterOnly,
+                       DarkMatterBaryon, Pressure, NonThermalFrac,
+                       NonThermalFracGreen20, Temperature, ThermalSZ,
+                       ElectronPressure, GasNumberDensity, XrayLuminosity)
+from .pixels import ConvolvedProfile, GridPixelApprox, HealPixel, NoPix
 from .displacement import (BaryonificationClass, Baryonification2D,
                            Baryonification3D)
 from . import runners
 from .runners import (DefaultRunner, BaryonifyShell, PaintProfilesShell,
-                      DefaultRunnerGrid, BaryonifyGrid, PaintProfilesGrid)
+                      PaintProfilesAnisShell, DefaultRunnerGrid,
+                      BaryonifyGrid, PaintProfilesGrid)
 from .tabulate import TabulatedProfile, ParamTabulatedProfile
 from .default_params import DEFAULT_PARAMS, default_params
 

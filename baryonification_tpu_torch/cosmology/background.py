@@ -162,6 +162,8 @@ class Cosmology:
         t = self._tables
         return interp(torch.log(self.tensor(a)), t["lna"], t["chi"])
 
+    comoving_angular_distance = comoving_radial_distance
+
     def angular_diameter_distance(self, a):
         return self.tensor(a) * self.comoving_radial_distance(a)
 

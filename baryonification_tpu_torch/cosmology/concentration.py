@@ -1,8 +1,9 @@
 """Concentration-mass relations (ccl.halos.concentration parity).
 
-The port of the two relations the Schneider19 family uses:
-``ConcentrationDiemer15`` (its default) and ``ConcentrationConstant`` (a
-user-given ``cdelta``).
+The port of the three relations the profile families use:
+``ConcentrationDiemer15`` (the Schneider19 and Arico20 default),
+``ConcentrationDuffy08`` (the Mead20 default) and
+``ConcentrationConstant`` (a user-given ``cdelta``).
 """
 
 import math
@@ -13,7 +14,8 @@ import torch
 from ..constants import DELTA_COLLAPSE
 from .massdef import MassDef
 
-__all__ = ["ConcentrationConstant", "ConcentrationDiemer15"]
+__all__ = ["ConcentrationConstant", "ConcentrationDiemer15",
+           "ConcentrationDuffy08"]
 
 
 @dataclass(frozen=True)
@@ -52,3 +54,22 @@ class ConcentrationDiemer15:
         nu_min = self.eta0 + self.eta1 * n
         return 0.5 * c_min * ((nu / nu_min) ** -self.alpha
                               + (nu / nu_min) ** self.beta)
+
+
+_DUFFY_PARAMS = {
+    (200.0, "critical"): (5.71, -0.084, -0.47),
+    (200.0, "matter"): (10.14, -0.081, -1.01),
+}
+
+
+@dataclass(frozen=True)
+class ConcentrationDuffy08:
+    """Duffy et al. 2008 power-law c(M, z) (full-sample NFW fits)."""
+
+    mass_def: MassDef = MassDef(200, "critical")
+
+    def __call__(self, cosmo, M, a):
+        key = (float(self.mass_def.Delta), self.mass_def.rho_type)
+        A, B, C = _DUFFY_PARAMS[key]
+        M_pivot = 2e12 / cosmo.h
+        return A * (cosmo.tensor(M) / M_pivot) ** B * cosmo.tensor(a) ** (-C)

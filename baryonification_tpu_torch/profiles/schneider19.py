@@ -2,7 +2,7 @@
 
 The port of ``baryonification_tpu.profiles.schneider19``: truncated-NFW
 dark matter, the Sheth-Tormen-biased two-halo term, exponential stars,
-GNFW gas, adiabatically relaxed collisionless matter, and the
+GNFW gas, shocked gas, adiabatically relaxed collisionless matter, and the
 DarkMatterOnly / DarkMatterBaryon combiners. Every component evaluates as
 an (M, r) tensor; the relaxation's fixed-point update runs a fixed
 ``max_iter`` times over all halos at once.
@@ -20,8 +20,8 @@ from ..utils import geomspace, interp_rows
 from .base import HaloProfile
 
 __all__ = ["model_params", "SchneiderProfiles", "DarkMatter", "TwoHalo",
-           "Stars", "Gas", "CollisionlessMatter", "DarkMatterOnly",
-           "DarkMatterBaryon"]
+           "Stars", "Gas", "ShockedGas", "CollisionlessMatter",
+           "DarkMatterOnly", "DarkMatterBaryon"]
 
 
 model_params = [
@@ -200,6 +200,29 @@ class Gas(SchneiderProfiles):
         prof = ((1 + u) ** -beta / (1 + v**gamma) ** ((delta - beta) / gamma)
                 * kfac)
         return prof * f_gas * M_tot / norm
+
+
+class ShockedGas(Gas):
+    """Gas suppressed by a logistic shock factor down to 0.25 (the
+    Rankine-Hugoniot maximum density drop)."""
+
+    def __init__(self, epsilon_shock, width_shock, **kwargs):
+        self.epsilon_shock = epsilon_shock
+        self.width_shock = width_shock
+        super().__init__(**kwargs)
+
+    def _real(self, cosmo, r, M, a):
+        R = self.mass_def.get_radius(cosmo, M, a) / a
+        rho_gas = super()._real(cosmo, r, M, a)
+        g_arg = (torch.log(r)[None, :]
+                 - torch.log(self.epsilon_shock * R)[:, None]) \
+            / self.width_shock
+        # the overflow guard of sigmoid_cutoff: an exact 0.25 floor beyond
+        # the shock, no inf in the graph
+        big = g_arg > 1e2
+        factor = ((1 - 0.25) / (1 + torch.exp(torch.where(big, 1e2, g_arg)))
+                  + 0.25)
+        return rho_gas * torch.where(big, 0.25, factor)
 
 
 class CollisionlessMatter(SchneiderProfiles):

@@ -1,5 +1,7 @@
-from .shell import DefaultRunner, BaryonifyShell, PaintProfilesShell
+from .shell import (DefaultRunner, BaryonifyShell, PaintProfilesShell,
+                    PaintProfilesAnisShell)
 from .grid import DefaultRunnerGrid, BaryonifyGrid, PaintProfilesGrid
 
 __all__ = ["DefaultRunner", "BaryonifyShell", "PaintProfilesShell",
-           "DefaultRunnerGrid", "BaryonifyGrid", "PaintProfilesGrid"]
+           "PaintProfilesAnisShell", "DefaultRunnerGrid", "BaryonifyGrid",
+           "PaintProfilesGrid"]

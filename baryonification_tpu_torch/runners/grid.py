@@ -177,15 +177,19 @@ class DefaultRunnerGrid:
 
     def _grid_packed(self, arrs, R_com, dt):
         """(H, 16) packed records of the catalog on the device, cached per
-        dtype: 3D [x, y, z, R_com, lnM, lnRc, cen_x, cen_y, cen_z |
-        props], 2D [x, y, R_com, lnM, lnRc, cen_x, cen_y, Rm00, Rm01,
-        Rm10, Rm11 | props]."""
+        dtype: 3D [dx, dy, dz, R_com, lnM, lnRc, cen_x, cen_y, cen_z |
+        props], 2D [dx, dy, R_com, lnM, lnRc, cen_x, cen_y, Rm00, Rm01,
+        Rm10, Rm11 | props], with cen_* each halo's nearest bin and d* its
+        offset from that bin's centre, taken in float64 (see
+        ``grid_cellmajor``)."""
         cache = self.__dict__.setdefault('_gpacked_cache', {})
         if dt not in cache:
             gm = self.GriddedMap
+            bins = np.asarray(gm.bins, dtype=np.float64)
             pos = [arrs[c] for c in ('x', 'y', 'z')[:2 if gm.is2D else 3]]
-            cols = pos + [R_com, np.log(arrs['M']), np.log(R_com)] + [
-                self._nearest_bins(p) for p in pos]
+            cen = [self._nearest_bins(p) for p in pos]
+            cols = ([p - bins[c] for p, c in zip(pos, cen)]
+                    + [R_com, np.log(arrs['M']), np.log(R_com)] + cen)
             if gm.is2D:
                 cols += list(arrs['Rmat'].reshape(-1, 4).T)
             props = arrs['props']
@@ -283,9 +287,7 @@ class DefaultRunnerGrid:
         dt = self.dtype
         dim = 2 if gm.is2D else 3
         N, res = gm.Npix, gm.res
-        L = float(N * res)
         eps = float(self.epsilon_max)
-        bins0 = float(np.asarray(gm.bins)[0])
         g2_np = self.model._grids[2].cpu().numpy()
         # the radial grid's nodes as the hot dtype holds them
         g_hot = g2_np.astype(str(dt).split('.')[-1])
@@ -320,7 +322,7 @@ class DefaultRunnerGrid:
             out_bm = tuple(torch.zeros(N ** dim, dtype=dt, device=self.device)
                            for _ in planes)
             args = (B_eff, n_hi, N, half, dense, counts, counts_host, pk,
-                    rows, g0, dg, float(g_hot[n_hi - 1]), eps, L, res, bins0)
+                    rows, g0, dg, float(g_hot[n_hi - 1]), eps, res)
             census = None
             if getattr(self, 'census', None) is not None:
                 census = dict(bucket=bi, H=len(sel), B=B, B_eff=B_eff, K=K,
@@ -348,7 +350,7 @@ class DefaultRunnerGrid:
         offset planes, or one paint plane when ``use_rdelta`` is None)."""
         dt = self.dtype
         paint = use_rdelta is None
-        bins = self._tensor(gm.bins, dt)
+        bins = np.asarray(gm.bins, dtype=np.float64)
         n_props = len(grids) - 3
         for bi, idx in enumerate(_nsize_buckets(Nsize[idx_all],
                                                 self.n_buckets)):
@@ -359,15 +361,21 @@ class DefaultRunnerGrid:
                 print(f"{label}: bucket {bi + 1} ({len(sel)} halos, window "
                       f"{2 * half}, chunk {chunk})")
             cols = {k: self._tensor(arrs[k][sel], dt)
-                    for k in ('x', 'y', 'z', 'M', 'Rmat', 'props')
-                    if k in arrs}
+                    for k in ('M', 'Rmat', 'props') if k in arrs}
             cols['R'] = self._tensor(R_com[sel], dt)
+            # per axis each halo's nearest bin and its offset from that
+            # bin's centre, taken in float64 (see grid_cellmajor)
+            axes = [k for k in ('x', 'y', 'z') if k in arrs]
+            for k in axes:
+                cen = self._nearest_bins(arrs[k][sel])
+                cols['cen' + k] = torch.as_tensor(cen, device=self.device)
+                cols['off' + k] = self._tensor(bins[cen] - arrs[k][sel], dt)
             for c0 in range(0, len(sel), chunk):
                 c = {k: v[c0:c0 + chunk] for k, v in cols.items()}
                 args = (gm.Npix, half, n_props, gm.is2D, grids, table,
-                        float(self.epsilon_max), a, gm.res, bins, c['x'],
-                        c['y'], c.get('z'), c['M'], c['R'], c['Rmat'],
-                        c['props'], planes)
+                        float(self.epsilon_max), a, gm.res,
+                        [(c['cen' + k], c['off' + k]) for k in axes],
+                        c['M'], c['R'], c['Rmat'], c['props'], planes)
                 if paint:
                     _accumulate_grid_paint(*args)
                 else:
@@ -382,25 +390,24 @@ class DefaultRunnerGrid:
         return cosmo, grids, table.to(device=dev, dtype=dt)
 
 
-def _cutout_coords(x_h, bins, half, res, Npix):
+def _cutout_coords(cen, off, half, res, Npix):
     """Periodic cutout indices and each cell's coordinate relative to the
-    halo, along one axis, for a batch of halos: ((H, 2 half) int64,
-    (H, 2 half)). The cutout starts half cells below the halo's nearest
-    bin."""
-    x_cen = torch.argmin(torch.abs(bins[None, :] - x_h[:, None]), dim=1)
-    ar = torch.arange(2 * half, device=x_h.device) - half
-    inds = torch.remainder(x_cen[:, None] + ar, Npix)
-    dx = bins[x_cen] - x_h
-    return inds, ar.to(x_h.dtype) * res + dx[:, None]
+    halo, along one axis, for a batch of halos with nearest bins ``cen``
+    and offsets ``off`` (bin centre less halo): ((H, 2 half) int64,
+    (H, 2 half)). The cutout starts half cells below the nearest bin."""
+    ar = torch.arange(2 * half, device=cen.device) - half
+    inds = torch.remainder(cen[:, None] + ar, Npix)
+    return inds, ar.to(off.dtype) * res + off[:, None]
 
 
-def _window_geometry(Npix, half, is2D, bins, res, xs, ys, zs, Rmats):
+def _window_geometry(Npix, half, is2D, res, axes, Rmats):
     """Flat cell ids, circular offsets (gx, gy[, gz]) and the readout
-    radius (elliptical in 2D) of every cutout cell of a chunk of halos:
-    each (H, W^d)."""
-    H = xs.shape[0]
-    xi, rx = _cutout_coords(xs, bins, half, res, Npix)
-    yi, ry = _cutout_coords(ys, bins, half, res, Npix)
+    radius (elliptical in 2D) of every cutout cell of a chunk of halos,
+    each (H, W^d); ``axes`` holds per axis the halos' (nearest bins,
+    offsets from them)."""
+    H = axes[0][0].shape[0]
+    xi, rx = _cutout_coords(*axes[0], half, res, Npix)
+    yi, ry = _cutout_coords(*axes[1], half, res, Npix)
     if is2D:
         # rows vary x, columns y; the flat id follows the map's [x, y]
         gx, gy = rx[:, :, None], ry[:, None, :]
@@ -410,7 +417,7 @@ def _window_geometry(Npix, half, is2D, bins, res, xs, ys, zs, Rmats):
         flat = xi[:, :, None] * Npix + yi[:, None, :]
         g = (gx, gy)
     else:
-        zi, rz = _cutout_coords(zs, bins, half, res, Npix)
+        zi, rz = _cutout_coords(*axes[2], half, res, Npix)
         gx, gy, gz = rx[:, :, None, None], ry[:, None, :, None], \
             rz[:, None, None, :]
         r = torch.sqrt(gx * gx + gy * gy + gz * gz)
@@ -432,14 +439,13 @@ def _halo_profiles(grids, table, a_scale, Ms, props, n_props):
 
 
 def _accumulate_grid_offsets(Npix, half, n_props, is2D, grids, table,
-                             eps_max, a_scale, res, bins, xs, ys, zs, Ms, Rs,
-                             Rmats, props, offsets, use_rdelta=False):
+                             eps_max, a_scale, res, axes, Ms, Rs, Rmats,
+                             props, offsets, use_rdelta=False):
     """Add the displacement offsets (pixel units) of one chunk of halos to
     the row-major ``offsets`` planes (in place): each halo's cutout read
     at the (elliptical) radius (over R_com with ``use_rdelta``), pushed
     along the circular unit vector."""
-    flat, g, r = _window_geometry(Npix, half, is2D, bins, res, xs, ys, zs,
-                                  Rmats)
+    flat, g, r = _window_geometry(Npix, half, is2D, res, axes, Rmats)
     lnr = torch.log(torch.clamp(r, min=1e-30))
     rad = lnr - torch.log(Rs)[:, None] if use_rdelta else lnr
     prof = _halo_profiles(grids, table, a_scale, Ms, props, n_props)
@@ -453,13 +459,12 @@ def _accumulate_grid_offsets(Npix, half, n_props, is2D, grids, table,
 
 
 def _accumulate_grid_paint(Npix, half, n_props, is2D, grids, table, eps_max,
-                           a_scale, res, bins, xs, ys, zs, Ms, Rs, Rmats,
-                           props, new_map):
+                           a_scale, res, axes, Ms, Rs, Rmats, props,
+                           new_map):
     """Add the tabulated profile of one chunk of halos to ``new_map``
     (a one-plane tuple, in place); readouts that are not finite paint
     nothing."""
-    flat, _, r = _window_geometry(Npix, half, is2D, bins, res, xs, ys, zs,
-                                  Rmats)
+    flat, _, r = _window_geometry(Npix, half, is2D, res, axes, Rmats)
     prof = _halo_profiles(grids, table, a_scale, Ms, props, n_props)
     paint = torch.exp(radial_readout(prof, grids[2],
                                      torch.log(torch.clamp(r, min=1e-30))))

@@ -24,8 +24,16 @@ chunk of blocks at once, as one (blocks, slots, voxels) tensor of at most
 ``PASS_BUDGET`` elements, so a chunk costs a few dozen launches, not a few
 dozen a candidate.
 
-The packed records carry the nearest-bin indices as floats: exact for
-N <= 2^24 in float32.
+The packed records carry the nearest-bin indices as floats (exact for
+N <= 2^24 in float32) and, in place of each halo's position, its offset
+from the centre of that bin, taken in float64 before the cast. A voxel's
+offset from the halo is then (its index in the halo's window - half) *
+res - that offset: an exact integer and two small terms, where the JAX
+package subtracts two box coordinates. In float32 a box coordinate near
+L = 1000 Mpc is rounded by ~3e-5 Mpc, and a flat-topped profile (a paint
+convolved with a wide pixel window) then flips whole pixels in or out at
+the disc edge; the offsets keep the voxel-halo separation to ~1e-7 of
+itself. In float64 the two forms agree to rounding.
 """
 
 import numpy as np
@@ -44,8 +52,8 @@ __all__ = ["morton3", "demorton3", "morton2", "demorton2",
 
 # packed-record column where the extra table-axis coordinates start
 # (16-wide records; the columns before it are geometry)
-PROP_COL0_3D = 9      # [x y z R lnM lnR cenx ceny cenz | props]
-PROP_COL0_2D = 11     # [x y R lnM lnR cenx ceny Rm00 Rm01 Rm10 Rm11 | props]
+PROP_COL0_3D = 9      # [dx dy dz R lnM lnR cenx ceny cenz | props]
+PROP_COL0_2D = 11     # [dx dy R lnM lnR cenx ceny Rm00 Rm01 Rm10 Rm11 | props]
 MAX_PROPS_3D = 16 - PROP_COL0_3D
 MAX_PROPS_2D = 16 - PROP_COL0_2D
 
@@ -336,7 +344,7 @@ _COLS = {3: dict(pos=(0, 1, 2), R=3, lnR=5, cen=(6, 7, 8), Rm=None),
 
 
 def _grid_pass(mode, dim, B, n_hi, N, half, dense, counts, counts_host,
-               packed, rows, g0, dg, rad_hi, eps_max, L, res, bins0, planes,
+               packed, rows, g0, dg, rad_hi, eps_max, res, planes,
                census=None):
     """One bucket of ``mode`` ('offsets', 'offsets_rdelta' or 'paint')
     over every voxel in block-major order, added in place to ``planes``
@@ -355,7 +363,8 @@ def _grid_pass(mode, dim, B, n_hi, N, half, dense, counts, counts_host,
     paint = mode == "paint"
     rdelta = mode == "offsets_rdelta"
     rows_flat = rows.reshape(-1)
-    # the per-halo columns a slot reads, and each halo's window start
+    # the per-halo columns a slot reads (each halo's offset from its
+    # nearest bin centre, its reach, ...), and each halo's window start
     hcols = [packed[:, c] for c in cols['pos']] + [eps_max * packed[:, cols['R']]]
     if rdelta:
         hcols.append(packed[:, cols['lnR']])
@@ -383,7 +392,6 @@ def _grid_pass(mode, dim, B, n_hi, N, half, dense, counts, counts_host,
         # broadcast to (C, G, B^dim) where they meet
         bc = _demorton(torch.arange(c0, c1, device=dev), dim)
         iv = [b[:, None] * B + o[None, :] for b in bc]            # (C, B)
-        xv = [(bins0 + i.to(dt) * res)[:, None, :] for i in iv]
         G = max(1, min(k_max, PASS_BUDGET // ((c1 - c0) * F)))
         acc = [torch.zeros((c1 - c0, F), dtype=dt, device=dev)
                for _ in planes]
@@ -396,11 +404,12 @@ def _grid_pass(mode, dim, B, n_hi, N, half, dense, counts, counts_host,
             hl = lo[hid]
             dx, win = [], ax(ok[..., None], 0)
             for d in range(dim):
-                dd = xv[d] - rec[..., d, None]
-                dx.append(dd - L * torch.round(dd / L))
-                win = win & ax(torch.remainder(iv[d][:, None, :]
-                                               - hl[..., d, None], N)
-                               < 2 * half, d)
+                # the voxel's place u in the halo's window [cen - half,
+                # cen + half) (periodic): its offset from the halo is
+                # (u - half) * res less the halo's offset from its bin
+                u = torch.remainder(iv[d][:, None, :] - hl[..., d, None], N)
+                dx.append((u - half).to(dt) * res - rec[..., d, None])
+                win = win & ax(u < 2 * half, d)
             sq = ax(dx[0] * dx[0], 0) + ax(dx[1] * dx[1], 1)
             if dim == 3:
                 sq = sq + ax(dx[2] * dx[2], 2)
@@ -447,16 +456,17 @@ def _grid_pass(mode, dim, B, n_hi, N, half, dense, counts, counts_host,
 
 
 def grid_offsets_pass(use_rdelta, B, n_hi, N, half, dense, counts,
-                      counts_host, packed, rows, g0, dg, rad_hi, eps_max, L,
-                      res, bins0, planes, census=None):
+                      counts_host, packed, rows, g0, dg, rad_hi, eps_max,
+                      res, planes, census=None):
     """One bucket's displacement pass over every voxel of an N^3 grid in
     block-major order, added in place to the three block-major offset
     ``planes`` (pixel units).
 
     dense, counts : the bucket's (ncell * K,) Morton-block candidates and
                     (ncell,) counts (``counts_host`` a host copy)
-    packed : (H, 16) the bucket's records [x, y, z, R_com, lnM, lnRc,
-             cen_x, cen_y, cen_z | props]
+    packed : (H, 16) the bucket's records [dx, dy, dz, R_com, lnM,
+             lnRc, cen_x, cen_y, cen_z | props]: d* each halo's offset
+             from the centre of its nearest bin cen_* (Mpc)
     rows : (H, n_hi) the halos' radial rows (:func:`halo_rows`) of the
            displacement table, on the uniform grid of ln r (ln r/R_com
            with ``use_rdelta``) from ``g0`` in steps ``dg``; ``rad_hi`` is
@@ -466,40 +476,40 @@ def grid_offsets_pass(use_rdelta, B, n_hi, N, half, dense, counts,
     """
     return _grid_pass("offsets_rdelta" if use_rdelta else "offsets", 3, B,
                       n_hi, N, half, dense, counts, counts_host, packed,
-                      rows, g0, dg, rad_hi, eps_max, L, res, bins0, planes,
+                      rows, g0, dg, rad_hi, eps_max, res, planes,
                       census)
 
 
 def grid_paint_pass(B, n_hi, N, half, dense, counts, counts_host, packed,
-                    rows, g0, dg, rad_hi, eps_max, L, res, bins0, new_map,
+                    rows, g0, dg, rad_hi, eps_max, res, new_map,
                     census=None):
     """One bucket's painting pass over an N^3 grid (rows of a log-profile
     table, non-finite nodes replaced by -1e30), added in place to the
     block-major ``new_map``."""
     return _grid_pass("paint", 3, B, n_hi, N, half, dense, counts,
-                      counts_host, packed, rows, g0, dg, rad_hi, eps_max, L,
-                      res, bins0, (new_map,), census)[0]
+                      counts_host, packed, rows, g0, dg, rad_hi, eps_max,
+                      res, (new_map,), census)[0]
 
 
 def grid_offsets_pass_2d(use_rdelta, B, n_hi, N, half, dense, counts,
                          counts_host, packed, rows, g0, dg, rad_hi, eps_max,
-                         L, res, bins0, planes, census=None):
+                         res, planes, census=None):
     """2D version of :func:`grid_offsets_pass` (two planes). ``packed``
-    is [x, y, R_com, lnM, lnRc, cen_x, cen_y, Rm00, Rm01, Rm10, Rm11 |
+    is [dx, dy, R_com, lnM, lnRc, cen_x, cen_y, Rm00, Rm01, Rm10, Rm11 |
     props]: the shear matrix maps pixel offsets to the elliptical frame
     (the identity for isotropic halos); the displacement is read at the
     elliptical radius and pushes along the circular unit vector."""
     return _grid_pass("offsets_rdelta" if use_rdelta else "offsets", 2, B,
                       n_hi, N, half, dense, counts, counts_host, packed,
-                      rows, g0, dg, rad_hi, eps_max, L, res, bins0, planes,
+                      rows, g0, dg, rad_hi, eps_max, res, planes,
                       census)
 
 
 def grid_paint_pass_2d(B, n_hi, N, half, dense, counts, counts_host, packed,
-                       rows, g0, dg, rad_hi, eps_max, L, res, bins0, new_map,
+                       rows, g0, dg, rad_hi, eps_max, res, new_map,
                        census=None):
     """2D version of :func:`grid_paint_pass` (read at the elliptical
     radius)."""
     return _grid_pass("paint", 2, B, n_hi, N, half, dense, counts,
-                      counts_host, packed, rows, g0, dg, rad_hi, eps_max, L,
-                      res, bins0, (new_map,), census)[0]
+                      counts_host, packed, rows, g0, dg, rad_hi, eps_max,
+                      res, (new_map,), census)[0]

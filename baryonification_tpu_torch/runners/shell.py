@@ -42,7 +42,8 @@ from ..utils import resolve_device
 from . import shell_cellmajor as cm
 from ._method import resolve_method
 
-__all__ = ['DefaultRunner', 'BaryonifyShell', 'PaintProfilesShell']
+__all__ = ['DefaultRunner', 'BaryonifyShell', 'PaintProfilesShell',
+           'PaintProfilesAnisShell']
 
 
 def _pack_from_angles(theta, phi, D, a, R_com, M, props):
@@ -756,3 +757,7 @@ class PaintProfilesShell(DefaultRunner):
         out = new_map.to(torch.float64).cpu().numpy()
         self._stage("fetch_map", t0)
         return out
+
+
+class PaintProfilesAnisShell(PaintProfilesShell):
+    """Alias of PaintProfilesShell, as in the JAX package."""

@@ -34,27 +34,51 @@ and fails on any fault:
      2D run also paints a TabulatedProfile(Gas). Mass conserved, the two
      methods' maps compared, the census of each pass (voxel-slots listed
      and inside) with its operations bound, and the device launches,
-     idle share and peak memory of a warm call;
-  6. C_ell path: examples/09_delta_cls_shells.py at its full resolution
+     idle share and peak memory of a warm call; the 2D run also paints
+     bench_runners' tsz_model(32) (a pixel-convolved ThermalSZ table),
+     its float32 map held against a float64 paint on the card;
+  6. tSZ path: bench_runners.py's bench_paint, the flagship painting run
+     (examples/05's model at full width): the TabulatedProfile of
+     ConvolvedProfile(ThermalSZ, HealPixel(1024)) built on the card, a
+     full-sky NSIDE-1024 Compton-y map painted from 1e6 halos by
+     PaintProfilesShell under "auto" (the cell-major kernel in paint
+     mode, no scatter), its float32 map held against a float64 paint,
+     and the kernel held against its plain version at every bucket's
+     inputs of that run (the tSZ table's rows), float32 and float64;
+     method="scatter" on the first 1e5 halos (the scatter kernel), its
+     float32 map held against float64, its float64 map against the
+     cell-major float64 map, and the kernel against its plain version at
+     the run's largest chunk; and anafast of the y map at lmax 2048 (the
+     analysis kernel);
+  7. families path: grid-256 under BaryonifyGrid("auto") with the
+     Arico20 (reference example 12's parameters) and Mead20
+     (Params_TAGN_7p8) DMO/DMB pairs, Baryonification3D tables built on
+     the card; mass conserved, one scatter launch (the CIC) a call;
+  8. C_ell path: examples/09_delta_cls_shells.py at its full resolution
      (NSIDE 1024, lmax 2048): paint a DMO shell from 3000 halos, baryonify
      it for theta_ej in {2, 4, 8}, and assert the example's four shape
      checks on the anafast ratios; the cell-major and analysis kernels
      must have been launched;
-  7. synthesis path: synfast then anafast at NSIDE 1024 / lmax 2048
+  9. synthesis path: synfast then anafast at NSIDE 1024 / lmax 2048
      (recovered C_ell inside cosmic variance), and alm2map then
      map2alm(iter=3) (residual below iter=0's); the synthesis kernel must
      have been launched;
-  8. reference: a small shell (both methods), anafast, alm2map and paint
-     (both methods) at NSIDE 64 on the card (float64 and float32) against
-     the port's CPU float64 runs, the two shell methods against each other
-     on the card in float64, a small table built on the card against
-     the CPU build, small 3D and 2D grids (both methods, an other_params
-     axis, 2D ellipticity) and a ParamTabulatedProfile shell paint
-     against the CPU.
+  10. reference: a small shell (both methods), anafast, alm2map and
+     paint (both methods) at NSIDE 64 on the card (float64 and float32)
+     against the port's CPU float64 runs, the two shell methods against
+     each other on the card in float64, a small table built on the card
+     against the CPU build, small 3D and 2D grids (both methods, an
+     other_params axis, 2D ellipticity) and a ParamTabulatedProfile shell
+     paint against the CPU; a small NSIDE-64 tSZ table and its paint
+     (both methods, both precisions), and small Arico20 and Mead20
+     Baryonification3D tables, on the card against the CPU.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after. The last lines are a JSON record of the kernels, the
-nvidia-smi line, and {"ok": true, "device": {...}}.
+just after; a kernel's launches in the JSON record are those of the run
+whose inputs give its time there (TIMED_RUN), and ``launches_by_path``
+lists every path's. The last lines are a JSON
+record of the kernels, the nvidia-smi line, and {"ok": true, "device":
+{...}}.
 
     python3 chip_smoke.py --phases kernels,shell --root <other checkout>
 
@@ -63,13 +87,15 @@ drives the package of another checkout with this script and its inputs
 """
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-sys.modules["jax"] = None        # the port must run without JAX
+if __name__ == "__main__":
+    sys.modules["jax"] = None    # the port must run without JAX
 
 import numpy as np
 
@@ -1178,9 +1204,18 @@ def check_legendre(torch, lc, sp, device, issue_bound, nside=1024,
     return records
 
 
+# kernel -> the run whose inputs give its time in the kernels line (the
+# scatter: grid-256's CIC rows; the cell-major pass: the shell path's
+# largest bucket; legendre_alm: the C_ell path's anafast shapes;
+# legendre_synth: synth-1024's)
+TIMED_RUN = {"scatter_add": "grid BaryonifyGrid (auto = cellmajor)",
+             "cellmajor_pass": "shell path (auto = cellmajor)",
+             "legendre_alm": "C_ell path (baryonify + anafast)",
+             "legendre_synth": "synthesis path"}
 COUNTERS = []       # the LAUNCHES dicts of the kernel modules
 SCATTER = []        # the names of the scatter module's kernels
 CELLMAJOR = []      # the names of the cell-major module's kernels
+PATH_LAUNCHES = {}  # path -> launch counts of its run (read_counts)
 
 
 def reset_counts():
@@ -1194,6 +1229,8 @@ def read_counts(path, expected):
     (``expected``) was launched no time."""
     launches = {k: n for counts in COUNTERS for k, n in counts.items()}
     log(f"{path}: kernel launches {launches}")
+    check(path not in PATH_LAUNCHES, f"path {path!r} read twice")
+    PATH_LAUNCHES[path] = launches
     for k in expected:
         check(launches[k] > 0, f"the {path} launched kernel {k} no time")
     return launches
@@ -1353,23 +1390,24 @@ GRID_CELLS = {"grid": (3, 256, 500.0, 100_000),
 GRID_F32_BAR = 1e-5
 # float32 bar of a grid paint, rms/mean: against a float64 paint of the
 # same inputs (on the card, or the CPU's for the small reference grids),
-# and the two methods' float32 paints against each other. Each method's
-# float32 paint is off its float64 paint by the same amount: 8.8e-5
-# (cell-major) and 9.6e-5 (scatter) at grid2d-2048, 1.08e-4 and 1.10e-4
-# on the small 3D grid, 2.2e-5 and 2.3e-5 on the small 2D grid, and at
-# grid2d-2048 by 5.6e-3 of max at one pixel, the same in both; the two
-# float32 paints differ by 3.9e-5 (NVIDIA H100 80GB HBM3, 700 W)
+# and the two methods' float32 paints against each other. With the halo
+# positions taken as float64 offsets from their nearest bins, each
+# method's float32 Gas paint at grid2d-2048 is off its float64 paint by
+# 3.8e-5 (2.3e-3 of max at one pixel), the two float32 paints differ by
+# 9.1e-7, and the tSZ paint is off by 2.5e-5; with float32 box
+# coordinates they were 8.8e-5, 9.6e-5, 3.9e-5 and, for the tSZ paint's
+# flat-topped profile, 5.7e-4 (NVIDIA H100 80GB HBM3, 700 W)
 GRID_PAINT_F32_BAR = 3e-4
 # operations the cell-major grid pass needs (a sqrt, log, exp or division
 # counted as one), from runners/grid_cellmajor.py: every listed
-# voxel-slot takes the min-image deltas (5 a dimension: subtract, divide,
-# round, multiply, subtract), the squared radius and its compare against
-# (eps_max R)^2; the 2D runs also shear the deltas (6) for the elliptical
-# radius (3); one that passes reads the table: the window test (3 a
-# dimension), sqrt, log, t (2), the node and weight (3), the lerp (3) and
-# either exp and an add (paint) or the circular radius, two divisions and
-# a multiply-add a dimension (offsets)
-GRID_TEST_FLOPS = {3: 3 * 5 + 5 + 1, 2: 2 * 5 + 6 + 3 + 1}
+# voxel-slot takes the deltas (3 a dimension: the window place less
+# half, times res, less the halo's offset), the squared radius and its
+# compare against (eps_max R)^2; the 2D runs also shear the deltas (6)
+# for the elliptical radius (3); one that passes reads the table: the
+# window test (3 a dimension), sqrt, log, t (2), the node and weight
+# (3), the lerp (3) and either exp and an add (paint) or the circular
+# radius, two divisions and a multiply-add a dimension (offsets)
+GRID_TEST_FLOPS = {3: 3 * 3 + 5 + 1, 2: 2 * 3 + 6 + 3 + 1}
 GRID_READ_FLOPS = {("offsets", 3): 9 + 1 + 1 + 2 + 3 + 3 + 2 + 6,
                    ("offsets", 2): 6 + 1 + 1 + 2 + 3 + 3 + 4 + 2 + 4,
                    ("paint", 3): 9 + 1 + 1 + 2 + 3 + 3 + 2,
@@ -1510,7 +1548,38 @@ def grid_path(T, torch, device, cell):
         else:
             compare_maps(f"{cell} {name} cell-major vs scatter (float32 "
                          f"both)", cm_map, sc_map, gm.map)
+    if dim == 2:
+        out.update(grid_tsz_paint(T, torch, device, cell, cat, gm))
     return out
+
+
+def grid_tsz_paint(T, torch, device, cell, cat, gm):
+    """bench_runners.py's grid2d paint: PaintProfilesGrid with
+    tsz_model(32) under ``auto`` (the cell-major method, no kernel
+    launched), cold and warm with stages, its float32 map held against a
+    float64 paint of the same inputs on the card at GRID_PAINT_F32_BAR.
+    Returns the launch counts of the cold run."""
+    tab = tsz_model(T, torch, device, 32)
+    mk = lambda **kw: T.PaintProfilesGrid(cat, gm, epsilon_max=GRID_PAINT_EPS,
+                                          model=tab, verbose=False,
+                                          device=device, **kw)
+    runner = mk()
+    check(runner.method == "cellmajor",
+          f"method 'auto' resolved to {runner.method!r} on the card")
+    label = f"{cell} PaintProfilesGrid tSZ (auto = cellmajor)"
+    y, launches, _ = run_process(torch, runner, label, [],
+                                 CELLMAJOR + SCATTER, paint=True)
+    t0 = time.perf_counter()
+    y64 = mk(precision="float64").process()
+    rms, rel = map_diff(y, y64)
+    log(f"grid: {cell} PaintProfilesGrid tSZ float64 (cell-major) "
+        f"{time.perf_counter() - t0:.2f} s; float32 vs float64: rms/mean "
+        f"{rms:.3e}, max|diff|/max {rel:.3e} (bar rms/mean "
+        f"{GRID_PAINT_F32_BAR:g}); {int((y > 0).sum())} of {y.size} pixels "
+        f"painted")
+    check(rms < GRID_PAINT_F32_BAR, f"{cell} PaintProfilesGrid tSZ float32 "
+          f"vs float64: rms/mean {rms:.3e}")
+    return {label: launches}
 
 
 def check_paint_f32(cell, name, mk, cm_map, sc_map):
@@ -1643,6 +1712,365 @@ def reference_grid(T, torch, device):
             check(np.isfinite(got).all() and err < bar,
                   f"{prec} {method} ParamTabulatedProfile paint on the card "
                   f"differs: {err:.3e}")
+
+
+# bench_runners.py's bench_paint: its tsz_model (examples/05's
+# pixel-convolved ThermalSZ, bench_runners' PAR, on RUNNERS_GRID),
+# eps_max 5, catalog seed 3; the scatter method on the first 1e5 halos
+# (at 1e6 it is host-bound at 13-25 s, as the shell path's)
+TSZ_SCATTER_HALOS = 100_000
+# float32 bars of the tSZ y map against a float64 paint of the same inputs
+# on the card, rms/mean. The float32 angular test cos(sep) >= cos(r_disc)
+# of both paint methods resolves 1 - cos ~ 1e-6 to ~6e-8, so pixels in a
+# band of a few % of the disc radius are painted in one precision only;
+# they carry nearly all of the difference. The first bar, 5e-3, came
+# from the CPU's prediction of 1.8e-3 at NSIDE 1024 / 1e6 halos with
+# GRID_F32_BAR's 2.7x margin; the card read 5.249e-4 (cell-major, 1e6
+# halos) and 4.223e-3 (scatter, the first 1e5 halos: fewer halos, so the
+# edge pixels weigh more against the mean; the cell-major method reads
+# 1.780e-3 on those halos), and each bar is now 2.7x its reading (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6)
+TSZ_F32_BAR = 1.4e-3
+TSZ_SCATTER_F32_BAR = 1.1e-2
+# reference example 12's Arico20 parameters (tests/test_arico.py:12-17)
+APAR = dict(alpha_g=2, epsilon_h=0.015, M1_0=2.2e11 / 0.7, alpha_sat=1,
+            M_c=1.2e14 / 0.7, eta=0.6, mu=0.31, beta=0.6,
+            epsilon_hydro=np.sqrt(5), M_inn=3.3e13 / 0.7, M_r=1e30,
+            beta_r=2, theta_inn=0.1, theta_out=1, theta_rg=0.3,
+            sigma_rg=0.1, a=0.3, n=2, p=0.3, q=0.707, A_nt=0.495,
+            alpha_nt=0.1, mean_molecular_weight=0.59)
+_TSZ_MODELS = {}
+
+
+def tsz_model(T, torch, device, nside, grid=RUNNERS_GRID):
+    """bench_runners.py's tsz_model(nside): TabulatedProfile of
+    ConvolvedProfile(ThermalSZ(**PAR), HealPixel(nside)), built on
+    ``device`` in float64; cached, the build time logged once."""
+    key = (nside, str(device), tuple(sorted(grid.items())))
+    if key not in _TSZ_MODELS:
+        t0 = time.perf_counter()
+        cosmo = T.Cosmology.from_dict(COSMO, device=device)
+        tab = T.TabulatedProfile(T.ConvolvedProfile(
+            T.ThermalSZ(**PAR), T.HealPixel(NSIDE=nside)), cosmo)
+        tab.setup_interpolator(**grid)
+        if tab._ln2D.is_cuda:
+            torch.cuda.synchronize()
+        fin = torch.isfinite(tab._ln2D)
+        log(f"tsz: TabulatedProfile(ConvolvedProfile(ThermalSZ, HealPixel("
+            f"{nside}))) table {tuple(tab._ln2D.shape)} built on {device} "
+            f"in float64: {time.perf_counter() - t0:.2f} s; projected "
+            f"table finite at {int(fin.sum())} of {fin.numel()} nodes, 3D "
+            f"table finite at {int(torch.isfinite(tab._ln3D).sum())} (the "
+            f"real profile is the -99 sentinel, as in the JAX package)")
+        check(bool(fin.any()), "the tSZ projected table is nowhere finite")
+        _TSZ_MODELS[key] = tab
+    return _TSZ_MODELS[key]
+
+
+def tsz_catalog(n_halo, seed=3):
+    """bench_runners.py's painting catalog, drawn in its order from one
+    generator: uniform sky, power-law masses in [1e13, 1e15] of slope
+    -0.8, z uniform in [0.1, 0.9]."""
+    rng = np.random.default_rng(seed)
+    ra = rng.uniform(0, 360, n_halo)
+    dec = np.degrees(np.arcsin(rng.uniform(-1, 1, n_halo)))
+    u = rng.uniform(0, 1, n_halo)
+    M = 1e13 * (1 - u * (1 - (1e15 / 1e13) ** -0.8)) ** (1 / -0.8)
+    z = rng.uniform(0.1, 0.9, n_halo)
+    return dict(ra=ra, dec=dec, M=M, z=z)
+
+
+def map_diff(a, b):
+    """(rms/mean, max|diff|/max) of map a against map b."""
+    return (np.sqrt(np.mean((a - b) ** 2)) / b.mean(),
+            np.abs(a - b).max() / np.abs(b).max())
+
+
+@contextlib.contextmanager
+def spied(module, name, keep):
+    """``module.name`` wrapped for the block: each call's positional
+    arguments go to ``keep`` before the call goes on as it was."""
+    fn = getattr(module, name)
+
+    def spy(*args, **kw):
+        keep(args)
+        return fn(*args, **kw)
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def check_pass_inputs(torch, cmc, label, calls):
+    """The cell-major kernel against its plain version on the inputs of
+    each of a run's passes (one call a bucket, as the runner made them),
+    float64 and float32, at check_cellmajor's bars; logs each bucket's F,
+    whether the kernel culls there (F a multiple of 32), its slot-pixels
+    and the float32 kernel's CUDA-event time."""
+    for bi, (mode, planes, pix, *rest) in enumerate(calls):
+        dense, counts, F, recs, rows, g0, dg, rad_hi = rest
+        slots = int(counts.sum()) * F
+        errs = []
+        for dt in (torch.float64, torch.float32):
+            args = (tuple(p.to(dt) for p in pix), dense, counts, F,
+                    recs.to(dt), rows.to(dt), g0, dg, rad_hi)
+            want = tuple(torch.zeros_like(p, dtype=dt) for p in planes)
+            got = tuple(torch.zeros_like(w) for w in want)
+            cmc.cellmajor_pass_reference(mode, want, *args)
+            cmc.cellmajor_pass(mode, got, *args)
+            torch.cuda.synchronize()
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            scale = max(float(w.abs().max()) for w in want)
+            rel = 1e-12 if dt == torch.float64 else 1e-5
+            errs.append((str(dt).split(".")[1], err, scale, rel))
+            check(err <= rel * scale and all(bool(torch.isfinite(g).all())
+                                             for g in got),
+                  f"cellmajor_pass {mode} on the {label} bucket {bi} "
+                  f"disagrees with its plain version in {dt}: max err "
+                  f"{err:.3e}, max|out| {scale:.3e}")
+        ms = cuda_ms(torch, lambda: cmc.cellmajor_pass(mode, got, *args), 5)
+        log(f"{label}: bucket {bi}: cellmajor_pass {mode} vs plain at the "
+            f"run's inputs: F={F} ({'patch cull' if F % 32 == 0 else 'no '
+            'cull'}), {rows.shape[0]} halos, {slots:.4e} slot-pixels; "
+            + "; ".join(f"{d} max|err| {e:.3e} (atol {r:g}*max|out| "
+                        f"{s:.3e})" for d, e, s, r in errs)
+            + f"; float32 kernel {ms:.4f} ms")
+
+
+def check_scatter_rows(torch, sc, label, idx, vals, npix):
+    """The scatter kernel against its plain version on one chunk of a
+    run (its rows and values as the runner made them), float64 (rtol
+    1e-12 a pixel: the same values summed in another order) and float32
+    (atol 1e-5 max|sum|), scatter_input_check's bars."""
+    valid = idx < npix
+    line = []
+    for dt in (torch.float64, torch.float32):
+        v = tuple(x.to(dt) for x in vals)
+        want = tuple(torch.zeros(npix, dtype=dt, device=idx.device)
+                     for _ in v)
+        got = tuple(torch.zeros_like(w) for w in want)
+        sc.scatter_add_accum_reference(want, idx, v)
+        sc.scatter_add_accum(got, idx, v)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        scale = max(float(w.abs().max()) for w in want)
+        if dt == torch.float64:
+            bad = any(bool(((g - w).abs() > 1e-12 * w.abs()).any())
+                      for g, w in zip(got, want))
+        else:
+            bad = err > 1e-5 * scale
+        line.append(f"{str(dt).split('.')[1]} max|err| {err:.3e} (max|sum| "
+                    f"{scale:.3e})")
+        check(not bad and scale > 0, f"scatter_add on the {label} chunk "
+              f"disagrees with its plain version in {dt}: {err:.3e}")
+    log(f"{label}: scatter_add vs plain at the run's largest chunk "
+        f"({idx.numel()} rows, {int(valid.sum())} aimed at a pixel): "
+        + "; ".join(line) + " (f64 rtol 1e-12 a pixel, f32 atol "
+        "1e-5*max|sum|)")
+
+
+def tsz_path(T, torch, sp, sc, cmc, device, n_halo, nside):
+    """bench_runners.py's full-sky Compton-y paint on the card: the table,
+    PaintProfilesShell under ``auto`` (cell-major, cold and warm with
+    stages) held against a float64 paint of the same inputs, and the
+    kernel against its plain version at every bucket of the run; the
+    scatter method on the first 1e5 halos, its float32 map against
+    float64, its float64 map against the cell-major float64 map of the
+    same halos, and the kernel against its plain version at the run's
+    largest chunk; anafast of the float32 y map. Returns the launch
+    counts of the spectrum's run."""
+    from baryonification_tpu_torch.runners import shell as tshell
+    tab = tsz_model(T, torch, device, nside)
+    halos = tsz_catalog(n_halo)
+    shell = T.LightconeShell(map=np.zeros(12 * nside**2), cosmo=COSMO)
+
+    def mk(h, **kw):
+        cat = T.HaloLightConeCatalog(cosmo=COSMO, **h)
+        return T.PaintProfilesShell(cat, shell, epsilon_max=GRID_PAINT_EPS,
+                                    model=tab, verbose=False, device=device,
+                                    **kw)
+
+    runner = mk(halos)
+    check(runner.method == "cellmajor",
+          f"method 'auto' resolved to {runner.method!r} on the card")
+    y, _, t_warm = run_process(torch, runner, "tsz path (auto = cellmajor)",
+                               CELLMAJOR, SCATTER, paint=True)
+    n_painted = int((y > 0).sum())
+    log(f"tsz: y map: {n_painted} of {y.size} pixels painted "
+        f"({100 * n_painted / y.size:.2f}%), mean y {y.mean():.4e}, max y "
+        f"{y.max():.4e}; warm process() {t_warm:.3f} s")
+    t0 = time.perf_counter()
+    y64 = mk(halos, precision="float64").process()
+    log(f"tsz: the same paint in float64 (cell-major): "
+        f"{time.perf_counter() - t0:.2f} s")
+    rms, rel = map_diff(y, y64)
+    log(f"tsz: y map float32 vs float64 (cell-major, {n_halo} halos): "
+        f"rms/mean {rms:.3e}, max|diff|/max {rel:.3e} (bar rms/mean "
+        f"{TSZ_F32_BAR:g})")
+    # the kernel at the path's own inputs: every bucket's pass of one more
+    # float32 run (the tSZ table's rows, -1e30 at its non-finite nodes)
+    calls = []
+    with spied(tshell, "cellmajor_pass", calls.append):
+        runner.process()
+    check(len(calls) > 0, "the tsz run made no cell-major pass")
+    check_pass_inputs(torch, cmc, "tsz path (auto = cellmajor)", calls)
+    del calls
+
+    n_sc = min(TSZ_SCATTER_HALOS, n_halo)
+    sub = {k: v[:n_sc] for k, v in halos.items()}
+    log(f"cut: tsz scatter method on the first {n_sc} halos (at 1e6 the "
+        f"shell scatter method is host-bound at 13-25 s)")
+    sc_runner = mk(sub, method="scatter")
+    sc_label = f"tsz path (scatter, {n_sc} halos)"
+    ys, _, _ = run_process(torch, sc_runner, sc_label, SCATTER, CELLMAJOR,
+                           paint=True)
+    # the kernel at the path's own inputs: the largest chunk of one more
+    # float32 run
+    chunk = []
+
+    def keep(args):
+        if not chunk or args[1].numel() > chunk[0].numel():
+            chunk[:] = args[1:]
+
+    with spied(tshell, "scatter_add_accum", keep):
+        sc_runner.process()
+    check(len(chunk) == 2, "the tsz scatter run made no scatter call")
+    check_scatter_rows(torch, sc, sc_label, *chunk, 12 * nside**2)
+    del chunk[:]
+    f64 = {m: mk(sub, method=m, precision="float64").process()
+           for m in ("cellmajor", "scatter")}
+    cm64, sc64 = f64["cellmajor"], f64["scatter"]
+    rms_s, rel_s = map_diff(ys, sc64)
+    rms_c, rel_c = map_diff(mk(sub).process(), cm64)
+    log(f"tsz: scatter float32 vs float64 ({n_sc} halos): rms/mean "
+        f"{rms_s:.3e}, max|diff|/max {rel_s:.3e} (bar rms/mean "
+        f"{TSZ_SCATTER_F32_BAR:g}); cell-major float32 vs float64 on the "
+        f"same halos: rms/mean {rms_c:.3e}, max|diff|/max {rel_c:.3e} "
+        f"(logged)")
+    # tests/test_torch_cellmajor.py's bar between the paint methods
+    excess = np.abs(cm64 - sc64) - (1e-9 * sc64.max() + 1e-6 * np.abs(sc64))
+    rms_m, rel_m = map_diff(cm64, sc64)
+    log(f"tsz: cell-major vs scatter (float64 both, {n_sc} halos): "
+        f"rms/mean {rms_m:.3e}, max|diff|/max {rel_m:.3e} (bar atol 1e-9 "
+        f"max, rtol 1e-6)")
+
+    lmax = 2 * nside
+    reset_counts()
+    ymap = torch.as_tensor(y, device=device, dtype=torch.float32)
+    cl, t_cl = synced(torch, lambda: sp.anafast(ymap, nside, lmax))
+    counts = read_counts("tsz path (anafast of the y map)", ["legendre_alm"])
+    _, t_warm_cl = synced(torch, lambda: sp.anafast(ymap, nside, lmax))
+    cl = cl.double().cpu().numpy()
+    ells = [2, 10, 100, 500, 1000, 2000]
+    log(f"tsz: anafast of the float32 y map at lmax {lmax}: cold "
+        f"{t_cl:.3f} s, warm {t_warm_cl:.3f} s; C_ell^yy at ell "
+        + ", ".join(f"{l}: {cl[l]:.4e}" for l in ells if l <= lmax))
+    # every reading is logged before any is checked
+    check(rms < TSZ_F32_BAR, f"tsz y map float32 vs float64: rms/mean "
+          f"{rms:.3e}")
+    check(rms_s < TSZ_SCATTER_F32_BAR, f"tsz scatter y map float32 vs "
+          f"float64: rms/mean {rms_s:.3e}")
+    check(sc64.sum() > 0 and excess.max() <= 0,
+          "tsz: the float64 paints of the two methods differ")
+    check(cl.shape == (lmax + 1,) and np.isfinite(cl).all()
+          and (cl[2:] > 0).all(), "C_ell^yy not finite and positive")
+    return counts
+
+
+def families_path(T, torch, device):
+    """grid-256 (bench_runners' 3D grid inputs) under BaryonifyGrid
+    ("auto") with the Arico20 and Mead20 DMO/DMB pairs: each
+    Baryonification3D table built on the card (timed), process() cold
+    and warm; mass conserved, the map changed, the CIC one scatter launch
+    a call."""
+    dim, N, L, n_halo = GRID_CELLS["grid"]
+    cat, gm = nd_catalog(T, dim, N, L, n_halo)
+    out = {}
+    for fam, par in (("Arico20", APAR),
+                     ("Mead20", T.profiles.Mead20.Params_TAGN_7p8)):
+        mod = getattr(T.profiles, fam)
+        t0 = time.perf_counter()
+        cosmo = T.Cosmology.from_dict(COSMO, device=device)
+        model = T.Baryonification3D(mod.DarkMatterOnly(**par),
+                                    mod.DarkMatterBaryon(**par), cosmo,
+                                    epsilon_max=GRID_EPS)
+        model.setup_interpolator(verbose=False, **RUNNERS_GRID)
+        torch.cuda.synchronize()
+        log(f"families: {fam} Baryonification3D table "
+            f"{tuple(model._table.shape)} built on {device} in float64: "
+            f"{time.perf_counter() - t0:.2f} s")
+        check(bool(torch.isfinite(model._table).all()),
+              f"non-finite {fam} table")
+        runner = T.BaryonifyGrid(cat, gm, epsilon_max=GRID_EPS, model=model,
+                                 verbose=False, device=device)
+        check(runner.method == "cellmajor",
+              f"method 'auto' resolved to {runner.method!r} on the card")
+        label = f"families grid {fam} BaryonifyGrid (auto = cellmajor)"
+        _, out[label], _ = run_process(torch, runner, label, SCATTER,
+                                       CELLMAJOR)
+        check(out[label]["scatter_add"] == 1,
+              f"{label}: the CIC redeposit is one scatter launch, got "
+              f"{out[label]['scatter_add']}")
+    return out
+
+
+def reference_models(T, torch, device, nside=64):
+    """A small tSZ table (NSIDE 64) built on the card in float64 against
+    the CPU build (1e-10 of max|table|), its paint on the card (both
+    methods, float64 to 1e-10 and float32 to 1e-3 of max, the bars of the
+    reference paint) against the CPU's float64 paint, and small Arico20
+    and Mead20 Baryonification3D tables on the card against the CPU
+    (1e-10 of max|table|)."""
+    grid = dict(SMALL_GRID, z_max=0.95)      # the catalog's redshifts
+    tabs = {str(d): tsz_model(T, torch, d, nside, grid)
+            for d in ("cpu", device)}
+    # nodes whose log is not finite (a zero or, past the FFTLog ringing, a
+    # negative projected profile) paint nothing: compared as 0
+    want, got = (torch.where(torch.isfinite(t._ln2D), torch.exp(t._ln2D),
+                             0.0).cpu()
+                 for t in (tabs["cpu"], tabs[str(device)]))
+    rel = float((got - want).abs().max() / want.abs().max())
+    log(f"reference: NSIDE {nside} tSZ table on {device} vs cpu: "
+        f"max|diff|/max = {rel:.3e}")
+    check(rel < 1e-10, f"tSZ table on the card differs: {rel:.3e}")
+    check(not torch.isfinite(tabs[str(device)]._ln3D).any(),
+          "the tSZ 3D table is finite somewhere")
+    halos = tsz_catalog(2000, seed=2)
+    cat = T.HaloLightConeCatalog(cosmo=COSMO, **halos)
+    floor = T.LightconeShell(map=np.zeros(12 * nside**2), cosmo=COSMO)
+    kw = dict(epsilon_max=GRID_PAINT_EPS, model=tabs["cpu"], verbose=False)
+    bad = []
+    for method in ("scatter", "cellmajor"):
+        ref = T.PaintProfilesShell(cat, floor, device="cpu", method=method,
+                                   **kw).process()
+        check(ref.sum() > 0, "the reference tSZ paint is empty")
+        for prec, bar in (("float64", 1e-10), ("float32", 1e-3)):
+            out = T.PaintProfilesShell(cat, floor, device=device,
+                                       precision=prec, method=method,
+                                       **kw).process()
+            err = np.abs(out - ref).max() / np.abs(ref).max()
+            log(f"reference: NSIDE {nside} tSZ paint ({method}) on {device} "
+                f"in {prec} vs cpu float64: max|diff|/max = {err:.3e} (bar "
+                f"{bar:g})")
+            if not (np.isfinite(out).all() and err < bar):
+                bad.append(f"{prec} {method} tSZ paint differs: {err:.3e}")
+    for fam, par in (("Arico20", APAR),
+                     ("Mead20", T.profiles.Mead20.Params_TAGN_7p8)):
+        mod = getattr(T.profiles, fam)
+        tables = []
+        for d in ("cpu", device):
+            model = T.Baryonification3D(
+                mod.DarkMatterOnly(**par), mod.DarkMatterBaryon(**par),
+                T.Cosmology.from_dict(COSMO, device=d), epsilon_max=GRID_EPS)
+            model.setup_interpolator(verbose=False, **SMALL_GRID)
+            tables.append(model._table.cpu().numpy())
+        rel = np.abs(tables[1] - tables[0]).max() / np.abs(tables[0]).max()
+        log(f"reference: small {fam} Baryonification3D table on {device} vs "
+            f"cpu: max|diff|/max = {rel:.3e}")
+        if not (np.isfinite(tables[1]).all() and rel < 1e-10):
+            bad.append(f"{fam} table on the card differs: {rel:.3e}")
+    check(not bad, "; ".join(bad))
 
 
 def synced(torch, fn):
@@ -1935,7 +2363,8 @@ def build_all(torch, sc, lc, cmc):
                 check(sp == 0, f"{e} spills {sp} bytes of registers")
 
 
-PHASES = ("kernels", "shell", "grid", "grid2d", "cl", "synth", "reference")
+PHASES = ("kernels", "shell", "grid", "grid2d", "tsz", "families", "cl",
+          "synth", "reference")
 
 
 def main(argv=None):
@@ -1992,40 +2421,47 @@ def main(argv=None):
         log(f"cut: paths at NSIDE {args.nside}, shell path at "
             f"{args.halos} halos")
     if "shell" in phases:
-        cm_launches, sc_launches = main_path(T, torch, device, args.halos,
-                                             args.nside)
-        records.setdefault("scatter_add", {})["launches"] = \
-            sum(sc_launches[k] for k in SCATTER)
-        records.setdefault("cellmajor_pass", {})["launches"] = \
-            sum(cm_launches[k] for k in CELLMAJOR)
+        main_path(T, torch, device, args.halos, args.nside)
     for cell in ("grid", "grid2d"):
         if cell in phases:
             runs = grid_path(T, torch, device, cell)
             log(f"{cell}: scatter_add launches by run: " + ", ".join(
                 f"{k} {c['scatter_add']}" for k, c in runs.items()))
-            if cell == "grid":
-                # the kernels line's scatter time is taken on this run's
-                # CIC rows: its launches are this run's
-                auto = f"{cell} BaryonifyGrid (auto = cellmajor)"
-                records.setdefault("scatter_add", {})["launches"] = \
-                    runs[auto]["scatter_add"]
-                log(f"kernels line: scatter_add launches from the {auto} "
-                    f"run, whose CIC rows give its times")
+    if "tsz" in phases:
+        tsz_path(T, torch, sp, sc, cmc, device, args.halos, args.nside)
+    if "families" in phases:
+        families_path(T, torch, device)
     if "cl" in phases:
-        _, launches = cl_path(T, torch, sp, device, args.nside)
-        records.setdefault("legendre_alm", {})["launches"] = \
-            launches["legendre_alm"]
+        cl_path(T, torch, sp, device, args.nside)
     if "synth" in phases:
-        launches = synth_path(T, torch, sp, device, args.nside)
-        records.setdefault("legendre_synth", {})["launches"] = \
-            launches["legendre_synth"]
+        synth_path(T, torch, sp, device, args.nside)
     if "reference" in phases:
         reference_check(T, torch, device)
         reference_spectra(T, torch, sp, device)
         reference_grid(T, torch, device)
+        reference_models(T, torch, device)
+
+    # each kernel's launches on every path that was driven, each path run
+    # with the counts set to 0 just before it and read just after; the
+    # line's launches are those of the run whose inputs give its time
+    kernel_of = {k: "scatter_add" for k in SCATTER}
+    kernel_of.update({k: "cellmajor_pass" for k in CELLMAJOR})
+    kernel_of.update({k: k for k in lc.LAUNCHES})
+    for path, counts in PATH_LAUNCHES.items():
+        for k, n in counts.items():
+            if n:
+                rec = records.setdefault(kernel_of[k], {})
+                rec.setdefault("launches_by_path", {})[path] = n
+    for name, rec in records.items():
+        by_path = rec.get("launches_by_path", {})
+        rec["launches"] = by_path.get(TIMED_RUN[name], 0)
+        log(f"kernels line: {name} launches {rec['launches']} (the "
+            f"{TIMED_RUN[name]!r} run, whose inputs give its time); "
+            f"{sum(by_path.values())} on all paths: {by_path}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_by_path")
     kernels = {"kernels": [{k: rec.get(k) for k in keys}
                            for rec in records.values()]}
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")

@@ -933,3 +933,84 @@ def test_grid_auto_is_cellmajor_on_card(cuda_device):
     out = runner.process()
     assert sc.LAUNCHES["scatter_add"] == before + 1
     assert np.isclose(out.sum(), gm.map.sum())
+
+
+# chip_smoke.py's model parameters (bench_runners' tSZ model, reference
+# example 12's Arico20 set), so that these tests and the smoke run test
+# the same models
+from chip_smoke import APAR as ARICO_PAR, PAR as TSZ_PAR  # noqa: E402
+MODEL_GRID = dict(z_min=0.1, z_max=0.5, N_samples_z=2, M_min=1e13,
+                  M_max=1e15, N_samples_Mass=4, R_min=1e-3, R_max=50,
+                  N_samples_R=32)
+
+
+def _cosmo(T, device):
+    return T.Cosmology.from_dict(dict(Omega_m=0.3, Omega_b=0.05, h=0.7,
+                                      sigma8=0.8, n_s=0.96, w0=-1.0),
+                                 device=device)
+
+
+@pytest.mark.cuda
+def test_tsz_table_and_paint_on_card_match_cpu(cuda_device):
+    """examples/05's pixel-convolved tSZ table (NSIDE 64) built on the
+    card in float64 against the CPU build, to 1e-10 of max|table|; its
+    float64 paint on the card, both methods, against the CPU paint to
+    rms/mean < 1e-10, the cell-major paint through its kernel."""
+    import baryonification_tpu_torch as T
+    tabs = {}
+    for dev in ("cpu", cuda_device):
+        tab = T.TabulatedProfile(T.ConvolvedProfile(
+            T.ThermalSZ(**TSZ_PAR), T.HealPixel(64)), _cosmo(T, dev))
+        tab.setup_interpolator(**dict(MODEL_GRID, M_min=1e12, M_max=1e16,
+                                      R_max=1e2, N_samples_R=40))
+        tabs[str(dev)] = tab
+    want, got = tabs["cpu"], tabs[str(cuda_device)]
+    # nodes whose log is not finite (a zero or, past the FFTLog ringing, a
+    # negative projected profile) paint nothing: compared as 0
+    w2, g2 = (torch.where(torch.isfinite(t._ln2D), torch.exp(t._ln2D),
+                          0.0).cpu() for t in (want, got))
+    assert not torch.isfinite(want._ln3D).any()
+    assert not torch.isfinite(got._ln3D).any()
+    assert float((g2 - w2).abs().max() / w2.abs().max()) < 1e-10
+
+    rng = np.random.default_rng(2)
+    n = 300
+    cd = dict(Omega_m=0.3, Omega_b=0.05, h=0.7, sigma8=0.8, n_s=0.96,
+              w0=-1.0)
+    cat = T.HaloLightConeCatalog(
+        ra=rng.uniform(0, 360, n),
+        dec=np.degrees(np.arcsin(rng.uniform(-1, 1, n))),
+        M=10 ** rng.uniform(13.5, 15.0, n), z=rng.uniform(0.1, 0.9, n),
+        cosmo=cd)
+    shell = T.LightconeShell(map=np.zeros(12 * 64**2), cosmo=cd)
+    for method in ("cellmajor", "scatter"):
+        kw = dict(epsilon_max=5, model=want, verbose=False, method=method)
+        ref = T.PaintProfilesShell(cat, shell, device="cpu", **kw).process()
+        before = cmc.LAUNCHES["cellmajor_pass"]
+        out = T.PaintProfilesShell(cat, shell, device=cuda_device,
+                                   precision="float64", **kw).process()
+        assert (cmc.LAUNCHES["cellmajor_pass"] > before) == \
+            (method == "cellmajor")
+        rms = np.sqrt(np.mean((out - ref) ** 2)) / ref.mean()
+        assert ref.sum() > 0 and np.isfinite(out).all() and rms < 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["Arico20", "Mead20"])
+def test_family_table_on_card_matches_cpu(family, cuda_device):
+    """A small Baryonification3D table of the Arico20 (reference example
+    12's parameters) or Mead20 (Params_TAGN_7p8) family built on the card
+    in float64 against the CPU build, to 1e-10 of max|table|."""
+    import baryonification_tpu_torch as T
+    fam = getattr(T.profiles, family)
+    par = ARICO_PAR if family == "Arico20" else fam.Params_TAGN_7p8
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = T.Baryonification3D(fam.DarkMatterOnly(**par),
+                                    fam.DarkMatterBaryon(**par),
+                                    _cosmo(T, dev), epsilon_max=10)
+        model.setup_interpolator(verbose=False, **MODEL_GRID)
+        out[str(dev)] = model._table.cpu().numpy()
+    want, got = out["cpu"], out[str(cuda_device)]
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-10
