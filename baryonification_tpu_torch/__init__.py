@@ -19,13 +19,20 @@ Ported so far:
   ``ops.spectra`` (``anafast`` and the rest of the SHT);
 - the grid runners: ``BaryonifyGrid`` and ``PaintProfilesGrid`` on 2D
   flat-sky maps and 3D boxes (``HaloNDCatalog``, ``GriddedMap``), with
-  ``ParamTabulatedProfile`` for painting with per-halo parameters.
+  ``ParamTabulatedProfile`` for painting with per-halo parameters;
+- the particle-snapshot runner ``BaryonifySnapshot`` (``ParticleSnapshot``
+  with ``make_map``), and the dP(k) analysis layer: ``analysis``
+  (``pk_suppression``, ``profile_uk``, ``sheth_tormen_dndlnM``),
+  ``Cosmology.P_lin`` / ``P_nl`` (halofit), ``TabulatedCorrelation3D``
+  and ``ops.spectra.power_spectrum_3d``.
 Every runner has two methods: ``cellmajor`` (what ``"auto"`` takes on the
 card: candidate lists per coarse cell or block and one pass a bucket; the
-shell's pass is the kernel ``csrc/cellmajor_pass.cu``, the grid's plain
-PyTorch ops) and ``scatter`` (halo windows ending in a scatter-add of
-unsorted rows, ``csrc/scatter_add.cu``; what ``"auto"`` takes on the
-CPU). The grid runners end both methods in a CIC redeposit through that
+shell's pass is the kernel ``csrc/cellmajor_pass.cu``, the grid's and the
+snapshot's plain PyTorch ops) and a reference-semantics method (what
+``"auto"`` takes on the CPU): ``scatter`` for the shell and grid runners
+(halo windows ending in a scatter-add of unsorted rows,
+``csrc/scatter_add.cu``), ``gather`` for the snapshot (per-halo blocks of
+cell-list cells ending in the same scatter-add). The grid runners end both methods in a CIC redeposit through that
 scatter kernel. The two Legendre recurrences of the SHT are
 ``csrc/legendre_sht.cu``. Every kernel is written by hand in CUDA and
 built at first use.
@@ -46,7 +53,7 @@ from .cosmology import Cosmology, MassDef
 from . import utils
 from . import io
 from .io import (HaloLightConeCatalog, HaloNDCatalog, LightconeShell,
-                 GriddedMap)
+                 GriddedMap, ParticleSnapshot)
 from . import profiles
 from .profiles import (SchneiderProfiles, DarkMatter, TwoHalo, Stars, Gas,
                        ShockedGas, CollisionlessMatter, DarkMatterOnly,
@@ -59,8 +66,11 @@ from .displacement import (BaryonificationClass, Baryonification2D,
 from . import runners
 from .runners import (DefaultRunner, BaryonifyShell, PaintProfilesShell,
                       PaintProfilesAnisShell, DefaultRunnerGrid,
-                      BaryonifyGrid, PaintProfilesGrid)
-from .tabulate import TabulatedProfile, ParamTabulatedProfile
+                      BaryonifyGrid, PaintProfilesGrid,
+                      DefaultRunnerSnapshot, BaryonifySnapshot)
+from .tabulate import (TabulatedProfile, ParamTabulatedProfile,
+                       TabulatedCorrelation3D)
+from . import analysis
 from .default_params import DEFAULT_PARAMS, default_params
 
 __version__ = "0.1.0"

@@ -1,11 +1,11 @@
 """Flat w0-CDM cosmology with lookup tables on a chosen device.
 
 The port of ``baryonification_tpu.cosmology.background.Cosmology``:
-comoving and angular-diameter distances, linear growth, critical and
-matter densities, sigma(M), the slope of the linear power spectrum and
-the linear matter correlation function xi_mm(r), as closed forms or
-lookups into tables built once per instance. The rest of the JAX class
-(P_lin, P_nl and their helpers) comes with the modules that call it.
+H(a), comoving and angular-diameter distances, linear growth, critical
+and matter densities, the linear and nonlinear (halofit) matter power
+spectra, sigma(M), the slope of the linear power spectrum and the linear
+matter correlation function xi_mm(r), as closed forms or lookups into
+tables built once per instance.
 
 Precision: the tables are float64 and are built on ``device``. The JAX
 package builds them on the host CPU because a TPU has no native float64;
@@ -20,7 +20,7 @@ import torch
 from .. import constants as const
 from ..ops.fftlog import fftlog_transform
 from ..utils import geomspace, interp, resolve_device
-from .power import eh98_transfer, sigma_tophat
+from .power import eh98_transfer, halofit_pk, sigma_tophat
 
 __all__ = ["Cosmology"]
 
@@ -91,6 +91,16 @@ class Cosmology:
         self._n_a, self._n_k, self._n_m = int(n_a), int(n_k), int(n_m)
         self._tables = self._build_tables()
 
+    @property
+    def Omega_c(self):
+        return self.Omega_m - self.Omega_b
+
+    @property
+    def cosmodict(self):
+        """The plain dict the io catalog objects validate against."""
+        return dict(Omega_m=self.Omega_m, Omega_b=self.Omega_b, h=self.h,
+                    sigma8=self.sigma8, n_s=self.n_s, w0=self.w0)
+
     @classmethod
     def from_dict(cls, d, *, device="cuda", dtype=torch.float64):
         keys = ("Omega_m", "Omega_b", "h", "sigma8", "n_s", "w0")
@@ -157,6 +167,10 @@ class Cosmology:
         return torch.sqrt(self.Omega_m * a**-3 + t["Or"] * a**-4
                           + t["Ol"] * a ** (-3.0 * (1.0 + self.w0)))
 
+    def H(self, a):
+        """H(a) in km/s/Mpc."""
+        return 100.0 * self.h * self.E(a)
+
     def comoving_radial_distance(self, a):
         """chi(a) in Mpc (flat: equals the comoving angular distance)."""
         t = self._tables
@@ -189,6 +203,27 @@ class Cosmology:
         return rho * a**3 if is_comoving else rho
 
     # ----- fluctuations -----
+    def P_lin(self, k, a=1.0):
+        """Linear matter power spectrum [Mpc^3] at k [1/Mpc]."""
+        t = self._tables
+        pk = torch.exp(interp(torch.log(self.tensor(k)), torch.log(t["k"]),
+                              torch.log(t["pk0"])))
+        return pk * self.growth_factor(a) ** 2
+
+    def Omega_m_a(self, a):
+        """Matter density parameter at scale factor a."""
+        return self.Omega_m * self.tensor(a) ** -3 / self.E(a) ** 2
+
+    def P_nl(self, k, a=1.0):
+        """Nonlinear matter power spectrum (halofit, Takahashi+2012), for
+        the dP(k)/P(k) suppression prediction (``analysis``)."""
+        t = self._tables
+        ol_z = t["Ol"] * self.tensor(a) ** (-3.0 * (1.0 + self.w0)) \
+            / self.E(a) ** 2
+        return halofit_pk(self.tensor(k), t["k"],
+                          t["pk0"] * self.growth_factor(a) ** 2,
+                          self.Omega_m_a(a), ol_z, self.w0)
+
     def dlnP_dlnk(self, k):
         """Logarithmic slope of the z=0 linear power spectrum."""
         t = self._tables

@@ -1,7 +1,8 @@
-"""Data objects: halo catalogs, HEALPix lightcone shells and gridded maps.
+"""Data objects: halo catalogs, HEALPix lightcone shells, gridded maps and
+particle snapshots.
 
-The port of the io objects of ``baryonification_tpu.io`` that the shell
-and grid runners read. They are host-side numpy containers, identical in
+The port of the io objects of ``baryonification_tpu.io`` that the shell,
+grid and snapshot runners read. They are host-side numpy containers, identical in
 layout to the JAX package's, so one catalog recipe feeds both packages;
 the runners move what they need to the device.
 """
@@ -11,7 +12,7 @@ import warnings
 import numpy as np
 
 __all__ = ['HaloLightConeCatalog', 'HaloNDCatalog', 'LightconeShell',
-           'GriddedMap']
+           'GriddedMap', 'ParticleSnapshot']
 
 _COSMO_KEYS = ('Omega_m', 'sigma8', 'h', 'Omega_b', 'n_s', 'w0')
 
@@ -183,3 +184,48 @@ class GriddedMap:
     @property
     def cosmology(self):
         return self.cosmo
+
+
+class ParticleSnapshot:
+    """Raw particle snapshot: x, y (, z) [comoving Mpc] and mass M in a
+    periodic box of side L; a 2D snapshot when ``z`` is None."""
+
+    def __init__(self, x=None, y=None, z=None, M=None, L=None, redshift=None,
+                 cosmo=None):
+        t = np.float64
+        dtype = [('M', t), ('x', t), ('y', t), ('z', t)]
+        x = np.atleast_1d(np.asarray(x, dtype=t))
+        cat = np.zeros(len(x), dtype)
+        cat['x'] = x
+        cat['y'] = y
+        cat['z'] = z if z is not None else np.nan
+        cat['M'] = M if M is not None else np.nan
+
+        self.L = L
+        self.cat = cat
+        self.redshift = redshift
+        self.is2D = z is None
+        self.cosmo = _validate_cosmo(cosmo)
+
+    @property
+    def data(self):
+        return self.cat
+
+    @property
+    def cosmology(self):
+        return self.cosmo
+
+    def __len__(self):
+        return self.cat.size
+
+    def make_map(self, N_grid):
+        """Bin the particles into an (N_grid,)^dim mass grid on the host
+        (``np.histogramdd`` over [0, L] per axis)."""
+        assert np.isnan(self.cat['M']).sum() == 0, (
+            "If you want to make a map, provide a value for the particle "
+            "mass")
+        coords = ['x', 'y'] if self.is2D else ['x', 'y', 'z']
+        sample = np.stack([self.cat[c] for c in coords], axis=-1)
+        bins = [np.linspace(0, self.L, N_grid + 1)] * len(coords)
+        H, _ = np.histogramdd(sample, bins=bins, weights=self.cat['M'])
+        return H

@@ -1,7 +1,9 @@
 from .shell import (DefaultRunner, BaryonifyShell, PaintProfilesShell,
                     PaintProfilesAnisShell)
 from .grid import DefaultRunnerGrid, BaryonifyGrid, PaintProfilesGrid
+from .snapshot import DefaultRunnerSnapshot, BaryonifySnapshot
 
 __all__ = ["DefaultRunner", "BaryonifyShell", "PaintProfilesShell",
            "PaintProfilesAnisShell", "DefaultRunnerGrid", "BaryonifyGrid",
-           "PaintProfilesGrid"]
+           "PaintProfilesGrid", "DefaultRunnerSnapshot",
+           "BaryonifySnapshot"]

@@ -3,13 +3,16 @@
 The shell runners have two ported formulations: ``cellmajor`` (NESTED
 pixels, candidate lists per coarse cell, one dense pass per bucket; the
 fast path on the card) and ``scatter`` (halo-major windows ending in a
-scatter-add; the reference semantics). ``'auto'`` resolves as in the JAX
-package: the slow method on the CPU, ``cellmajor`` on an accelerator
-when the configuration allows it, and otherwise the slow method with a
-warning that names the reason; an explicit ``'cellmajor'`` that the
-configuration does not allow raises with the same reason. The JAX
-package's third method, ``gather`` (a cross-check formulation), is not
-ported: asking for it raises.
+scatter-add; the reference semantics). The snapshot runner's two are
+``cellmajor`` and ``gather`` (per-halo blocks of cell-list cells ending
+in a scatter-add; its reference semantics). ``'auto'`` resolves as in
+the JAX package: the slow method on the CPU, ``cellmajor`` on an
+accelerator when the configuration allows it, and otherwise the slow
+method with a warning that names the reason; an explicit ``'cellmajor'``
+that the configuration does not allow raises with the same reason. The
+shell runners' ``gather`` (the JAX package's pixel-major cross-check,
+``runners/shell_gather.py``) is not ported: asking a runner whose slow
+method is ``scatter`` for it raises.
 """
 
 import warnings
@@ -23,7 +26,8 @@ def resolve_method(method, why_not, slow_name, device_type):
     method : 'auto' | 'cellmajor' | 'scatter' | 'gather'
     why_not : None if the cell-major path supports this configuration,
               else a short reason (the warning / error text)
-    slow_name : the reference-semantics method ('scatter')
+    slow_name : the family's reference-semantics method ('scatter' for
+                the shell and grid runners, 'gather' for the snapshot)
     device_type : the runner's device type ('cpu' or 'cuda'), in place of
                   the JAX package's default backend
     """
@@ -40,7 +44,7 @@ def resolve_method(method, why_not, slow_name, device_type):
             raise ValueError(f"method='cellmajor' unsupported here: "
                              f"{why_not}; use '{slow_name}'")
         return method
-    if method == "scatter":
+    if method == slow_name:
         return method
     if method == "gather":
         raise NotImplementedError(

@@ -48,14 +48,17 @@ __all__ = ["morton3", "demorton3", "morton2", "demorton2",
            "blend_table_z", "halo_rows",
            "grid_offsets_pass", "grid_paint_pass", "grid_offsets_pass_2d",
            "grid_paint_pass_2d", "PROP_COL0_3D", "PROP_COL0_2D",
-           "MAX_PROPS_3D", "MAX_PROPS_2D", "PASS_BUDGET"]
+           "PROP_COL0_SNAP", "MAX_PROPS_3D", "MAX_PROPS_2D",
+           "MAX_PROPS_SNAP", "PASS_BUDGET"]
 
 # packed-record column where the extra table-axis coordinates start
 # (16-wide records; the columns before it are geometry)
 PROP_COL0_3D = 9      # [dx dy dz R lnM lnR cenx ceny cenz | props]
 PROP_COL0_2D = 11     # [dx dy R lnM lnR cenx ceny Rm00 Rm01 Rm10 Rm11 | props]
+PROP_COL0_SNAP = 6    # snapshot: [x y z R lnM lnR | props]
 MAX_PROPS_3D = 16 - PROP_COL0_3D
 MAX_PROPS_2D = 16 - PROP_COL0_2D
+MAX_PROPS_SNAP = 16 - PROP_COL0_SNAP
 
 # window rows (halos x window blocks) registered at once
 REG_ROW_BUDGET = 1 << 24

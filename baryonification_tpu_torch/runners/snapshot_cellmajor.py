@@ -1,0 +1,177 @@
+"""Cell-major pass of the particle-snapshot runner.
+
+The port of ``baryonification_tpu.runners.snapshot_cellmajor``. The
+halo-major ``gather`` method (``runners/snapshot.py``) takes, per halo, a
+K^3 block of cell-list cells x P padded particle slots and ends in a
+scatter-add of the overlapping offsets. This module inverts the loop, as
+the grid passes do:
+
+  1. the particles are PADDED PER CELL once per catalog: (ncell * P)
+     position planes in Morton cell order, slot p of cell c holding the
+     cell-list particle start[c] + p (:func:`pad_particles_by_cell`), so
+     the pass reads fixed-shape blocks with no gather on the particle
+     side;
+  2. halos register in every cell their eps_max * R reach may touch (the
+     grid runners' Morton registration and refinement, cached per
+     catalog and bucket by the runner);
+  3. one dense pass a bucket (:func:`snapshot_offsets_pass`): each
+     particle slot sums the offsets of its cell's candidates, and each
+     slot is written once.
+
+Both methods reduce to the same r < eps_max * R mask: the halo-major block
+always covers the whole eps_max * R sphere.
+
+In the JAX package the pass is XLA: a ``lax.map`` over chunks of cells
+with a ``fori_loop`` over the candidates, one profile row rebuilt per
+slot by a one-hot matmul. Here it is plain PyTorch ops, as the grid
+passes: each halo's radial row is blended once a bucket
+(``grid_cellmajor.halo_rows``), the readout is a lerp of two nodes, and a
+step takes a group of candidate slots of a chunk of cells at once, as one
+(cells, slots, particles) tensor of at most ``PASS_BUDGET`` elements, so
+the pass costs a few dozen launches a step, not a dozen a candidate.
+"""
+
+import numpy as np
+import torch
+
+from .grid_cellmajor import PASS_BUDGET
+
+__all__ = ["np_morton3_of_rowmajor", "pad_particles_by_cell",
+           "snapshot_offsets_pass"]
+
+
+def _np_spread3(v):
+    v = v.astype(np.int64)
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def np_morton3_of_rowmajor(rm, nb):
+    """Morton id of each row-major cell id ((x nb + y) nb + z; host
+    numpy), the ids of ``grid_cellmajor.morton3``."""
+    cx, cyz = rm // (nb * nb), rm % (nb * nb)
+    cy, cz = cyz // nb, cyz % nb
+    return (_np_spread3(cx) | (_np_spread3(cy) << 1)
+            | (_np_spread3(cz) << 2))
+
+
+def pad_particles_by_cell(tree, coords, P_pad):
+    """(dim, ncell * P_pad) padded position planes (cells in Morton
+    order), the (ncell,) per-cell counts in that order, and the (Np,) map
+    from cell-list (sorted) particle index to padded slot. Host numpy,
+    once per catalog. Pad slots hold the cell's first particle (masked by
+    the count in the pass)."""
+    ncell = len(tree.cell_count)
+    nb = tree.n_cells
+    Np = coords.shape[0]
+    dim = coords.shape[1]
+    srt = coords[tree.order]
+    m_of_rm = np_morton3_of_rowmajor(np.arange(ncell), nb)
+    counts_rm = np.minimum(tree.cell_count, P_pad).astype(np.int32)
+    counts = np.zeros(ncell, dtype=np.int32)
+    counts[m_of_rm] = counts_rm
+    # sorted index i lives in cell sorted_cid[i] at slot i - start[cell]
+    cell_of = tree.sorted_cid
+    slot_of = np.arange(Np) - tree.cell_start[cell_of]
+    pad_idx = (m_of_rm[cell_of] * P_pad + slot_of).astype(np.int64)
+    first_rm = srt[tree.cell_start.clip(0, Np - 1)]       # (ncell, dim)
+    planes = np.zeros((dim, ncell * P_pad))
+    for d in range(dim):
+        base = np.zeros(ncell)
+        base[m_of_rm] = first_rm[:, d]
+        planes[d] = np.repeat(base, P_pad)
+        planes[d, pad_idx] = srt[:, d]
+    return planes, counts, pad_idx
+
+
+def _cell_chunk(ncell, F, target):
+    """Cells a step: the largest power of two C with C * F <= target that
+    divides ncell (the JAX package's ``parallel.cell_chunk``)."""
+    c = 1
+    while c * 2 * F <= target and ncell % (c * 2) == 0:
+        c *= 2
+    return c
+
+
+def snapshot_offsets_pass(use_rdelta, P, n_hi, dense, counts_h, counts_host,
+                          planes, counts_p, packed, rows, g0, dg, rad_hi,
+                          eps_max, a_scale, L, out, census=None):
+    """One bucket's displacement pass over every padded particle slot,
+    added in place to the three ``out`` planes.
+
+    planes : (px, py, pz), each (ncell * P,): the padded positions
+             (:func:`pad_particles_by_cell`); counts_p (ncell,) the
+             particles a cell
+    dense, counts_h : the bucket's (ncell * K,) Morton-cell candidates and
+                      (ncell,) counts (``counts_host`` a host copy)
+    packed : (H, 16) the bucket's records [x, y, z, R_com, lnM, lnRc |
+             props], positions wrapped into [0, L)
+    rows : (H, n_hi) the halos' radial rows of the z-blended table
+           (``grid_cellmajor.halo_rows``) on the uniform grid of ln r
+           (ln r/R_com with ``use_rdelta``) from ``g0`` in steps ``dg``;
+           ``rad_hi`` is its node n_hi - 1
+    a_scale : the table's comoving displacement times a is the snapshot's
+    census : None, or a dict whose 'pairs' (slot-halo pairs listed, real
+             particles only), 'inside' (those that read the table) and
+             'steps' are added to; it synchronises once a step, so it is
+             for measurement only
+    """
+    dev, dt = packed.device, packed.dtype
+    ncell = counts_h.shape[0]
+    K = dense.shape[0] // ncell
+    dense2 = dense.reshape(ncell, K).to(torch.int64)
+    counts_h = counts_h.to(torch.int64)
+    counts_p = counts_p.to(torch.int64)
+    rows_flat = rows.reshape(-1)
+    # the per-halo columns a slot reads: position, reach (, ln R_com)
+    hcols = [packed[:, 0], packed[:, 1], packed[:, 2], eps_max * packed[:, 3]]
+    if use_rdelta:
+        hcols.append(packed[:, 5])
+    hrec = torch.stack(hcols, dim=-1)
+    pos = [p.reshape(ncell, P) for p in planes]
+    slot = torch.arange(P, device=dev)
+    C = _cell_chunk(ncell, P * max(1, min(K, 16)), PASS_BUDGET)
+    for c0 in range(0, ncell, C):
+        c1 = c0 + C
+        k_max = int(counts_host[c0:c1].max())
+        if k_max == 0:
+            continue
+        G = max(1, min(k_max, PASS_BUDGET // (C * P)))
+        p_ok = (slot[None, :] < counts_p[c0:c1, None])[:, None, :]
+        pc = [p[c0:c1, None, :] for p in pos]                 # (C, 1, P)
+        acc = [torch.zeros((C, P), dtype=dt, device=dev) for _ in range(3)]
+        for k0 in range(0, k_max, G):
+            k1 = min(k0 + G, k_max)
+            hid = dense2[c0:c1, k0:k1]                         # (C, G)
+            ok = (torch.arange(k0, k1, device=dev)[None, :]
+                  < counts_h[c0:c1, None])
+            rec = hrec[hid]                                    # (C, G, .)
+            dx = []
+            for d in range(3):
+                v = pc[d] - rec[..., d, None]
+                dx.append(v - L * torch.round(v / L))          # (C, G, P)
+            r = torch.sqrt(dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2])
+            rad = torch.log(torch.clamp(r, min=1e-30))
+            if use_rdelta:
+                rad = rad - rec[..., 4, None]
+            t = (rad - g0) / dg
+            i = torch.clamp(torch.floor(t), 0, n_hi - 2)
+            w = t - i
+            base = hid[..., None] * n_hi + i.to(torch.int64)
+            val = torch.lerp(rows_flat[base], rows_flat[base + 1], w)
+            live = ((rad >= g0) & (rad <= rad_hi)
+                    & (r < rec[..., 3, None]) & ok[..., None] & p_ok)
+            if census is not None:
+                census['pairs'] += int((ok[..., None] & p_ok).sum())
+                census['inside'] += int(live.sum())
+                census['steps'] += 1
+            val = torch.where(live & torch.isfinite(val), val, 0.0) * a_scale
+            scale = val / torch.clamp(r, min=1e-30)
+            for a, dd in zip(acc, dx):
+                a += (scale * dd).sum(dim=1)
+        for o, a in zip(out, acc):
+            o[c0 * P:c1 * P] += a.reshape(-1)
+    return out

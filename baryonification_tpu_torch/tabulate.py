@@ -10,7 +10,8 @@ package; the paint passes treat readouts that are not finite as painting
 nothing. ``from_arrays`` installs tables made elsewhere (the JAX
 package's ``_grids``, ``_ln3D`` and ``_ln2D``).
 
-``TabulatedCorrelation3D`` is not ported yet.
+``TabulatedCorrelation3D`` tabulates xi_mm(r, z) for injection into
+``TwoHalo`` (``xi_mm=``), read with its ends clamped.
 """
 
 import numpy as np
@@ -20,7 +21,8 @@ from .cosmology.massdef import MassDef
 from .ops.interp import ndlinear_interp
 from .profiles.base import HaloProfile, _set_parameter
 
-__all__ = ['TabulatedProfile', 'ParamTabulatedProfile']
+__all__ = ['TabulatedProfile', 'ParamTabulatedProfile',
+           'TabulatedCorrelation3D']
 
 
 def _grid_ranges(z_min, z_max, N_samples_z, z_linear_sampling, M_min, M_max,
@@ -223,3 +225,39 @@ class ParamTabulatedProfile:
             assert k in kwargs, ("Need to provide %s as input into "
                                  "`projected'. Table was built with this." % k)
         return self._readout(r, M, a, self._ln2D, **kwargs)
+
+
+class TabulatedCorrelation3D:
+    """Tabulated xi_mm(r, z) on the cosmology's device, callable as
+    xi(r, a) for injection into ``TwoHalo``."""
+
+    def __init__(self, cosmo, R_range=(1e-3, 1e3), N_samples=500):
+        self.cosmo = cosmo
+        self.R_range = R_range
+        self.N_samples = N_samples
+
+    def setup_interpolator(self, z_min=0, z_max=5, N_samples_z=10,
+                           verbose=False):
+        r = np.geomspace(self.R_range[0], self.R_range[1], self.N_samples)
+        z_range = np.linspace(z_min, z_max, N_samples_z)
+        table = torch.stack([self.cosmo.xi_mm(r, 1.0 / (1.0 + z_j))
+                             for z_j in z_range])
+
+        self.raw_input_3D = table.cpu().numpy()
+        self.raw_input_z_range = np.log(1 + z_range)
+        self.raw_input_r_range = np.log(r)
+        self._grids = (self.cosmo.tensor(np.log(1 + z_range)),
+                       self.cosmo.tensor(np.log(r)))
+        # xi can be negative beyond the BAO scale: interpolate linearly
+        self._xi = table
+
+    def __call__(self, r, a):
+        r_use = torch.atleast_1d(self.cosmo.tensor(r))
+        # clamp to the table's ends instead of a NaN fill: displacement
+        # tables evaluate TwoHalo on quadrature grids wider than R_range,
+        # and a NaN there would spoil the enclosed-mass sums
+        gz, gr = self._grids
+        z_in = torch.clamp(torch.full_like(r_use, float(np.log(1.0 / a))),
+                           gz[0], gz[-1])
+        lnr = torch.clamp(torch.log(r_use), gr[0], gr[-1])
+        return ndlinear_interp(self._grids, self._xi, (z_in, lnr))

@@ -54,16 +54,37 @@ and fails on any fault:
      Arico20 (reference example 12's parameters) and Mead20
      (Params_TAGN_7p8) DMO/DMB pairs, Baryonification3D tables built on
      the card; mass conserved, one scatter launch (the CIC) a call;
-  8. C_ell path: examples/09_delta_cls_shells.py at its full resolution
+  8. snapshot path: bench_runners.py's bench_snap (L = 500 Mpc, 5e6
+     uniform particles, 1e5 halos, eps_max 15, the grid phase's
+     Baryonification3D table): BaryonifySnapshot under "auto" (the
+     cell-major method: plain PyTorch passes, no kernel) cold and warm
+     with stages, every position finite and in [0, L], only particles
+     within eps_max R_com of some halo moved (on a sample), the census of
+     each bucket with its operations bound, the device launches, idle
+     share and peak memory of a warm call, the float32 offsets against a
+     float64 run at SNAP_F32_BAR; at 2e6 particles / 3e4 halos the gather
+     method (one scatter launch a halo chunk) against the cell-major
+     method in float64 (rtol 1e-10, atol 1e-10) and float32
+     (SNAP_METHODS_F32_BAR), and the scatter kernel against its plain
+     version at the gather run's largest chunk;
+  9. dP(k) path: examples/10_delta_pk_snapshot.py and
+     examples/12_arico_delta_pk_snapshot.py on the card: the halo-model
+     suppression against the 15 scraped Schneider+19 Fig. 2 curves at the
+     example's bars (0.035 a curve, 0.030 overall), and the two mock boxes
+     (the S19 pair, and Arico20 with an Rdelta-sampled table at eps_max
+     2): table, BaryonifySnapshot (float64, "auto"), make_map on the
+     host, power_spectrum_3d on the card; measured vs predicted RMS below
+     0.050 and the examples' least suppression;
+  10. C_ell path: examples/09_delta_cls_shells.py at its full resolution
      (NSIDE 1024, lmax 2048): paint a DMO shell from 3000 halos, baryonify
      it for theta_ej in {2, 4, 8}, and assert the example's four shape
      checks on the anafast ratios; the cell-major and analysis kernels
      must have been launched;
-  9. synthesis path: synfast then anafast at NSIDE 1024 / lmax 2048
+  11. synthesis path: synfast then anafast at NSIDE 1024 / lmax 2048
      (recovered C_ell inside cosmic variance), and alm2map then
      map2alm(iter=3) (residual below iter=0's); the synthesis kernel must
      have been launched;
-  10. reference: a small shell (both methods), anafast, alm2map and
+  12. reference: a small shell (both methods), anafast, alm2map and
      paint (both methods) at NSIDE 64 on the card (float64 and float32)
      against the port's CPU float64 runs, the two shell methods against
      each other on the card in float64, a small table built on the card
@@ -1455,6 +1476,23 @@ def nd_catalog(T, dim, N, L, n_halo, seed=3):
     return cat, gm
 
 
+def census_run(torch, runner):
+    """One warm process() with the runner's census (it synchronises once
+    a step) and the peak device memory of that call, then one under
+    torch.profiler (no stage syncs): (census, peak GiB, device launches,
+    busy ms, the idle share as text)."""
+    runner.census = []
+    torch.cuda.reset_peak_memory_stats()
+    runner.process()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    census, runner.census = runner.census, None
+    n_launch, dev_ms, wall = device_launches(torch, runner.process)
+    idle = ("not measured" if n_launch is None else
+            f"{100 * max(0.0, 1 - dev_ms / (1e3 * wall)):.1f}% of that "
+            f"profiled call's {wall:.3f} s")
+    return census, peak, n_launch, dev_ms, idle
+
+
 def grid_census(torch, runner, label, mode, dim, dname):
     """One more warm process() with the pass's census (it synchronises
     once a step), and one under torch.profiler (no stage syncs) for the
@@ -1464,11 +1502,7 @@ def grid_census(torch, runner, label, mode, dim, dname):
     wall time, which holds the profiler's host cost too), and the peak
     device memory of a warm call. Returns (voxel-slots, inside,
     operations bound ms)."""
-    runner.census = []
-    torch.cuda.reset_peak_memory_stats()
-    runner.process()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    census, runner.census = runner.census, None
+    census, peak, n_launch, dev_ms, idle = census_run(torch, runner)
     slots = sum(c["slots"] for c in census)
     inside = sum(c["inside"] for c in census)
     flops = (slots * GRID_TEST_FLOPS[dim]
@@ -1480,10 +1514,6 @@ def grid_census(torch, runner, label, mode, dim, dname):
             f"n_hi={c['n_hi']}: voxel-slots {c['slots']:.4e}, inside "
             f"{c['inside']:.4e} ({100 * c['inside'] / max(c['slots'], 1):.1f}"
             f"%), {c['steps']} steps")
-    n_launch, dev_ms, wall = device_launches(torch, runner.process)
-    idle = ("not measured" if n_launch is None else
-            f"{100 * max(0.0, 1 - dev_ms / (1e3 * wall)):.1f}% of that "
-            f"profiled call's {wall:.3f} s")
     log(f"grid: {label}: the pass lists {slots:.4e} voxel-slots, "
         f"{inside:.4e} inside; operations bound {bound:.4f} ms "
         f"({flops:.3e} flops at {PEAK_FLOPS[dname] / 1e12:.0f} TFLOP/s); "
@@ -1864,10 +1894,15 @@ def check_scatter_rows(torch, sc, label, idx, vals, npix):
                     f"{scale:.3e})")
         check(not bad and scale > 0, f"scatter_add on the {label} chunk "
               f"disagrees with its plain version in {dt}: {err:.3e}")
+    # CUDA-event times of one whole float32 call, kernel and plain version
+    ms = cuda_ms(torch, lambda: sc.scatter_add_accum(got, idx, v), 10)
+    ms_plain = cuda_ms(torch, lambda: sc.scatter_add_accum_reference(
+        want, idx, v), 10)
     log(f"{label}: scatter_add vs plain at the run's largest chunk "
         f"({idx.numel()} rows, {int(valid.sum())} aimed at a pixel): "
         + "; ".join(line) + " (f64 rtol 1e-12 a pixel, f32 atol "
-        "1e-5*max|sum|)")
+        f"1e-5*max|sum|); float32 whole call {ms:.4f} ms, plain "
+        f"{ms_plain:.4f} ms")
 
 
 def tsz_path(T, torch, sp, sc, cmc, device, n_halo, nside):
@@ -2304,6 +2339,468 @@ def reference_spectra(T, torch, sp, device, nside=64):
                   f"{prec} {method} paint on the card differs: {err:.3e}")
 
 
+# ----- the snapshot path: bench_runners.py's bench_snap -----
+
+# bench_runners.py:202-221 (bench_snap): box side [Mpc], particles, halos
+SNAP_CELL = (500.0, 5_000_000, 100_000)
+# bench_runners.py:18-19: the gather method's comparison size (at 5e6
+# particles it crashed the TPU worker)
+SNAP_GATHER = (2_000_000, 30_000)
+SNAP_EPS = 15.0
+# float32 bars, rms of the offset difference over the rms of the float64
+# offsets, each 2.7x the CPU's reading of the plain version at bench_snap's
+# geometry (L = 500, its halo catalog) with fewer particles: the float32
+# offsets against float64 5.87e-5 (4e5 particles, 1e5 halos: a particle
+# near L = 500 is resolved to ~3e-5 Mpc, so the r < eps_max R cut flips
+# at the sphere's edge), the two float32 methods against each other
+# 3.6e-7 (2e5 particles, 3e4 halos)
+SNAP_F32_BAR = 1.6e-4
+SNAP_METHODS_F32_BAR = 1e-6
+# operations the cell-major snapshot pass needs (a sqrt, log or division
+# counted as one), from runners/snapshot_cellmajor.py: every listed
+# (particle, halo) pair takes the three min-image deltas (5 each) and the
+# squared radius and its compare against (eps_max R)^2 (6); one inside
+# reads the table: sqrt, log, t (2), node and weight (3), the lerp (3),
+# 1/r and the scale by a (2) and the push (2 a dimension)
+SNAP_TEST_FLOPS = 3 * 5 + 6
+SNAP_READ_FLOPS = 1 + 1 + 2 + 3 + 3 + 2 + 6
+
+
+def snap_inputs(T, L, n_part, n_halo, seed):
+    """bench_runners.py's bench_snap inputs, drawn in its order from one
+    generator: halo positions uniform in [0, L), power-law masses in
+    [1e13, 1e15] of slope -0.8, redshift 0.25; then uniform particles of
+    unit mass."""
+    rng = np.random.default_rng(seed)
+    pos = {c: rng.uniform(0, L, n_halo) for c in "xyz"}
+    u = rng.uniform(0, 1, n_halo)
+    M = 1e13 * (1 - u * (1 - (1e15 / 1e13) ** -0.8)) ** (1 / -0.8)
+    cat = T.HaloNDCatalog(M=M, redshift=0.25, cosmo=COSMO, **pos)
+    part = {c: rng.uniform(0, L, n_part) for c in "xyz"}
+    snap = T.ParticleSnapshot(M=np.ones(n_part), L=L, redshift=0.25,
+                              cosmo=COSMO, **part)
+    return cat, snap
+
+
+def snap_offsets(snap, new_cat):
+    """(Np, 3) float64 offsets of a process() result (min image)."""
+    L = float(snap.L)
+    d = np.stack([new_cat[c] - snap.cat[c] for c in "xyz"], axis=-1)
+    return d - L * np.round(d / L)
+
+
+def offsets_diff(a, b):
+    """rms of a - b over the rms of b."""
+    return float(np.sqrt(np.mean((a - b) ** 2) / np.mean(b ** 2)))
+
+
+def snap_process(torch, runner, label, expected, absent):
+    """process() cold with the launch counts read, then warm with its
+    stages; checks every position finite and in [0, L]. Returns (new
+    catalog, launches, cold s, warm s)."""
+    snap = runner.ParticleSnapshot
+    reset_counts()
+    t0 = time.perf_counter()
+    new_cat = runner.process()
+    t_cold = time.perf_counter() - t0
+    launches = read_counts(label, expected)
+    for k in absent:
+        check(launches[k] == 0, f"the {label} launched kernel {k}")
+    pos = np.stack([new_cat[c] for c in "xyz"], axis=-1)
+    check(np.isfinite(pos).all() and pos.min() >= 0
+          and pos.max() <= snap.L, f"{label}: positions not finite or "
+          f"outside [0, L]")
+    runner.profile = True
+    runner.stage_times = []
+    t0 = time.perf_counter()
+    warm = runner.process()
+    t_warm = time.perf_counter() - t0
+    runner.profile = False
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in runner.stage_times)
+    log(f"snap: {label}: {len(snap)} particles, "
+        f"{runner.HaloNDCatalog.cat.size} halos, n_cells "
+        f"{runner.tree.n_cells}, P {runner.tree.max_per_cell}, "
+        f"method={runner.method}, dtype={runner.dtype}: process() cold "
+        f"{t_cold:.2f} s, warm {t_warm:.2f} s (stages, synced: {stages})")
+    # the gather's scatter adds in whatever order the card's atomics
+    # take, so its runs agree to the hot dtype's rounding only
+    rel = offsets_diff(snap_offsets(snap, warm), snap_offsets(snap, new_cat))
+    bar = (0.0 if runner.method == "cellmajor" else
+           1e-6 if runner.dtype == torch.float32 else 1e-13)
+    log(f"snap: {label}: warm vs cold offsets rms/rms {rel:.3e} (bar {bar:g})")
+    check(rel <= bar, f"{label}: the warm run differs: {rel:.3e}")
+    return new_cat, launches, t_cold, t_warm
+
+
+def check_locality(torch, device, runner, off, n_sample=20000, seed=0):
+    """On a sample of particles: every particle that moved lies within
+    eps_max R_com of some halo (min image, on the card in float64), and
+    some moved. Returns (moved, sampled)."""
+    snap, cat = runner.ParticleSnapshot, runner.HaloNDCatalog.cat
+    L = float(snap.L)
+    _, R_com, _, xh, _ = runner._halo_geom()
+    rng = np.random.default_rng(seed)
+    sel = rng.choice(len(snap), size=min(n_sample, len(snap)), replace=False)
+    p = torch.as_tensor(np.stack([snap.cat[c][sel] for c in "xyz"], -1),
+                        device=device)
+    h = torch.as_tensor(xh, device=device)
+    reach = torch.as_tensor(runner.epsilon_max * R_com, device=device)
+    nearest = torch.empty(len(sel), dtype=torch.float64, device=device)
+    for i0 in range(0, len(sel), 512):
+        d = p[i0:i0 + 512, None, :] - h[None]
+        d = d - L * torch.round(d / L)
+        q = torch.sqrt((d * d).sum(-1)) / reach[None]
+        nearest[i0:i0 + 512] = q.min(dim=1).values
+    moved = np.any(off[sel] != 0, axis=1)
+    q = nearest.cpu().numpy()
+    log(f"snap: locality on {len(sel)} sampled particles: {moved.sum()} "
+        f"moved, the largest r / (eps_max R_com) of a moved one to its "
+        f"nearest halo {q[moved].max() if moved.any() else 0:.6f}; "
+        f"{(q < 1).sum()} lie inside some halo's reach")
+    check(moved.any() and (q[moved] < 1 + 1e-6).all(),
+          "snap: a particle moved outside every halo's eps_max R_com")
+    return int(moved.sum()), len(sel)
+
+
+def snap_census(torch, runner, label):
+    """One more warm process() with the pass's census (it synchronises
+    once a step), and one under torch.profiler for the device's launches,
+    busy time and idle share; the peak device memory of a warm call.
+    Returns (pairs, inside, operations bound ms)."""
+    census, peak, n_launch, dev_ms, idle = census_run(torch, runner)
+    pairs = sum(c["pairs"] for c in census)
+    inside = sum(c["inside"] for c in census)
+    flops = pairs * SNAP_TEST_FLOPS + inside * SNAP_READ_FLOPS
+    bound = flops / PEAK_FLOPS["float32"] * 1e3
+    for c in census:
+        log(f"snap: {label} census bucket {c['bucket']}: H={c['H']}, "
+            f"K={c['K']}, P={c['P']}, n_hi={c['n_hi']}: pairs "
+            f"{c['pairs']:.4e}, inside {c['inside']:.4e} "
+            f"({100 * c['inside'] / max(c['pairs'], 1):.1f}%), "
+            f"{c['steps']} steps")
+    log(f"snap: {label}: the pass lists {pairs:.4e} (particle, halo) "
+        f"pairs, {inside:.4e} inside; operations bound {bound:.4f} ms "
+        f"({flops:.3e} flops at {PEAK_FLOPS['float32'] / 1e12:.0f} "
+        f"TFLOP/s); one warm process() puts {n_launch} device launches on "
+        f"the card, {dev_ms if dev_ms is None else round(dev_ms, 3)} ms "
+        f"busy; device idle {idle}; peak device memory {peak:.2f} GiB")
+    return pairs, inside, bound
+
+
+def snap_path(T, torch, sc, device):
+    """bench_runners.py's bench_snap on the card: BaryonifySnapshot of 5e6
+    particles around 1e5 halos under ``auto`` (the cell-major method,
+    plain PyTorch passes, no kernel), cold and warm with stages, the
+    census and profile of a warm call, the float32 offsets held against
+    a float64 run; at 2e6 / 3e4 the gather method (one scatter launch a
+    halo chunk) against the cell-major method in float64 (rtol 1e-10,
+    atol 1e-10) and float32, and the scatter kernel against its plain
+    version at the gather run's largest chunk. Returns the launch counts
+    of every cold run, by run."""
+    from baryonification_tpu_torch.runners import snapshot as tsnap
+    model = grid_model(T, torch, device, 3)
+    L, n_part, n_halo = SNAP_CELL
+    cat, snap = snap_inputs(T, L, n_part, n_halo, seed=3)
+    out = {}
+
+    def mk(c, s, **kw):
+        t0 = time.perf_counter()
+        r = T.BaryonifySnapshot(c, s, epsilon_max=SNAP_EPS, model=model,
+                                verbose=False, device=device, **kw)
+        return r, time.perf_counter() - t0
+
+    runner, t_list = mk(cat, snap)
+    check(runner.method == "cellmajor",
+          f"method 'auto' resolved to {runner.method!r} on the card")
+    log(f"snap: cell list of {n_part} particles ({runner.tree.n_cells}^3 "
+        f"cells, at most {runner.tree.max_per_cell} a cell) built on the "
+        f"host in {t_list:.2f} s")
+    label = f"snap BaryonifySnapshot (auto = cellmajor, {n_part})"
+    new32, out[label], _, _ = snap_process(torch, runner, label, [],
+                                           SCATTER + CELLMAJOR)
+    off32 = snap_offsets(snap, new32)
+    check_locality(torch, device, runner, off32)
+    snap_census(torch, runner, label)
+    r64, _ = mk(cat, snap, precision="float64")
+    t0 = time.perf_counter()
+    off64 = snap_offsets(snap, r64.process())
+    rel = offsets_diff(off32, off64)
+    moved = np.any(off64 != 0, axis=1)
+    log(f"snap: float64 run (cell-major) {time.perf_counter() - t0:.2f} s; "
+        f"{moved.mean() * 100:.2f}% of the particles moved, rms offset "
+        f"{np.sqrt(np.mean(off64[moved] ** 2)):.4e} Mpc; float32 vs "
+        f"float64 offsets: rms/rms {rel:.3e}, max|diff| "
+        f"{np.abs(off32 - off64).max():.3e} Mpc (bar rms/rms "
+        f"{SNAP_F32_BAR:g})")
+    del r64, off64, off32, new32, runner
+
+    n_part2, n_halo2 = SNAP_GATHER
+    log(f"cut: the gather method at {n_part2} particles / {n_halo2} halos "
+        f"(bench_runners.py's comparison size), the cell-major method at "
+        f"{n_part} / {n_halo}")
+    cat2, snap2 = snap_inputs(T, L, n_part2, n_halo2, seed=5)
+    offs = {}
+    for method in ("cellmajor", "gather"):
+        r, _ = mk(cat2, snap2, method=method)
+        label = f"snap BaryonifySnapshot ({method}, {n_part2})"
+        new, out[label], _, _ = snap_process(
+            torch, r, label, SCATTER if method == "gather" else [],
+            CELLMAJOR + ([] if method == "gather" else SCATTER))
+        offs[method, "float32"] = snap_offsets(snap2, new)
+        if method == "gather":
+            chunk = []
+
+            def keep(args):
+                if not chunk or args[1].numel() > chunk[0].numel():
+                    chunk[:] = args[1:]
+
+            with spied(tsnap, "scatter_add_accum", keep):
+                r.process()
+            check(len(chunk) == 2, "the snap gather run made no scatter call")
+            check_scatter_rows(torch, sc, label, *chunk, n_part2)
+            del chunk[:]
+        r64, _ = mk(cat2, snap2, method=method, precision="float64")
+        t0 = time.perf_counter()
+        offs[method, "float64"] = snap_offsets(snap2, r64.process())
+        log(f"snap: {method} float64 run at {n_part2}: "
+            f"{time.perf_counter() - t0:.2f} s")
+    new_cm = offs["cellmajor", "float64"] + np.stack(
+        [snap2.cat[c] for c in "xyz"], -1)
+    new_g = offs["gather", "float64"] + np.stack(
+        [snap2.cat[c] for c in "xyz"], -1)
+    err64 = np.abs(new_cm - new_g) - (1e-10 + 1e-10 * np.abs(new_g))
+    rel_m = offsets_diff(offs["cellmajor", "float32"],
+                         offs["gather", "float32"])
+    rel_g = offsets_diff(offs["gather", "float32"], offs["gather", "float64"])
+    log(f"snap: cellmajor vs gather at {n_part2} / {n_halo2}: float64 "
+        f"max|diff| {np.abs(new_cm - new_g).max():.3e} Mpc (bar atol 1e-10 "
+        f"+ rtol 1e-10); float32 offsets rms/rms {rel_m:.3e} (bar "
+        f"{SNAP_METHODS_F32_BAR:g}); gather float32 vs float64 rms/rms "
+        f"{rel_g:.3e} (logged)")
+    # every reading is logged before any is checked
+    check(rel < SNAP_F32_BAR, f"snap float32 vs float64 offsets: {rel:.3e}")
+    check(err64.max() <= 0, "snap: the float64 methods differ")
+    check(rel_m < SNAP_METHODS_F32_BAR,
+          f"snap: the float32 methods differ: {rel_m:.3e}")
+    return out
+
+
+# ----- the dP(k) path: examples/10 and 12 -----
+
+# examples/10_delta_pk_snapshot.py:43-44: per-curve and overall RMS bars of
+# the halo-model suppression against the scraped Schneider+19 Fig. 2
+FIG2_TOL = 0.035
+FIG2_TOL_OVERALL = 0.030
+# examples/10_delta_pk_snapshot.py:271-280 (Part B) and
+# examples/12_arico_delta_pk_snapshot.py:83-94: mock boxes, measured vs
+# predicted RMS bar and the least suppression in the window
+BOX_RMS_TOL = 0.050
+BOX_SUPP = {"ex10": 0.10, "ex12": 0.02}
+FIG2_CSV = ROOT / "examples" / "data" / "S19_Fig2_Scrapped.csv"
+
+
+def s19_fig2_config(T, device):
+    """Notebook-10 cosmology, parameters and the S19-beta gas class
+    (examples/10_delta_pk_snapshot.py:47-76)."""
+    h = 0.6711
+    cosmo = T.Cosmology(Omega_m=0.3175, Omega_b=0.049, h=h, sigma8=0.82,
+                        n_s=0.9649, device=device)
+    bpar = dict(theta_ej=4, theta_co=0.1,
+                M_c=1e14 / h, mu_beta=0.4,
+                eta=0.3, eta_delta=0.3,
+                tau=-np.inf, tau_delta=0,  # -inf cancels one f_star term
+                A=0.09 / 2, M1=2.5e11 / h,
+                epsilon_h=0.015, a=0.3, n=2, epsilon=4, p=0.3, q=0.707,
+                gamma=2, delta=7, proj_cutoff=205 / h / 2)
+
+    class Gas_S19(T.Gas):
+        """Schneider+19 beta(M) = 3 - (M_c/M)^mu."""
+
+        def _get_gas_params(self, M, z):
+            beta, theta_ej, theta_co, delta, gamma = \
+                super()._get_gas_params(M, z)
+            beta = 3.0 - (self.M_c / M)[:, None] ** self.mu_beta
+            return beta, theta_ej, theta_co, delta, gamma
+
+    return cosmo, bpar, Gas_S19, h
+
+
+def fig2_sweeps(bpar, h):
+    """(scraped-column tag, parameter dict) for the 15 published curves
+    (examples/10_delta_pk_snapshot.py:79-91)."""
+    sweeps = [(f'T{v}', dict(bpar, theta_ej=v)) for v in (2, 3, 4, 6, 8)]
+    # the eta sweep holds eta + eta_delta = 0.6 fixed
+    sweeps += [(f'Ep{i + 1}', dict(bpar, eta=v, eta_delta=0.6 - v))
+               for i, v in enumerate((0.1, 0.2, 0.3, 0.4, 0.5))]
+    sweeps += [(tag, dict(bpar, M_c=v)) for tag, v in
+               [('Mc2p5e13', 2.5e13 / h), ('Mc5e13', 5e13 / h),
+                ('Mc1e14', 1e14 / h), ('Mc2e14', 2e14 / h),
+                ('Mc4e14', 4e14 / h)]]
+    return sweeps
+
+
+def load_scraped_fig2(h, path=FIG2_CSV):
+    """Scraped S19 Fig. 2 curves as {tag: (k [1/Mpc], P_B/P_DMO)}; the
+    scraped k is in h/Mpc (examples/10_delta_pk_snapshot.py:94-109)."""
+    tags = [t.strip() for t in open(path).readline().split(',')[::2]]
+    raw = np.genfromtxt(path, delimiter=',', skip_header=2)
+    out = {}
+    for i, tag in enumerate(tags):
+        X, Y = raw[:, 2 * i], raw[:, 2 * i + 1]
+        ok = np.isfinite(X) & np.isfinite(Y)
+        out[tag] = (X[ok] * h, Y[ok])
+    return out
+
+
+def fig2_rms(T, device):
+    """RMS of the predicted suppression (``analysis.pk_suppression`` on
+    ``device``) against each of the 15 scraped curves
+    (examples/10_delta_pk_snapshot.py:112-136)."""
+    cosmo, bpar, Gas_S19, h = s19_fig2_config(T, device)
+    scraped = load_scraped_fig2(h)
+    rms = {}
+    for tag, par in fig2_sweeps(bpar, h):
+        kk, SS = scraped[tag]
+        dmo = T.DarkMatter(**par)
+        dmb = (T.DarkMatterBaryon(**par, gas=Gas_S19(**par))
+               - T.TwoHalo(**par))
+        S = T.analysis.pk_suppression(dmo, dmb, cosmo, kk, M_cut=10**12.8)
+        rms[tag] = float(np.sqrt(np.mean((S.cpu().numpy() - SS) ** 2)))
+    return rms
+
+
+def box_crosscheck(T, device, n_halo=40, L=100.0, n_grid=128, n_bins=36,
+                   seed=7, part_mass=4e10, table_samples=(20, 500),
+                   model_pair=None, cosmo=None, epsilon_max=20,
+                   table_kwargs=None, M_range=(13.0, 14.5)):
+    """The snapshot pipeline on a DMO-sampled mock box
+    (examples/10_delta_pk_snapshot.py:139-249): the displacement table
+    and ``BaryonifySnapshot`` (float64) on ``device``, ``make_map`` on the
+    host, ``power_spectrum_3d`` and ``profile_uk`` on ``device``. Returns
+    (k, measured S, predicted S) over the box's k bins."""
+    if model_pair is None:
+        cosmo, bpar, Gas_S19, h = s19_fig2_config(T, device)
+        zero2h = T.TwoHalo(**bpar) * 0
+        DMO = T.DarkMatterOnly(**bpar, twohalo=zero2h)
+        DMB = T.DarkMatterBaryon(**bpar, twohalo=zero2h,
+                                 gas=Gas_S19(**bpar))
+    else:
+        DMO, DMB = model_pair
+    cd = dict(cosmo.cosmodict)
+    disp = T.Baryonification3D(DMO, DMB, cosmo, epsilon_max=epsilon_max)
+    tkw = dict(z_min=0.0, z_max=0.01, N_samples_z=2,
+               z_linear_sampling=True, M_min=1e12, M_max=1e16,
+               N_samples_Mass=table_samples[0],
+               R_min=1e-4, R_max=300, N_samples_R=table_samples[1])
+    tkw.update(table_kwargs or {})
+    disp.setup_interpolator(verbose=False, **tkw)
+
+    # sample particles from the DMO enclosed-mass CDF around each halo
+    rng = np.random.default_rng(seed)
+    hx = rng.uniform(0, L, (n_halo, 3))
+    hM = 10 ** rng.uniform(M_range[0], M_range[1], n_halo)
+    r_s = np.geomspace(1e-3, 60, 2048)
+    rho_all = np.clip(DMO.real(cosmo, r_s, hM, 1.0).cpu().numpy(), 0, None)
+    parts, mass = [], []
+    for j in range(n_halo):
+        Menc = np.cumsum(4 * np.pi * r_s**3 * rho_all[j]
+                         * np.gradient(np.log(r_s)))
+        n_p = max(2000, int(hM[j] / part_mass))
+        rr = np.interp(rng.uniform(0, 1, n_p), Menc / Menc[-1], r_s)
+        dirs = rng.normal(size=(n_p, 3))
+        dirs /= np.linalg.norm(dirs, axis=1)[:, None]
+        parts.append(np.mod(hx[j] + rr[:, None] * dirs, L))
+        mass.append(np.full(n_p, Menc[-1] / n_p))
+    xyz = np.concatenate(parts)
+    pm = np.concatenate(mass)
+
+    snap = T.ParticleSnapshot(x=xyz[:, 0], y=xyz[:, 1], z=xyz[:, 2], M=pm,
+                              L=L, redshift=0.0, cosmo=cd)
+    cat = T.HaloNDCatalog(x=hx[:, 0], y=hx[:, 1], z=hx[:, 2], M=hM,
+                          redshift=0.0, cosmo=cd)
+    new_cat = T.BaryonifySnapshot(cat, snap, epsilon_max=epsilon_max,
+                                  model=disp, precision="float64",
+                                  verbose=False, device=device).process()
+
+    def pk_of(c):
+        s = T.ParticleSnapshot(x=c['x'], y=c['y'], z=c['z'], M=c['M'], L=L,
+                               redshift=0.0, cosmo=cd)
+        grid = s.make_map(n_grid)
+        delta = grid / grid.mean() - 1
+        return T.ops.spectra.power_spectrum_3d(delta, L, n_bins=n_bins,
+                                               device=device)
+
+    k, pk0, _ = pk_of(snap.cat)
+    _, pk1, _ = pk_of(new_cat)
+    k, pk0, pk1 = (x.cpu().numpy() for x in (k, pk0, pk1))
+    S_meas = pk1 / pk0
+    uD = T.analysis.profile_uk(DMO, cosmo, hM, 1.0, k).cpu().numpy()
+    uB = T.analysis.profile_uk(DMB, cosmo, hM, 1.0, k).cpu().numpy()
+    rho_bar = pm.sum() / L**3
+    S_pred = 1 + (uB**2 - uD**2).sum(axis=0) / (rho_bar**2 * L**3) / pk0
+    return k, S_meas, S_pred
+
+
+def box_window(k, S_meas, S_pred):
+    """(RMS, largest suppression, bins) in the examples' window: k index
+    >= 6 and k <= 1.2 1/Mpc."""
+    win = (np.arange(len(k)) >= 6) & (k <= 1.2)
+    diff = S_meas[win] - S_pred[win]
+    return (float(np.sqrt(np.mean(diff**2))), float(1 - S_meas[win].min()),
+            int(win.sum()))
+
+
+def pk_path(T, torch, device):
+    """examples/10 and 12 on the card: Part A (the halo-model suppression
+    against the 15 scraped Schneider+19 Fig. 2 curves, the example's
+    bars), Part B (the S19 mock box: table, BaryonifySnapshot in float64
+    under ``auto`` = cell-major, power_spectrum_3d) and example 12's
+    Arico20 box (an Rdelta-sampled table, eps_max 2: the pass's
+    use_rdelta branch). Returns the launch counts of the boxes."""
+    t0 = time.perf_counter()
+    rms = fig2_rms(T, device)
+    torch.cuda.synchronize()
+    overall = float(np.sqrt(np.mean([v**2 for v in rms.values()])))
+    worst = max(rms, key=rms.get)
+    log(f"pk: Part A, pk_suppression on {device} against the 15 scraped "
+        f"curves in {time.perf_counter() - t0:.2f} s: " + ", ".join(
+            f"{t} {v:.4f}" for t, v in rms.items())
+        + f"; overall RMS {overall:.4f} (bars {FIG2_TOL} a curve, "
+        f"{FIG2_TOL_OVERALL} overall), worst {worst}")
+    reset_counts()
+    boxes = {}
+    cosmo12 = T.Cosmology.from_dict(COSMO, device=device)
+    A20 = T.profiles.Arico20
+    for name, kw in (
+            ("ex10", {}),
+            ("ex12", dict(model_pair=(A20.DarkMatterOnly(**APAR),
+                                      A20.DarkMatterBaryon(**APAR)),
+                          cosmo=cosmo12, epsilon_max=2, seed=13,
+                          table_kwargs=dict(M_min=1e12, M_max=1e16,
+                                            N_samples_Mass=16, R_min=1e-3,
+                                            R_max=30, N_samples_R=1500,
+                                            Rdelta_sampling=True)))):
+        t0 = time.perf_counter()
+        k, S_meas, S_pred = box_crosscheck(T, device, **kw)
+        torch.cuda.synchronize()
+        boxes[name] = box_window(k, S_meas, S_pred)
+        r, supp, n = boxes[name]
+        log(f"pk: {name} mock box (table, BaryonifySnapshot float64 auto, "
+            f"make_map, power_spectrum_3d on {device}) in "
+            f"{time.perf_counter() - t0:.2f} s: {n} bins in the window, "
+            f"measured vs predicted RMS {r:.4f} (bar {BOX_RMS_TOL}), largest "
+            f"suppression {100 * supp:.1f}% (bar {100 * BOX_SUPP[name]:.0f}%)")
+    counts = read_counts("pk path (mock boxes, auto = cellmajor)", [])
+    # every reading is logged before any is checked
+    for tag, v in rms.items():
+        check(v < FIG2_TOL, f"pk: Fig. 2 curve {tag}: RMS {v:.4f}")
+    check(overall < FIG2_TOL_OVERALL, f"pk: Fig. 2 overall RMS {overall:.4f}")
+    for name, (r, supp, _) in boxes.items():
+        check(r < BOX_RMS_TOL, f"pk: {name} box RMS {r:.4f}")
+        check(supp > BOX_SUPP[name], f"pk: {name} box suppression {supp:.4f}")
+    return counts
+
+
 def ptxas_summary(build_log):
     """[(kernel<type, rings per thread>, registers, spill bytes)] from the
     output of ``ptxas -v``."""
@@ -2363,8 +2860,8 @@ def build_all(torch, sc, lc, cmc):
                 check(sp == 0, f"{e} spills {sp} bytes of registers")
 
 
-PHASES = ("kernels", "shell", "grid", "grid2d", "tsz", "families", "cl",
-          "synth", "reference")
+PHASES = ("kernels", "shell", "grid", "grid2d", "tsz", "families", "snap",
+          "pk", "cl", "synth", "reference")
 
 
 def main(argv=None):
@@ -2431,6 +2928,12 @@ def main(argv=None):
         tsz_path(T, torch, sp, sc, cmc, device, args.halos, args.nside)
     if "families" in phases:
         families_path(T, torch, device)
+    if "snap" in phases:
+        runs = snap_path(T, torch, sc, device)
+        log("snap: scatter_add launches by run: " + ", ".join(
+            f"{k} {c['scatter_add']}" for k, c in runs.items()))
+    if "pk" in phases:
+        pk_path(T, torch, device)
     if "cl" in phases:
         cl_path(T, torch, sp, device, args.nside)
     if "synth" in phases:

@@ -18,7 +18,10 @@ and at the shapes that both kernels' tiling has to get right. The grid
 cases hold the CIC deposit through the scatter kernel against the plain
 version on the same rows (positions past both box edges), and small grid
 runs on the card in float64 against the CPU, with the launches that show
-the grid path going through the scatter kernel.
+the grid path going through the scatter kernel. The snapshot cases run
+``BaryonifySnapshot`` on the card in float64 against the CPU, both
+methods (the gather method through the scatter kernel), and the dP(k)
+case examples/10's halo-model suppression.
 """
 
 import numpy as np
@@ -1014,3 +1017,62 @@ def test_family_table_on_card_matches_cpu(family, cuda_device):
     want, got = out["cpu"], out[str(cuda_device)]
     assert np.isfinite(got).all()
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cellmajor", "gather"])
+def test_snapshot_on_card_matches_cpu(method, cuda_device):
+    """BaryonifySnapshot on the card in float64 against the port's CPU
+    float64 run of the same method: the rms of the position difference
+    over the rms of the CPU's offsets < 1e-10. The gather method launches
+    the scatter kernel (one launch a halo chunk), the cell-major method
+    (plain PyTorch passes) no kernel."""
+    T, model, _, _ = _small_grids()
+    cd = dict(Omega_m=0.3, Omega_b=0.05, h=0.7, sigma8=0.8, n_s=0.96,
+              w0=-1.0)
+    rng = np.random.default_rng(9)
+    L, n_part, n_halo = 60.0, 8000, 12
+    snap = T.ParticleSnapshot(*rng.uniform(0, L, (3, n_part)),
+                              M=np.ones(n_part), L=L, redshift=0.25, cosmo=cd)
+    cat = T.HaloNDCatalog(x=rng.uniform(0, L, n_halo),
+                          y=rng.uniform(0, L, n_halo),
+                          z=rng.uniform(0, L, n_halo),
+                          M=10 ** rng.uniform(13.5, 14.8, n_halo),
+                          redshift=0.25, cosmo=cd)
+    kw = dict(epsilon_max=10, model=model, method=method, verbose=False)
+    want = T.BaryonifySnapshot(cat, snap, device="cpu", **kw).process()
+    before = (sc.LAUNCHES["scatter_add"], cmc.LAUNCHES["cellmajor_pass"])
+    got = T.BaryonifySnapshot(cat, snap, device=cuda_device,
+                              precision="float64", **kw).process()
+    n_sc = sc.LAUNCHES["scatter_add"] - before[0]
+    assert cmc.LAUNCHES["cellmajor_pass"] == before[1]
+    assert (n_sc > 0) == (method == "gather")
+    g, w, x0 = (np.stack([c[k] for k in "xyz"], -1)
+                for c in (got, want, snap.cat))
+    off = w - x0
+    off -= L * np.round(off / L)
+    scale = np.sqrt(np.mean(off ** 2))
+    assert scale > 1e-3
+    assert np.isfinite(g).all()
+    assert np.sqrt(np.mean((g - w) ** 2)) / scale < 1e-10
+
+
+@pytest.mark.cuda
+def test_pk_suppression_on_card_matches_cpu(cuda_device):
+    """examples/10's halo-model suppression at one Fig. 2 sweep point
+    (theta_ej = 4, few masses) on the card against the CPU, to 1e-10
+    relative."""
+    import baryonification_tpu_torch as T
+    from chip_smoke import fig2_sweeps, s19_fig2_config
+    k = np.geomspace(0.05, 20.0, 30)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        cosmo, bpar, Gas_S19, h = s19_fig2_config(T, dev)
+        par = dict(fig2_sweeps(bpar, h))["T4"]
+        dmb = T.DarkMatterBaryon(**par, gas=Gas_S19(**par)) - T.TwoHalo(**par)
+        out[str(dev)] = T.analysis.pk_suppression(
+            T.DarkMatter(**par), dmb, cosmo, k, n_M_lo=6, n_M_hi=10
+        ).cpu().numpy()
+    want, got = out["cpu"], out[str(cuda_device)]
+    assert 1 - want.min() > 0.05
+    assert np.abs(got / want - 1).max() < 1e-10
