@@ -24,7 +24,13 @@ Ported so far:
   with ``make_map``), and the dP(k) analysis layer: ``analysis``
   (``pk_suppression``, ``profile_uk``, ``sheth_tormen_dndlnM``),
   ``Cosmology.P_lin`` / ``P_nl`` (halofit), ``TabulatedCorrelation3D``
-  and ``ops.spectra.power_spectrum_3d``.
+  and ``ops.spectra.power_spectrum_3d``;
+- the differentiable shell path: ``BaryonifyShell.process_device`` and
+  ``PaintProfilesShell.process_device`` (gradients through the cell-major
+  kernel's hand-written adjoint and second-order entries),
+  ``build_table_device``, ``TabulatedProfile.build_tables_device`` and
+  ``cosmology_device``, with ``inference`` (``fit``,
+  ``laplace_covariance``, ``hmc_sample``) on top.
 Every runner has two methods: ``cellmajor`` (what ``"auto"`` takes on the
 card: candidate lists per coarse cell or block and one pass a bucket; the
 shell's pass is the kernel ``csrc/cellmajor_pass.cu``, the grid's and the
@@ -49,7 +55,7 @@ float64 on the CPU (``precision="auto"``).
 from . import constants
 from . import ops
 from . import cosmology
-from .cosmology import Cosmology, MassDef
+from .cosmology import Cosmology, CosmologyDevice, MassDef, cosmology_device
 from . import utils
 from . import io
 from .io import (HaloLightConeCatalog, HaloNDCatalog, LightconeShell,
@@ -71,6 +77,9 @@ from .runners import (DefaultRunner, BaryonifyShell, PaintProfilesShell,
 from .tabulate import (TabulatedProfile, ParamTabulatedProfile,
                        TabulatedCorrelation3D)
 from . import analysis
+from . import inference
+from .inference import (FitResult, fit, laplace_covariance, HMCResult,
+                        hmc_sample)
 from .default_params import DEFAULT_PARAMS, default_params
 
 __version__ = "0.1.0"

@@ -22,7 +22,7 @@ from ..ops.fftlog import fftlog_transform
 from ..utils import geomspace, interp, resolve_device
 from .power import eh98_transfer, halofit_pk, sigma_tophat
 
-__all__ = ["Cosmology"]
+__all__ = ["Cosmology", "CosmologyDevice", "cosmology_device"]
 
 
 def _growth_ode(lna_grid, Om, Or, Ok, Ol, w0):
@@ -63,6 +63,48 @@ def _growth_ode(lna_grid, Om, Or, Ok, Ol, w0):
         Dp = Dp + (h / 6.0) * (k1[1] + 2.0 * k2[1] + 2.0 * k3[1] + k4[1])
         out.append(D)
     return [d / out[-1] for d in out]  # unity today (CCL convention)
+
+
+def _growth_products(lna, Om, Or, Ok, Ol, w0):
+    """The RK4 of :func:`_growth_ode` as tensor operations, so that
+    parameters that are tensors carry gradients through D(a).
+
+    The growth ODE is linear in (D, D'), so each RK4 step is a 2x2 matrix
+    M_n (built for all steps at once from the coefficients at ln a, the
+    half step and the full step), and the state after n steps is the
+    product M_{n-1} ... M_0 applied to the initial state; the products
+    are taken by a parallel prefix scan (log2 of the steps of batched
+    2x2 matrix products) instead of a loop of 2047 steps. ``lna`` is the
+    (N,) grid tensor. Returns D on the grid, unity today."""
+    h = lna[1] - lna[0]
+    x = lna[:-1]
+
+    def coef(y):                     # A(ln a): (D, D')' = A (D, D')
+        a = torch.exp(y)
+        de = a ** (-3.0 * (1.0 + w0))
+        e2 = Om * a**-3 + Or * a**-4 + Ok * a**-2 + Ol * de
+        dl = (-3.0 * Om * a**-3 - 4.0 * Or * a**-4 - 2.0 * Ok * a**-2
+              - 3.0 * (1.0 + w0) * Ol * de)
+        damp = 2.0 + 0.5 * dl / e2
+        source = 1.5 * Om * torch.exp(-3.0 * y) / e2
+        zero, one = torch.zeros_like(y), torch.ones_like(y)
+        return torch.stack([torch.stack([zero, one], -1),
+                            torch.stack([source, -damp], -1)], -2)
+
+    eye = torch.eye(2, dtype=lna.dtype, device=lna.device)
+    A1, A2, A4 = coef(x), coef(x + 0.5 * h), coef(x + h)
+    K2 = A2 @ (eye + 0.5 * h * A1)
+    K3 = A2 @ (eye + 0.5 * h * K2)
+    K4 = A4 @ (eye + h * K3)
+    P = eye + (h / 6.0) * (A1 + 2.0 * K2 + 2.0 * K3 + K4)
+    s = 1
+    while s < P.shape[0]:            # P[n] = M_n ... M_0
+        P = torch.cat([P[:s], P[s:] @ P[:-s]])
+        s *= 2
+    a0 = torch.exp(lna[0])
+    y0 = torch.stack([1.0 + 1.5 * a0 * Om / Or, 1.5 * a0 * Om / Or])
+    D = torch.cat([y0[:1], (P @ y0)[:, 0]])
+    return D / D[-1]
 
 
 class Cosmology:
@@ -136,8 +178,7 @@ class Cosmology:
                          torch.zeros(1, dtype=dt, device=dev)])
         chi = chi * const.DH_100 / h
 
-        D = self.tensor(_growth_ode(lna.tolist(), self.Omega_m, Or, Ok, Ol,
-                                    self.w0))
+        D = self._growth(lna, Or, Ok, Ol)
 
         # linear P(k) at z=0, sigma8-normalized
         k = geomspace(1e-5, 1e4, self._n_k, device=dev, dtype=dt)
@@ -159,6 +200,10 @@ class Cosmology:
         return dict(Or=Or, Ol=Ol, lna=lna, chi=chi, lnD=torch.log(D),
                     k=k, pk0=pk0, lnM=lnM, lnsig=lnsig,
                     lnr_xi=torch.log(r_xi), xi0=xi0, rho_m0=rho_m0)
+
+    def _growth(self, lna, Or, Ok, Ol):
+        return self.tensor(_growth_ode(lna.tolist(), self.Omega_m, Or, Ok,
+                                       Ol, self.w0))
 
     # ----- background -----
     def E(self, a):
@@ -249,3 +294,53 @@ class Cosmology:
         """Comoving Lagrangian radius of mass M."""
         return (3.0 * self.tensor(M)
                 / (4.0 * math.pi * self._tables["rho_m0"])) ** (1.0 / 3.0)
+
+
+class CosmologyDevice(Cosmology):
+    """A :class:`Cosmology` whose parameters (Omega_m, Omega_b, h, sigma8,
+    n_s, w0) are 0-dim tensors that may require grad: the lookup tables
+    (growth, distances, EH98 P(k), sigma(M), xi_mm) are built with them,
+    so every method is differentiable with respect to them. The port of
+    the JAX package's ``CosmologyDevice``; make one with
+    :func:`cosmology_device`. The growth ODE runs as tensor operations
+    (:func:`_growth_products`), the only part of the table build that the
+    base class computes on Python floats."""
+
+    def __init__(self, Omega_m=0.3, Omega_b=0.05, h=0.7, sigma8=0.8,
+                 n_s=0.96, w0=-1.0, T_CMB=2.725, Neff=3.044, *,
+                 device="cuda", dtype=torch.float64,
+                 n_a=2048, n_k=2048, n_m=512):
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        for name, v in (("Omega_m", Omega_m), ("Omega_b", Omega_b),
+                        ("h", h), ("sigma8", sigma8), ("n_s", n_s),
+                        ("w0", w0)):
+            setattr(self, name, torch.as_tensor(v, dtype=dtype,
+                                                device=self.device))
+        self.T_CMB = float(T_CMB)
+        self.Neff = float(Neff)
+        self._n_a, self._n_k, self._n_m = int(n_a), int(n_k), int(n_m)
+        self._tables = self._build_tables()
+
+    def _growth(self, lna, Or, Ok, Ol):
+        return _growth_products(lna, self.Omega_m, Or, Ok, Ol, self.w0)
+
+
+_COSMO_KEYS = ("Omega_m", "Omega_b", "h", "sigma8", "n_s", "w0")
+_FIXED_KEYS = ("T_CMB", "Neff", "_n_a", "_n_k", "_n_m")
+
+
+def cosmology_device(params=None, *, device="cuda", **kw):
+    """A :class:`CosmologyDevice` from (possibly grad-requiring)
+    parameters: any of Omega_m, Omega_b, h, sigma8, n_s, w0 as floats or
+    0-dim tensors, in ``params`` and/or keywords (keywords win); T_CMB,
+    Neff and the table sizes _n_a, _n_k, _n_m as plain numbers (the JAX
+    package's names and defaults). Runs on the card unless ``device``
+    asks for the CPU."""
+    d = dict(params or {})
+    d.update(kw)
+    for k in d:
+        if k not in _COSMO_KEYS and k not in _FIXED_KEYS:
+            raise TypeError(f"unknown cosmology parameter {k!r}")
+    return CosmologyDevice(**{k.lstrip("_"): v for k, v in d.items()},
+                           device=device)

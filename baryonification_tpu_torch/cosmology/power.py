@@ -4,7 +4,8 @@ halofit.
 The port of ``baryonification_tpu.cosmology.power`` (EH98, ApJ 496, 605,
 eqs. 2-24; halofit, Takahashi+ 2012, ApJ 761, 152, eqs. A1-A13; k in
 1/Mpc, no h). Scalars derived from the cosmological parameters are Python
-floats; ``k`` and ``R`` are float64 tensors.
+floats, or 0-dim tensors where the parameters are (``cosmology_device``,
+whose gradients flow through them); ``k`` and ``R`` are float64 tensors.
 """
 
 import math
@@ -14,6 +15,14 @@ import torch
 from ..utils import interp
 
 __all__ = ["eh98_transfer", "tophat_w", "sigma_tophat", "halofit_pk"]
+
+
+def _sqrt(x):
+    return torch.sqrt(x) if torch.is_tensor(x) else math.sqrt(x)
+
+
+def _log(x):
+    return torch.log(x) if torch.is_tensor(x) else math.log(x)
 
 
 def eh98_transfer(k, Omega_m, Omega_b, h, T_CMB=2.725):
@@ -38,9 +47,9 @@ def eh98_transfer(k, Omega_m, Omega_b, h, T_CMB=2.725):
     R_d = 31.5 * ob / theta**4 / (z_d / 1.0e3)
     R_eq = 31.5 * ob / theta**4 / (z_eq / 1.0e3)
 
-    s = (2.0 / (3.0 * k_eq) * math.sqrt(6.0 / R_eq)
-         * math.log((math.sqrt(1.0 + R_d) + math.sqrt(R_d + R_eq))
-                    / (1.0 + math.sqrt(R_eq))))
+    s = (2.0 / (3.0 * k_eq) * _sqrt(6.0 / R_eq)
+         * _log((_sqrt(1.0 + R_d) + _sqrt(R_d + R_eq))
+                / (1.0 + _sqrt(R_eq))))
 
     k_silk = 1.6 * ob**0.52 * om**0.73 * (1.0 + (10.4 * om) ** -0.95)
 
@@ -63,10 +72,10 @@ def eh98_transfer(k, Omega_m, Omega_b, h, T_CMB=2.725):
     Tc = f * T0(q, 1.0, beta_c) + (1.0 - f) * T0(q, alpha_c, beta_c)
 
     y = (1.0 + z_eq) / (1.0 + z_d)
-    sq = math.sqrt(1.0 + y)
-    Gy = y * (-6.0 * sq + (2.0 + 3.0 * y) * math.log((sq + 1.0) / (sq - 1.0)))
+    sq = _sqrt(1.0 + y)
+    Gy = y * (-6.0 * sq + (2.0 + 3.0 * y) * _log((sq + 1.0) / (sq - 1.0)))
     alpha_b = 2.07 * k_eq * s * (1.0 + R_d) ** -0.75 * Gy
-    beta_b = 0.5 + fb + (3.0 - 2.0 * fb) * math.sqrt((17.2 * om) ** 2 + 1.0)
+    beta_b = 0.5 + fb + (3.0 - 2.0 * fb) * _sqrt((17.2 * om) ** 2 + 1.0)
     beta_node = 8.41 * om**0.435
     s_tilde = s / (1.0 + (beta_node / (k * s)) ** 3) ** (1.0 / 3.0)
 

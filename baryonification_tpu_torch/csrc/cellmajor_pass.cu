@@ -398,3 +398,415 @@ extern "C" int cellmajor_pass_f64(int mode, const void* px, const void* py,
                         o2, npix, F, k_pad, n_hi, g0, dg, rad_hi, cull, kept,
                         stream);
 }
+
+// ---------------------------------------------------------------------------
+// The adjoint (VJP) of the pass with respect to the halo rows, and its
+// second-order entry.
+//
+// In the JAX package the gradient of cellmajor_offsets_pass and
+// cellmajor_paint_pass is XLA autodiff of the same loop. Here a slot that
+// the forward adds reads v = (1 - w) row[i] + w row[i + 1] from its halo's
+// row and adds f(v) to its pixel: the three components of the unit-vector
+// delta (offsets modes) or exp(v) (paint). With g the cotangent of the
+// output planes, the adjoint adds s = sum_c g_c[p] f_c'(v) times the lerp
+// weights into the row's two nodes:
+//     d_rows[h, i] += s (1 - w),   d_rows[h, i + 1] += s w.
+// The second-order entry is the derivative of that VJP in the direction u
+// of the rows' cotangent: with lu = (1 - w) u[h, i] + w u[h, i + 1] it
+// writes the JVP planes j_c[p] = sum_slots f_c'(v) lu (the derivative with
+// respect to g) and adds s2 = sum_c g_c[p] f_c''(v) lu times the lerp
+// weights into d2_rows (the derivative with respect to the rows).
+// Reverse-over-reverse autograd (torch.autograd.grad with create_graph)
+// gives the exact Hessian through the pass with these two entries.
+//
+// f, f' and f'' come from one copy of the contribution's arithmetic,
+// templated on its scalar: Dual<T> carries the first derivative and
+// Dual<Dual<T>> the second. The forward kernel above keeps its own inline
+// copy, so that its SASS (and the issue bound counted from it) does not
+// change; slot_geometry repeats its tests and lerp position operation for
+// operation, so every entry takes the same slots with the same (i, w).
+//
+// The walk is the forward's: one thread a NESTED pixel and, where F is a
+// multiple of 32, the same conservative patch cull (a culled slot adds
+// nothing to the forward, so nothing to its derivatives). Slots that the
+// forward skips (outside the disc or the radial range, a value that is not
+// finite, the NaN rows of halos outside the table's grid) add nothing here:
+// no NaN reaches d_rows.
+//
+// What bounds it: every pixel of a halo's disc adds into the same few nodes
+// of that halo's row, so the atomics contend (two float or double atomicAdd
+// a slot inside its disc, native on sm_90). The sums of the rows are taken
+// in no fixed order, so gradients hold to tolerances, not bit for bit.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+template <typename S>
+struct Dual {
+  S v, d;
+};
+
+template <typename S>
+__device__ __forceinline__ Dual<S> operator+(Dual<S> a, Dual<S> b) {
+  return {a.v + b.v, a.d + b.d};
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> operator-(Dual<S> a, Dual<S> b) {
+  return {a.v - b.v, a.d - b.d};
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> operator*(Dual<S> a, Dual<S> b) {
+  return {a.v * b.v, a.d * b.v + a.v * b.d};
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> operator/(Dual<S> a, Dual<S> b) {
+  const S q = a.v / b.v;
+  return {q, (a.d - q * b.d) / b.v};
+}
+// a constant c of the base type: times, plus, and c - a
+__device__ __forceinline__ float mulc(float a, float c) { return a * c; }
+__device__ __forceinline__ double mulc(double a, double c) { return a * c; }
+template <typename S, typename T>
+__device__ __forceinline__ Dual<S> mulc(Dual<S> a, T c) {
+  return {mulc(a.v, c), mulc(a.d, c)};
+}
+__device__ __forceinline__ float addc(float a, float c) { return a + c; }
+__device__ __forceinline__ double addc(double a, double c) { return a + c; }
+template <typename S, typename T>
+__device__ __forceinline__ Dual<S> addc(Dual<S> a, T c) {
+  return {addc(a.v, c), a.d};
+}
+__device__ __forceinline__ float dsqrt(float a) { return sqrt(a); }
+__device__ __forceinline__ double dsqrt(double a) { return sqrt(a); }
+template <typename S>
+__device__ __forceinline__ Dual<S> dsqrt(Dual<S> a) {
+  const S r = dsqrt(a.v);
+  return {r, a.d / (r + r)};
+}
+__device__ __forceinline__ float dexp(float a) { return exp(a); }
+__device__ __forceinline__ double dexp(double a) { return exp(a); }
+template <typename S>
+__device__ __forceinline__ Dual<S> dexp(Dual<S> a) {
+  const S e = dexp(a.v);
+  return {e, a.d * e};
+}
+template <typename S, typename T>
+__device__ __forceinline__ S recip(S a, T one) {
+  // 1 / a as the forward computes it (T(1) / nw_norm)
+  return S{one} / a;
+}
+
+// a dual variable seeded at v: Dual<T> = (v, 1); Dual<Dual<T>> =
+// ((v, 1), (1, 0)), whose parts are then (f, f'), (f', f'')
+template <typename T>
+__device__ __forceinline__ Dual<T> seed1(T v) { return {v, T(1)}; }
+template <typename T>
+__device__ __forceinline__ Dual<Dual<T>> seed2(T v) {
+  return {{v, T(1)}, {T(1), T(0)}};
+}
+
+// where a slot lands: the forward's tests and lerp position
+template <typename T>
+struct SlotGeom {
+  T dx, dy, dz, r_sep, hD, ha, w;
+  int i;
+};
+
+template <typename T, bool kPaint, bool kRdelta>
+__device__ __forceinline__ bool slot_geometry(int h, T x, T y, T z,
+                                              const T* __restrict__ recs,
+                                              int n_hi, T g0, T inv_dg,
+                                              T rad_hi, SlotGeom<T>& g) {
+  T hv[4];
+  load_head(recs, h, hv);
+  const T hvx = hv[0], hvy = hv[1], hvz = hv[2];
+  const T cosang = x * hvx + y * hvy + z * hvz;
+  if (!(cosang >= hv[3])) return false;
+  T tl[4];
+  load_tail(recs, h, tl);
+  const T hD = tl[0], ha = tl[1], hReps = tl[2];
+  const T tiny = static_cast<T>(1e-30);
+  g.dx = (x - hvx) * hD;
+  g.dy = (y - hvy) * hD;
+  g.dz = (z - hvz) * hD;
+  g.r_sep = sqrt(g.dx * g.dx + g.dy * g.dy + g.dz * g.dz);
+  T r_com, rad;
+  if (kPaint) {
+    r_com = fmax(g.r_sep / ha, tiny);
+    rad = log(r_com);
+  } else {
+    r_com = g.r_sep / ha;
+    rad = log(fmax(r_com, tiny));
+    if (kRdelta) rad = rad - tl[3];
+  }
+  if (!(rad >= g0 && rad <= rad_hi && r_com < hReps)) return false;
+  const T t = (rad - g0) * inv_dg;
+  const T tc = fmin(fmax(t, T(0)), static_cast<T>(n_hi - 1));
+  int i = static_cast<int>(floor(tc));
+  g.i = min(max(i, 0), n_hi - 2);
+  g.w = tc - static_cast<T>(g.i);
+  g.hD = hD;
+  g.ha = ha;
+  return true;
+}
+
+// the offsets contribution f(v) = (dxn, dyn, dzn), the forward's
+// arithmetic on the scalar S
+template <typename S, typename T>
+__device__ __forceinline__ void offsets_of(S v, T x, T y, T z,
+                                           const SlotGeom<T>& g, S (&dn)[3]) {
+  const T tiny = static_cast<T>(1e-30);
+  const S d = mulc(v, g.ha);
+  const S scale = d / S{fmax(g.r_sep, tiny)};
+  const S ofx = mulc(scale, g.dx);
+  const S ofy = mulc(scale, g.dy);
+  const S ofz = mulc(scale, g.dz);
+  const S nwx = addc(ofx, x * g.hD);
+  const S nwy = addc(ofy, y * g.hD);
+  const S nwz = addc(ofz, z * g.hD);
+  const S nw_norm = dsqrt(nwx * nwx + nwy * nwy + nwz * nwz);
+  const S pdo = mulc(mulc(ofx, x) + mulc(ofy, y) + mulc(ofz, z), g.hD);
+  const S osq = ofx * ofx + ofy * ofy + ofz * ofz;
+  const S sft = (mulc(pdo, T(2)) + osq) / addc(nw_norm, g.hD);
+  const S inv_nw = recip(nw_norm, T(1));
+  dn[0] = (ofx - mulc(sft, x)) * inv_nw;
+  dn[1] = (ofy - mulc(sft, y)) * inv_nw;
+  dn[2] = (ofz - mulc(sft, z)) * inv_nw;
+}
+
+template <typename T>
+struct AdjointArgs {
+  const T *px, *py, *pz;
+  const int32_t *dense, *counts;
+  const T *recs, *rows;
+  const T *g0p, *g1p, *g2p;   // cotangent planes (one in paint mode)
+  const T* u;                 // second order: the rows' direction (H, n_hi)
+  T* d_rows;                  // (H, n_hi), added into with atomics
+  T *j0, *j1, *j2;            // second order: the JVP planes, added into
+  long long npix, F;
+  int k_pad, n_hi;
+  T g0, inv_dg, rad_hi;
+};
+
+// the rows' direction u read as the forward reads a row
+template <typename T>
+__device__ __forceinline__ T lerp_u(const T* u, T w) {
+  return (T(1) - w) * __ldg(u) + w * __ldg(u + 1);
+}
+
+// one slot of entry kOrder (1: the adjoint, 2: the second-order entry);
+// gx..gz are the pixel's cotangents, jx..jz its JVP sums
+template <typename T, bool kPaint, bool kRdelta, int kOrder>
+__device__ __forceinline__ void adjoint_slot(int h, T x, T y, T z,
+                                             const AdjointArgs<T>& A, T gx,
+                                             T gy, T gz, T& jx, T& jy,
+                                             T& jz) {
+  SlotGeom<T> g;
+  if (!slot_geometry<T, kPaint, kRdelta>(h, x, y, z, A.recs, A.n_hi, A.g0,
+                                         A.inv_dg, A.rad_hi, g))
+    return;
+  const long long base = static_cast<long long>(h) * A.n_hi + g.i;
+  const T* row = A.rows + base;
+  const T v = (T(1) - g.w) * __ldg(row) + g.w * __ldg(row + 1);
+  T s;
+  if (kPaint) {
+    const T p = exp(v);
+    if (!finite(p)) return;
+    if (kOrder == 1) {
+      s = gx * p;
+    } else {
+      const T lu = lerp_u(A.u + base, g.w);
+      jx = jx + p * lu;
+      s = gx * p * lu;
+    }
+  } else {
+    if (!finite(v)) return;
+    if (kOrder == 1) {
+      Dual<T> dn[3];
+      offsets_of(seed1(v), x, y, z, g, dn);
+      if (!(finite(dn[0].v) && finite(dn[1].v) && finite(dn[2].v))) return;
+      s = gx * dn[0].d + gy * dn[1].d + gz * dn[2].d;
+    } else {
+      Dual<Dual<T>> dn[3];
+      offsets_of(seed2(v), x, y, z, g, dn);
+      if (!(finite(dn[0].v.v) && finite(dn[1].v.v) && finite(dn[2].v.v)))
+        return;
+      const T lu = lerp_u(A.u + base, g.w);
+      jx = jx + dn[0].v.d * lu;
+      jy = jy + dn[1].v.d * lu;
+      jz = jz + dn[2].v.d * lu;
+      s = (gx * dn[0].d.d + gy * dn[1].d.d + gz * dn[2].d.d) * lu;
+    }
+  }
+  atomicAdd(A.d_rows + base, s * (T(1) - g.w));
+  atomicAdd(A.d_rows + base + 1, s * g.w);
+}
+
+// the forward's walk (and patch cull) over a pixel's candidates, calling
+// adjoint_slot for each slot that the forward would walk
+template <typename T, bool kPaint, bool kRdelta, bool kPatch, int kOrder>
+__global__ void __launch_bounds__(kThreads)
+adjoint_kernel(const AdjointArgs<T> A) {
+  const long long p =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (p >= A.npix) return;
+  const long long c = p / A.F;
+  const int cnt = A.counts[c];
+  if (cnt <= 0) return;
+  const T x = A.px[p], y = A.py[p], z = A.pz[p];
+  const T gx = A.g0p[p];
+  const T gy = kPaint ? T(0) : A.g1p[p];
+  const T gz = kPaint ? T(0) : A.g2p[p];
+  const int32_t* hids = A.dense + c * A.k_pad;
+  T jx = 0, jy = 0, jz = 0;
+  if (!kPatch) {
+    for (int k = 0; k < cnt; ++k)
+      adjoint_slot<T, kPaint, kRdelta, kOrder>(__ldg(hids + k), x, y, z, A,
+                                               gx, gy, gz, jx, jy, jz);
+  } else {
+    // the forward's patch cull (see cellmajor_kernel): the same cap and
+    // test, without the look-ahead loads
+    const int lane = threadIdx.x & 31;
+    const unsigned all = 0xffffffffu;
+    const T eps = Eps<T>::v;
+    const T sx = warp_sum(x), sy = warp_sum(y), sz = warp_sum(z);
+    const T sn = sqrt(sx * sx + sy * sy + sz * sz);
+    const T cx = sx / sn, cy = sy / sn, cz = sz / sn;
+    const T dp = warp_max(fabs((x * x + y * y + z * z) - T(1)));
+    const T cosrho =
+        (warp_min(cx * x + cy * y + cz * z) - dp) - T(16) * eps;
+    const T sinrho = sqrt((T(1) - cosrho) * (T(1) + cosrho));
+    const bool capped = cosrho > T(0);
+    for (int k0 = 0; k0 < cnt; k0 += 32) {
+      bool keep = k0 + lane < cnt;
+      const int hk = keep ? __ldg(hids + k0 + lane) : 0;
+      if (capped && keep) {
+        T hd[4];
+        load_head(A.recs, hk, hd);
+        const T dh = fabs((hd[0] * hd[0] + hd[1] * hd[1] + hd[2] * hd[2])
+                          - T(1));
+        const T cc = ((hd[3] - dp) - dh) - T(16) * eps;
+        if (cc > T(0)) {
+          const T sc = sqrt((T(1) - cc) * (T(1) + cc));
+          const T lim = ((cc * cosrho - sc * sinrho) - dh) - T(16) * eps;
+          keep = !(cx * hd[0] + cy * hd[1] + cz * hd[2] < lim);
+        }
+      }
+      unsigned todo = __ballot_sync(all, keep);
+      while (todo) {
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int h = __shfl_sync(all, hk, src);
+        adjoint_slot<T, kPaint, kRdelta, kOrder>(h, x, y, z, A, gx, gy, gz,
+                                                 jx, jy, jz);
+      }
+    }
+  }
+  if (kOrder == 2) {
+    A.j0[p] = A.j0[p] + jx;
+    if (!kPaint) {
+      A.j1[p] = A.j1[p] + jy;
+      A.j2[p] = A.j2[p] + jz;
+    }
+  }
+}
+
+template <typename T, bool kPaint, bool kRdelta, int kOrder>
+void launch_adjoint_kernel(bool patch, unsigned grid, cudaStream_t s,
+                           const AdjointArgs<T>& A) {
+  if (patch)
+    adjoint_kernel<T, kPaint, kRdelta, true, kOrder>
+        <<<grid, kThreads, 0, s>>>(A);
+  else
+    adjoint_kernel<T, kPaint, kRdelta, false, kOrder>
+        <<<grid, kThreads, 0, s>>>(A);
+}
+
+template <typename T, int kOrder>
+int launch_adjoint(int mode, const void* px, const void* py, const void* pz,
+                   const void* dense, const void* counts, const void* recs,
+                   const void* rows, const void* g0p, const void* g1p,
+                   const void* g2p, const void* u, void* d_rows, void* j0,
+                   void* j1, void* j2, long long npix, long long F,
+                   int k_pad, int n_hi, double g0, double dg, double rad_hi,
+                   void* stream) {
+  if (npix <= 0) return static_cast<int>(cudaSuccess);
+  if (F <= 0 || k_pad <= 0 || n_hi < 2 || npix % F != 0 ||
+      reinterpret_cast<uintptr_t>(recs) % 16 != 0 || mode < 0 || mode > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  AdjointArgs<T> A;
+  A.px = static_cast<const T*>(px);
+  A.py = static_cast<const T*>(py);
+  A.pz = static_cast<const T*>(pz);
+  A.dense = static_cast<const int32_t*>(dense);
+  A.counts = static_cast<const int32_t*>(counts);
+  A.recs = static_cast<const T*>(recs);
+  A.rows = static_cast<const T*>(rows);
+  A.g0p = static_cast<const T*>(g0p);
+  A.g1p = static_cast<const T*>(g1p);
+  A.g2p = static_cast<const T*>(g2p);
+  A.u = static_cast<const T*>(u);
+  A.d_rows = static_cast<T*>(d_rows);
+  A.j0 = static_cast<T*>(j0);
+  A.j1 = static_cast<T*>(j1);
+  A.j2 = static_cast<T*>(j2);
+  A.npix = npix;
+  A.F = F;
+  A.k_pad = k_pad;
+  A.n_hi = n_hi;
+  A.g0 = static_cast<T>(g0);
+  A.inv_dg = static_cast<T>(1.0 / dg);
+  A.rad_hi = static_cast<T>(rad_hi);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long blocks = (npix + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  const bool patch = F % 32 == 0;
+  if (mode == 0)
+    launch_adjoint_kernel<T, false, false, kOrder>(patch, grid, s, A);
+  else if (mode == 1)
+    launch_adjoint_kernel<T, false, true, kOrder>(patch, grid, s, A);
+  else
+    launch_adjoint_kernel<T, true, false, kOrder>(patch, grid, s, A);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The adjoint: d_rows (H x n_hi, zeroed by the caller) += the VJP of the
+// pass with cotangent planes g0p..g2p (g1p, g2p null in paint mode).
+// Returns cudaGetLastError() of the launch; asynchronous on `stream`.
+#define CELLMAJOR_VJP(NAME, T)                                              \
+  extern "C" int NAME(int mode, const void* px, const void* py,            \
+                      const void* pz, const void* dense, const void* counts, \
+                      const void* recs, const void* rows, const void* g0p,  \
+                      const void* g1p, const void* g2p, void* d_rows,       \
+                      long long npix, long long F, int k_pad, int n_hi,     \
+                      double g0, double dg, double rad_hi, void* stream) {  \
+    return launch_adjoint<T, 1>(mode, px, py, pz, dense, counts, recs,      \
+                                rows, g0p, g1p, g2p, nullptr, d_rows,       \
+                                nullptr, nullptr, nullptr, npix, F, k_pad,  \
+                                n_hi, g0, dg, rad_hi, stream);              \
+  }
+CELLMAJOR_VJP(cellmajor_vjp_f32, float)
+CELLMAJOR_VJP(cellmajor_vjp_f64, double)
+
+// The second-order entry: with u (H x n_hi) the direction of the rows'
+// cotangent, j0p..j2p (zeroed by the caller; j1p, j2p null in paint mode)
+// += sum_slots f'(v) lerp(u), and d2_rows (zeroed) += the lerp weights
+// times sum_c g_c f_c''(v) lerp(u).
+#define CELLMAJOR_VJP2(NAME, T)                                             \
+  extern "C" int NAME(int mode, const void* px, const void* py,            \
+                      const void* pz, const void* dense, const void* counts, \
+                      const void* recs, const void* rows, const void* g0p,  \
+                      const void* g1p, const void* g2p, const void* u,      \
+                      void* d2_rows, void* j0p, void* j1p, void* j2p,       \
+                      long long npix, long long F, int k_pad, int n_hi,     \
+                      double g0, double dg, double rad_hi, void* stream) {  \
+    return launch_adjoint<T, 2>(mode, px, py, pz, dense, counts, recs,      \
+                                rows, g0p, g1p, g2p, u, d2_rows, j0p, j1p,  \
+                                j2p, npix, F, k_pad, n_hi, g0, dg, rad_hi,  \
+                                stream);                                    \
+  }
+CELLMAJOR_VJP2(cellmajor_vjp2_f32, float)
+CELLMAJOR_VJP2(cellmajor_vjp2_f64, double)

@@ -127,6 +127,15 @@ class BaryonificationClass:
         Enclosed masses are computed one redshift (and extra-parameter
         combination) at a time for all masses; the inversion then runs
         once over the whole (z*C*M) batch.
+
+        Differentiable: profile parameters set on ``DMO``/``DMB`` as 0-dim
+        tensors that require grad (e.g. ``M_c=torch.exp(lnMc)`` at
+        construction), and the parameters of a ``cosmology_device``,
+        carry their graph into the table; the masks of the inversion are
+        taken from detached values, as the JAX package's
+        ``stop_gradient`` takes them. With ``BaryonifyShell.
+        process_device`` this closes the chain from baryon and
+        cosmological parameters to the baryonified map.
         """
         cosmo = self.cosmo
         if combos is None:
@@ -159,6 +168,9 @@ class BaryonificationClass:
                 cosmo.tensor(rdelta_range).expand(offsets.shape),
                 torch.exp(lnr) / Rdelta[..., None], offsets)
         return offsets
+
+    #: the JAX package's name for the table build
+    build_table_device = build_table
 
     def setup_interpolator(self,
                            z_min=1e-2, z_max=5, N_samples_z=30,

@@ -20,7 +20,10 @@ bilinear weights for every displaced pixel, a scatter-add of the original
 mass, then the mass-conservation check (the cell-major method regrids in
 NESTED order; the deposit targets are RING ids either way).
 ``PaintProfilesShell.process`` adds the tabulated projected profile
-instead and has no regrid.
+instead and has no regrid. ``process_device`` of both runners is the
+cell-major method as a differentiable function of the table: the map
+stays on the device and carries a graph through the pass's adjoint
+(``ops.cellmajor_cuda.cellmajor_pass_diff``) and the regrid.
 
 Precision: ``precision="auto"`` is float64 on the CPU and float32 on
 CUDA, as in the JAX package. The per-halo preprocessing runs in float64
@@ -35,7 +38,7 @@ import torch
 
 from ..cosmology import Cosmology, MassDef
 from ..ops import healpix as hpx
-from ..ops.cellmajor_cuda import cellmajor_pass
+from ..ops.cellmajor_cuda import cellmajor_pass, cellmajor_pass_diff
 from ..ops.interp import blend_table_radial, radial_readout
 from ..ops.scatter_cuda import scatter_add_accum
 from ..utils import resolve_device
@@ -372,12 +375,15 @@ class DefaultRunner:
         return min(Nr, max(32, -(-n_hi // 32) * 32))
 
     def _cellmajor_buckets(self, arrs, nside, grids, table, g2, mode,
-                           planes, label, tag):
+                           planes, label, tag, diff=False):
         """Run the cell-major pass of every bucket onto the NESTED
         ``planes`` (in place): ``mode`` as in ``ops.cellmajor_cuda``,
         ``table`` in the hot-path dtype with finite nodes only, ``g2``
         the radial grid on the host in float64. Stages: packed_records,
-        pixels_nested, then reg[...] and pass[...] per bucket."""
+        pixels_nested, then reg[...] and pass[...] per bucket. With
+        ``diff`` each bucket's pass is the differentiable one
+        (``cellmajor_pass_diff``: new planes, gradients to ``table``
+        through the rows); returns the planes."""
         dt, eps = self.dtype, float(self.epsilon_max)
         t0 = self._stage_t0()
         packed_all = self._packed_records(arrs, dt)
@@ -406,10 +412,11 @@ class DefaultRunner:
                       f"n_hi={n_hi})")
             t0 = self._stage_t0()
             packed = packed_all[jidx]
-            cellmajor_pass(mode, planes, pix, dense, counts, F,
-                           cm.slot_records(packed, eps),
-                           cm.halo_rows(grids, table, packed, n_hi),
-                           g0, dg, float(g_host[n_hi - 1]))
+            planes = (cellmajor_pass_diff if diff else cellmajor_pass)(
+                mode, planes, pix, dense, counts, F,
+                cm.slot_records(packed, eps),
+                cm.halo_rows(grids, table, packed, n_hi),
+                g0, dg, float(g_host[n_hi - 1]))
             self._stage(f"pass[b{bi} nc{nsc_eff} K{K} n_hi{n_hi}]", t0,
                         planes[0])
         return planes
@@ -617,6 +624,71 @@ class BaryonifyShell(DefaultRunner):
 
     The input map must be a MASS map (empty pixels = 0)."""
 
+    def _cellmajor_map(self, arrs, nside, table, orig_map, diff=False):
+        """The cell-major method from the offset passes to the regridded
+        RING map (in the hot-path dtype, on the device). ``table`` is the
+        displacement table on the device in the hot-path dtype; with
+        ``diff`` the passes are differentiable and the map carries a
+        graph to ``table``."""
+        dt, dev = self.dtype, table.device
+        use_rdelta = bool(getattr(self.model, 'Rdelta_sampling', False))
+        grids = tuple(g.to(device=dev, dtype=dt) for g in self.model._grids)
+        offsets = tuple(torch.zeros(hpx.npix(nside), dtype=dt, device=dev)
+                        for _ in range(3))
+        # non-finite table nodes become 0 before the blend (a 0-weight
+        # corner would otherwise turn the halo's whole row into NaN)
+        offsets = self._cellmajor_buckets(
+            arrs, nside, grids, torch.where(torch.isfinite(table), table,
+                                            0.0),
+            self.model._grids[2].cpu().numpy(),
+            "offsets_rdelta" if use_rdelta else "offsets", offsets,
+            "Baryonifying matter", "H", diff=diff)
+        # the regrid is order-agnostic given consistent (vector, offset,
+        # mass) triples: it runs in NESTED order and deposits into RING ids
+        t0 = self._stage_t0()
+        n2r, _ = self._nested_maps(nside)
+        new_map = _regrid_shell(nside, *self._pixels_nested(nside, dt),
+                                self._orig_map_nested(orig_map, n2r, dt),
+                                offsets)
+        self._stage("regrid", t0, new_map)
+        return new_map
+
+    def process_device(self, table=None):
+        """Differentiable cell-major baryonification (the port of the JAX
+        package's ``BaryonifyShell.process_device``).
+
+        Runs the computation of :meth:`process` under the cell-major
+        method and returns the new RING-order map as a tensor on the
+        device, in the hot-path dtype, with no host copy and no
+        conservation check. ``table`` (default ``model._table``) may
+        carry a graph (e.g. from ``build_table_device`` of parameters
+        that require grad): gradients flow from any scalar of the map
+        through the regrid, the cell-major passes (on the card the
+        adjoint kernel of ``csrc/cellmajor_pass.cu``) and the row blend
+        into the table. The geometry (registration, candidates, packed
+        records, pixel planes) depends only on halo positions and the
+        epsilon_max * R reach: it is staged once in the runner's caches
+        and held constant, so a fit registers only on its first call.
+        The values equal :meth:`process`'s bit for bit."""
+        if self.method != "cellmajor":
+            raise ValueError(f"process_device runs the cell-major method "
+                             f"only; this runner's method is {self.method!r}")
+        dev, dt = resolve_device(self.device), self.dtype
+        model = self.model
+        if table is None:
+            if not hasattr(model, '_table'):
+                raise NameError("Displacement model has no table. Run "
+                                "setup_interpolator() first")
+            table = model._table
+        nside = self.LightconeShell.NSIDE
+        orig_map = np.asarray(self.LightconeShell.map, dtype=np.float64)
+        if self.HaloLightConeCatalog.cat.size == 0:
+            return torch.as_tensor(orig_map, dtype=dt, device=dev)
+        arrs = self._halo_arrays(Cosmology.from_dict(self.cosmo, device=dev))
+        return self._cellmajor_map(arrs, nside,
+                                   table.to(device=dev, dtype=dt), orig_map,
+                                   diff=True)
+
     def process(self):
         dev, dt = resolve_device(self.device), self.dtype
         cosmo = Cosmology.from_dict(self.cosmo, device=dev)
@@ -635,33 +707,15 @@ class BaryonifyShell(DefaultRunner):
         t0 = self._stage_t0()
         arrs = self._halo_arrays(cosmo)
         self._stage("halo_arrays", t0)
-        n_props = len(getattr(model, 'p_keys', []) or [])
-        use_rdelta = bool(getattr(model, 'Rdelta_sampling', False))
-
         table = model._table.to(device=dev, dtype=dt)
-        grids = tuple(g.to(device=dev, dtype=dt) for g in model._grids)
-
-        offsets = tuple(torch.zeros(hpx.npix(nside), dtype=dt, device=dev)
-                        for _ in range(3))
         if self.method == "cellmajor":
-            # non-finite table nodes become 0 before the blend (a 0-weight
-            # corner would otherwise turn the halo's whole row into NaN)
-            self._cellmajor_buckets(
-                arrs, nside, grids, torch.where(torch.isfinite(table), table,
-                                                0.0),
-                model._grids[2].cpu().numpy(),
-                "offsets_rdelta" if use_rdelta else "offsets", offsets,
-                "Baryonifying matter", "H")
-            # the regrid is order-agnostic given consistent (vector,
-            # offset, mass) triples: it runs in NESTED order and deposits
-            # into RING ids
-            t0 = self._stage_t0()
-            n2r, _ = self._nested_maps(nside)
-            new_map = _regrid_shell(nside, *self._pixels_nested(nside, dt),
-                                    self._orig_map_nested(orig_map, n2r, dt),
-                                    offsets)
-            self._stage("regrid", t0, new_map)
+            new_map = self._cellmajor_map(arrs, nside, table, orig_map)
         else:
+            n_props = len(getattr(model, 'p_keys', []) or [])
+            use_rdelta = bool(getattr(model, 'Rdelta_sampling', False))
+            grids = tuple(g.to(device=dev, dtype=dt) for g in model._grids)
+            offsets = tuple(torch.zeros(hpx.npix(nside), dtype=dt,
+                                        device=dev) for _ in range(3))
             tables, (vx, vy, vz) = self._ring_tables(nside, dt)
             t0 = self._stage_t0()
             for n_rings, n_phi, c in self._halo_chunks(
@@ -698,6 +752,56 @@ class PaintProfilesShell(DefaultRunner):
     returns the painted-only map (float64 numpy, RING order); the
     ``LightconeShell`` supplies NSIDE and the cosmology only."""
 
+    def _cellmajor_paint(self, arrs, nside, table, diff=False):
+        """The cell-major paint as a RING map (hot-path dtype, on the
+        device) from the log table ``table`` on the device in the
+        hot-path dtype; with ``diff`` the map carries a graph to it."""
+        dt, dev = self.dtype, table.device
+        grids = tuple(g.to(device=dev, dtype=dt) for g in self.model._grids)
+        new_map = torch.zeros(hpx.npix(nside), dtype=dt, device=dev)
+        # log-profile tables carry -inf where the profile is 0: a large
+        # negative finite stand-in keeps the blend NaN-free and still
+        # paints exp(...) = 0 wherever such a node is touched
+        (new_map,) = self._cellmajor_buckets(
+            arrs, nside, grids, torch.where(torch.isfinite(table), table,
+                                            -1e30),
+            self.model._grids[2].cpu().numpy(), "paint", (new_map,),
+            "Painting Profile", "h", diff=diff)
+        t0 = self._stage_t0()
+        _, r2n = self._nested_maps(nside)
+        new_map = new_map[r2n]
+        self._stage("n2r", t0, new_map)
+        return new_map
+
+    def process_device(self, table=None):
+        """Differentiable cell-major painting (the port of the JAX
+        package's ``PaintProfilesShell.process_device``): the painted
+        RING-order map as a tensor on the device, in the hot-path dtype.
+        ``table`` (default ``model._ln2D``, the LOG projected-profile
+        table) may carry a graph, e.g. from ``TabulatedProfile.
+        build_tables_device``; gradients flow through the paint mode of
+        the cell-major pass's adjoint. Geometry is staged from the
+        runner's caches and held constant, as in
+        ``BaryonifyShell.process_device``; the values equal
+        :meth:`process`'s bit for bit."""
+        if self.method != "cellmajor":
+            raise ValueError(f"process_device runs the cell-major method "
+                             f"only; this runner's method is {self.method!r}")
+        dev, dt = resolve_device(self.device), self.dtype
+        model = self.model
+        if model is None or not hasattr(model, '_ln2D'):
+            raise NameError("PaintProfilesShell.process_device needs a "
+                            "TabulatedProfile with its table set up")
+        if table is None:
+            table = model._ln2D
+        nside = self.LightconeShell.NSIDE
+        if self.HaloLightConeCatalog.cat.size == 0:
+            return torch.zeros(hpx.npix(nside), dtype=dt, device=dev)
+        arrs = self._halo_arrays(Cosmology.from_dict(self.cosmo, device=dev))
+        return self._cellmajor_paint(arrs, nside,
+                                     table.to(device=dev, dtype=dt),
+                                     diff=True)
+
     def process(self):
         dev, dt = resolve_device(self.device), self.dtype
         cosmo = Cosmology.from_dict(self.cosmo, device=dev)
@@ -726,23 +830,11 @@ class PaintProfilesShell(DefaultRunner):
         arrs = self._halo_arrays(cosmo)
         self._stage("halo_arrays", t0)
         table = model._ln2D.to(device=dev, dtype=dt)
-        grids = tuple(g.to(device=dev, dtype=dt) for g in model._grids)
-
-        new_map = torch.zeros(hpx.npix(nside), dtype=dt, device=dev)
         if self.method == "cellmajor":
-            # log-profile tables carry -inf where the profile is 0: a large
-            # negative finite stand-in keeps the blend NaN-free and still
-            # paints exp(...) = 0 wherever such a node is touched
-            self._cellmajor_buckets(
-                arrs, nside, grids, torch.where(torch.isfinite(table), table,
-                                                -1e30),
-                model._grids[2].cpu().numpy(), "paint", (new_map,),
-                "Painting Profile", "h")
-            t0 = self._stage_t0()
-            _, r2n = self._nested_maps(nside)
-            new_map = new_map[r2n]
-            self._stage("n2r", t0, new_map)
+            new_map = self._cellmajor_paint(arrs, nside, table)
         else:
+            grids = tuple(g.to(device=dev, dtype=dt) for g in model._grids)
+            new_map = torch.zeros(hpx.npix(nside), dtype=dt, device=dev)
             tables, (vx, vy, vz) = self._ring_tables(nside, dt)
             t0 = self._stage_t0()
             for n_rings, n_phi, c in self._halo_chunks(arrs, nside,

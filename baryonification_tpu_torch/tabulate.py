@@ -14,12 +14,15 @@ package's ``_grids``, ``_ln3D`` and ``_ln2D``).
 ``TwoHalo`` (``xi_mm=``), read with its ends clamped.
 """
 
+import inspect
+
 import numpy as np
 import torch
 
 from .cosmology.massdef import MassDef
 from .ops.interp import ndlinear_interp
 from .profiles.base import HaloProfile, _set_parameter
+from .utils import safe_log
 
 __all__ = ['TabulatedProfile', 'ParamTabulatedProfile',
            'TabulatedCorrelation3D']
@@ -83,6 +86,31 @@ class TabulatedProfile(HaloProfile):
                        t(np.log(r)))
         self._ln3D = torch.log(torch.stack(real))
         self._ln2D = torch.log(torch.stack(proj))
+
+    def build_tables_device(self, z_range, M_range, r):
+        """The (ln3D, ln2D) log tables of ``model`` as (Nz, NM, NR)
+        float64 tensors on the cosmology's device, with no cast to host
+        numbers (the port of the JAX package's ``build_tables_device``).
+
+        Differentiable: profile parameters set on ``model`` as 0-dim
+        tensors that require grad carry their graph into the tables; with
+        ``PaintProfilesShell.process_device`` this closes the chain from,
+        e.g., gas parameters to a painted map. Zero profile values log to
+        -inf through ``safe_log``, so their backward is an exact 0. A
+        real-space projection integrates over the fixed 12 decades of the
+        JAX package's jitted build (models whose ``projected`` takes no
+        ``n_decades`` project as they do eagerly)."""
+        t = self.cosmo.tensor
+        r_t, M_t = t(np.asarray(r)), t(np.asarray(M_range))
+        kw = ({"n_decades": 12} if "n_decades" in inspect.signature(
+            self.model.projected).parameters else {})
+        real, proj = [], []
+        for z_j in np.asarray(z_range):
+            a_j = 1.0 / (1.0 + float(z_j))
+            real.append(self.model.real(self.cosmo, r_t, M_t, a_j))
+            proj.append(self.model.projected(self.cosmo, r_t, M_t, a_j,
+                                             **kw) * a_j)
+        return safe_log(torch.stack(real)), safe_log(torch.stack(proj))
 
     def from_arrays(self, grids, ln3D, ln2D, p_keys=(), *, device=None,
                     dtype=torch.float64):

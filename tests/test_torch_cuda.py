@@ -11,7 +11,11 @@ rows shaped like the shell runner's; test_torch_scatter.py holds the plain
 version against the JAX package on the same cases. The cell-major cases
 hold the kernel against its plain version, with discs whose edges graze
 pixel centres and patch caps, and show that its patch cull skips only
-what adds nothing (bit for bit the result without the cull). The
+what adds nothing (bit for bit the result without the cull); its
+adjoint and second-order kernels against their plain versions (autograd
+of the plain pass) on the same cases, and both shell runners'
+``process_device`` against ``process()`` bit for bit, with gradients
+against the CPU. The
 Legendre cases hold each SHT kernel against its plain version on the
 card, at the (nside, lmax) of tests/test_spectra.py and one larger size,
 and at the shapes that both kernels' tiling has to get right. The grid
@@ -437,6 +441,103 @@ def test_cellmajor_refuses_bad_inputs(cuda_device):
         big = torch.zeros(2 * planes[0].shape[0], dtype=torch.float64,
                           device=cuda_device)
         cmc.cellmajor_pass("paint", (big[::2],), pix_d, *tail)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["offsets", "offsets_rdelta", "paint"])
+@pytest.mark.parametrize("name", CELLMAJOR_CASES)
+def test_cellmajor_adjoint_matches_plain(name, mode, dtype, cuda_device):
+    """The adjoint and second-order kernels against their plain versions
+    (the autograd of the plain pass and its double backward) on the same
+    inputs on the card, random cotangents and row directions: the rows'
+    gradients are summed with atomics in no fixed order, so they hold to
+    1e-10 (float64) and 1e-5 (float32) of their largest value, the JVP
+    planes (one thread a pixel) alike; the NaN row of the halo outside
+    the grid and the cells without candidates add nothing (no NaN)."""
+    (_, pix, dense, counts, F, recs, rows, g0, dg,
+     rad_hi) = cellmajor_case(name, mode)
+    assert torch.isnan(rows[0]).all()
+    on = lambda v: v.to(cuda_device, dtype if v.is_floating_point()
+                        else v.dtype)
+    args = (tuple(on(p) for p in pix), on(dense), on(counts), F, on(recs),
+            on(rows), g0, dg, rad_hi)
+    rng = np.random.default_rng(len(name) + len(mode))
+    n_out = 1 if mode == "paint" else 3
+    g = tuple(on(torch.tensor(rng.normal(size=pix[0].shape[0])))
+              for _ in range(n_out))
+    u = on(torch.tensor(rng.normal(size=tuple(rows.shape))))
+    before = dict(cmc.LAUNCHES)
+    d = cmc.cellmajor_vjp(mode, g, *args)
+    jvp, d2 = cmc.cellmajor_vjp2(mode, g, u, *args)
+    d_want = cmc.cellmajor_vjp_reference(mode, g, *args)
+    jvp_want, d2_want = cmc.cellmajor_vjp2_reference(mode, g, u, *args)
+    torch.cuda.synchronize()
+    assert cmc.LAUNCHES["cellmajor_vjp"] == before["cellmajor_vjp"] + 1
+    assert cmc.LAUNCHES["cellmajor_vjp2"] == before["cellmajor_vjp2"] + 1
+    bar = 1e-10 if dtype == torch.float64 else 1e-5
+    for got, want in ((d, d_want), (d2, d2_want)) + tuple(zip(jvp,
+                                                              jvp_want)):
+        assert bool(torch.isfinite(got).all())
+        scale = float(want.abs().max())
+        assert scale > 0
+        assert float((got - want).abs().max()) <= bar * scale
+    assert float(d[0].abs().max()) == 0.0       # the halo outside the grid
+
+
+@pytest.mark.cuda
+def test_process_device_on_card(cuda_device):
+    """process_device() on the card equals process() bit for bit, float32
+    and float64, for both shell runners (under deterministic algorithms:
+    the regrid's index_add_ otherwise sums with atomics in no fixed
+    order), launches the adjoint kernel for a gradient, and the float64
+    gradient and Hessian-vector product through it agree with the CPU's
+    plain versions to 1e-9."""
+    T, model, cat, shell = _small_shell()
+    tab = T.TabulatedProfile(T.DarkMatter(**T.default_params()),
+                             model.cosmo)
+    tab.setup_interpolator(z_min=0.1, z_max=0.5, N_samples_z=3,
+                           M_min=1e13, M_max=1e15, N_samples_Mass=4,
+                           R_min=1e-3, R_max=50, N_samples_R=32)
+
+    def runner(kind, device, **kw):
+        if kind == "shell":
+            return T.BaryonifyShell(cat, shell, epsilon_max=20, model=model,
+                                    verbose=False, device=device, **kw)
+        return T.PaintProfilesShell(cat, shell, epsilon_max=5, model=tab,
+                                    verbose=False, device=device, **kw)
+
+    def grads(r, table, loss):
+        s = torch.ones((), dtype=table.dtype, device=table.device,
+                       requires_grad=True)
+        (g,) = torch.autograd.grad(loss(r.process_device(table * s)), s,
+                                   create_graph=True)
+        (h,) = torch.autograd.grad(g, s)
+        out = float(g.detach()), float(h)
+        assert np.isfinite(out).all() and out[0] != 0
+        return out
+
+    for kind, table in (("shell", model._table), ("paint", tab._ln2D)):
+        for prec in ("float32", "float64"):
+            r = runner(kind, cuda_device, precision=prec)
+            r.process()                            # stage the geometry
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                want = r.process()
+                got = r.process_device()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            assert got.is_cuda and got.dtype == r.dtype
+            np.testing.assert_array_equal(got.double().cpu().numpy(), want)
+        loss = ((lambda m: (m ** 2).sum()) if kind == "shell"
+                else (lambda m: m.sum()))
+        before = dict(cmc.LAUNCHES)
+        g_card = grads(runner(kind, cuda_device, precision="float64"),
+                       table.to(cuda_device), loss)
+        assert cmc.LAUNCHES["cellmajor_vjp"] > before["cellmajor_vjp"]
+        assert cmc.LAUNCHES["cellmajor_vjp2"] > before["cellmajor_vjp2"]
+        g_cpu = grads(runner(kind, "cpu", method="cellmajor"), table, loss)
+        np.testing.assert_allclose(g_card, g_cpu, rtol=1e-9)
 
 
 # F -> (nside, nside_c) of the grazing cases
