@@ -28,6 +28,19 @@
 // write of sizeof(T) * C bytes. The kernel reads nothing twice; the adds
 // land in L2 and each touched line is written back once. Sums arrive in
 // an order that differs from run to run (rounding only).
+//
+// The backward (scatter_add_vjp_f32 / _f64) replaces the VJP of the Pallas
+// kernel, _sorted_scatter_bwd (scatter_pallas.py): the accumulators'
+// cotangent passes through unchanged (the caller keeps it), and each
+// row's value cotangent is the masked gather d[c][r] = g[c][idx[r]] for a
+// row aimed at a pixel, 0 for a dropped one. One thread a row, 1-3 planes
+// a launch; every row is written once, so the result is exact and the
+// same from run to run. Bound: memory bytes, 4 bytes of index a row and,
+// a plane, sizeof(T) gathered (a row aimed at a pixel) and sizeof(T)
+// written.
+//
+// Both entries take fewer than 2^31 rows a launch (int row counts); the
+// caller cuts longer inputs into chunks (ops/scatter_cuda.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,6 +97,55 @@ scatter_add_kernel(const int32_t* __restrict__ idx,
   }
 }
 
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads)
+scatter_add_vjp_kernel(const int32_t* __restrict__ idx,
+                       const T* __restrict__ g0, const T* __restrict__ g1,
+                       const T* __restrict__ g2, T* __restrict__ d0,
+                       T* __restrict__ d1, T* __restrict__ d2, int n_rows,
+                       int npix) {
+  const long long r =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (r >= n_rows) return;
+  const int g = __ldg(idx + r);
+  const bool live =
+      static_cast<unsigned>(g) < static_cast<unsigned>(npix);
+  const T* cts[3] = {g0, g1, g2};
+  T* outs[3] = {d0, d1, d2};
+#pragma unroll
+  for (int c = 0; c < C; ++c) outs[c][r] = live ? __ldg(cts[c] + g) : T(0);
+}
+
+template <typename T>
+int launch_vjp(const void* idx, int n_rows, int npix, int channels,
+               const void* g0, const void* g1, const void* g2, void* d0,
+               void* d1, void* d2, void* stream) {
+  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
+  const int32_t* i = static_cast<const int32_t*>(idx);
+  const T* h0 = static_cast<const T*>(g0);
+  const T* h1 = static_cast<const T*>(g1);
+  const T* h2 = static_cast<const T*>(g2);
+  T* e0 = static_cast<T*>(d0);
+  T* e1 = static_cast<T*>(d1);
+  T* e2 = static_cast<T*>(d2);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = (static_cast<unsigned>(n_rows) + kThreads - 1) / kThreads;
+  switch (channels) {
+    case 1:
+      scatter_add_vjp_kernel<T, 1><<<grid, kThreads, 0, s>>>(i, h0, h1, h2, e0, e1, e2, n_rows, npix);
+      break;
+    case 2:
+      scatter_add_vjp_kernel<T, 2><<<grid, kThreads, 0, s>>>(i, h0, h1, h2, e0, e1, e2, n_rows, npix);
+      break;
+    case 3:
+      scatter_add_vjp_kernel<T, 3><<<grid, kThreads, 0, s>>>(i, h0, h1, h2, e0, e1, e2, n_rows, npix);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* idx, int n_rows, int npix, int channels,
            const void* v0, const void* v1, const void* v2, void* a0,
@@ -133,4 +195,23 @@ extern "C" int scatter_add_f64(const void* idx, int n_rows, int npix,
                                void* stream) {
   return launch<double>(idx, n_rows, npix, channels, v0, v1, v2, a0, a1, a2,
                         stream);
+}
+
+// The backward: d[c][r] = g[c][idx[r]] for rows aimed at a pixel, else 0.
+// g are the accumulators' cotangent planes (npix each), d the value
+// cotangent planes (n_rows each); unused planes may be null.
+extern "C" int scatter_add_vjp_f32(const void* idx, int n_rows, int npix,
+                                   int channels, const void* g0,
+                                   const void* g1, const void* g2, void* d0,
+                                   void* d1, void* d2, void* stream) {
+  return launch_vjp<float>(idx, n_rows, npix, channels, g0, g1, g2, d0, d1,
+                           d2, stream);
+}
+
+extern "C" int scatter_add_vjp_f64(const void* idx, int n_rows, int npix,
+                                   int channels, const void* g0,
+                                   const void* g1, const void* g2, void* d0,
+                                   void* d1, void* d2, void* stream) {
+  return launch_vjp<double>(idx, n_rows, npix, channels, g0, g1, g2, d0, d1,
+                            d2, stream);
 }

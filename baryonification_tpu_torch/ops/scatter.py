@@ -1,8 +1,8 @@
 """Conservative scatter-add redeposits (regridding).
 
 The port of ``baryonification_tpu.ops.scatter``, on top of
-``ops.scatter_cuda.scatter_add_accum``: on CUDA tensors every deposit is
-one launch of the hand-written kernel ``csrc/scatter_add.cu`` (unsorted
+``ops.scatter_cuda.scatter_add_accum``: on CUDA tensors every scatter-add
+is a launch of the hand-written kernel ``csrc/scatter_add.cu`` (unsorted
 rows, no sort); on CPU tensors it is that kernel's plain version.
 
 - ``regrid_healpix``: each displaced pixel's value spread over its 4
@@ -10,11 +10,21 @@ rows, no sort); on CPU tensors it is that kernel's plain version.
 - ``cic_deposit_2d`` / ``cic_deposit_3d``: unit pixels (cells) redeposited
   at displaced fractional positions on a periodic grid. The exact overlap
   of a shifted unit pixel with the grid is the 2^d-corner cloud-in-cell
-  hat, so the deposit is one CIC scatter-add of 2^d rows per pixel.
+  hat, so the deposit adds 2^d rows per pixel, one scatter-add a
+  corner.
 
 The deposits accumulate in float64 by default: the mass-conservation
 check after a regrid needs sums better than float32's at millions of
 pixels. The runners pass their hot-path dtype.
+
+Every deposit is differentiable, as in the JAX package: the scatter-add's
+backward (``scatter_cuda.scatter_add_vjp``, a kernel on the card) gives
+the gradient in the values, and through the CIC weights the gradient
+reaches the positions (the floor of a position is piecewise constant, so
+only the weights carry it). A deposit takes up to 2^31 - 1 destination
+pixels (the JAX package's int32 flat index) and scatters one CIC corner
+at a time, N^d rows a call, so its memory grows as the positions' and
+one corner's rows, not as all 2^d N^d rows at once.
 """
 
 import torch
@@ -48,9 +58,9 @@ def regrid_healpix(npix_out, parent_vals, child_pix, child_weights,
                           contrib, dtype=dtype)
 
 
-def _cic_rows(N, pos, vals, dtype):
-    """Flat destination ids and values of the 2^d CIC corner rows of
-    every position (corner-major, as the JAX package orders them).
+def _cic_corners(N, pos, vals, dtype):
+    """Yield the (flat destination ids, values) of the N^d rows of each
+    of the 2^d CIC corners in turn, corners in the JAX package's order.
     ``torch.remainder`` wraps negative positions as ``jnp.mod`` does (a
     value that rounds up to N wraps to index 0 with weight 1 there)."""
     x = [torch.remainder(p, N) for p in pos]
@@ -58,28 +68,35 @@ def _cic_rows(N, pos, vals, dtype):
     frac = [c - c0 for c, c0 in zip(x, x0)]
     v = vals.to(dtype)
     dim = len(pos)
-    idx_rows, val_rows = [], []
     for corner in range(2 ** dim):
         flat, w = 0, v
         for d in range(dim):
             b = (corner >> (dim - 1 - d)) & 1
             flat = flat * N + torch.remainder(x0[d] + b, N)
             w = w * (frac[d] if b else 1.0 - frac[d])
-        idx_rows.append(flat)
-        val_rows.append(w)
-    return torch.cat(idx_rows), torch.cat(val_rows)
+        yield flat.reshape(-1), w.reshape(-1)
+
+
+def _cic_deposit(N, pos, vals, dtype):
+    """Deposit ``vals`` at ``pos`` (pixel units, one tensor an axis) onto
+    the flat periodic N^d grid: one scatter-add a CIC corner, so only one
+    corner's rows exist at a time. On the CPU the sum is the JAX
+    package's, bit for bit: ``index_add_`` adds the rows in order, and
+    the JAX package's rows are these, corner-major, in one call."""
+    out = torch.zeros(N ** len(pos), dtype=dtype, device=vals.device)
+    for idx, w in _cic_corners(N, pos, vals, dtype):
+        (out,) = scatter_add_accum((out,), idx, (w,))
+    return out
 
 
 def cic_deposit_2d(N, pos_x, pos_y, vals, dtype=torch.float64):
     """Deposit unit squares centred on (pos_x, pos_y) (in pixel units)
     onto an (N, N) periodic grid, axis order grid[ix, iy]."""
-    idx, val = _cic_rows(N, (pos_x, pos_y), vals, dtype)
-    return scatter_add_1d(N * N, idx, val, dtype=dtype).reshape(N, N)
+    return _cic_deposit(N, (pos_x, pos_y), vals, dtype).reshape(N, N)
 
 
 def cic_deposit_3d(N, pos_x, pos_y, pos_z, vals, dtype=torch.float64):
     """3D version of :func:`cic_deposit_2d` onto an (N, N, N) periodic
-    grid, axis order grid[ix, iy, iz]. The kernel takes fewer than 2^31
-    rows, so 8 N^3 < 2^31: N <= 645."""
-    idx, val = _cic_rows(N, (pos_x, pos_y, pos_z), vals, dtype)
-    return scatter_add_1d(N ** 3, idx, val, dtype=dtype).reshape(N, N, N)
+    grid, axis order grid[ix, iy, iz]."""
+    return _cic_deposit(N, (pos_x, pos_y, pos_z), vals, dtype).reshape(
+        N, N, N)

@@ -18,17 +18,27 @@ half-window, ``half``, and a halo only reaches the cells of the
 
 ``BaryonifyGrid.process`` ends both methods in the CIC redeposit of the
 original map at the displaced cell positions (``ops.scatter``: one
-launch of the scatter kernel of 2^d N^d rows on the card), then the
-mass-conservation check. 2D runs support the reference's ellipticity
-(a galsim-style shear of the radius grid, :func:`build_Rmat`); 3D
-ellipticity raises, as in the reference.
+launch of the scatter kernel a CIC corner, N^d rows each, on the card),
+then the mass-conservation check. 2D runs support the reference's
+ellipticity (a galsim-style shear of the radius grid, :func:`build_Rmat`);
+3D ellipticity raises, as in the reference.
+
+``process_device(table=None)`` of both runners is the differentiable
+core, both methods, 2D and 3D: the map as a device tensor in the hot
+dtype, with gradients into the table. The cell-major passes go through
+``grid_cellmajor.grid_pass_diff`` (the plain-op pass under no_grad, its
+backward recomputed a step at a time, so memory stays that of one step);
+the windowed scatters and the CIC redeposit through the scatter-add's
+autograd (``ops.scatter_cuda``: the backward is the hand-written
+``scatter_add_vjp`` kernel on the card). Registration, candidates,
+packed records and the CIC coordinate planes are cached per catalog, so
+a warm call registers nothing.
 
 Precision: ``precision="auto"`` is float64 on the CPU and float32 on
 CUDA, as in the JAX package. The per-halo preprocessing (radii, buckets,
 nearest bins) runs in float64 on the host, as there.
 
-Not ported yet: ``process_device`` (the differentiable core), ``mesh=``
-and ``PaintProfilesAnisGrid``.
+Not ported yet: ``mesh=`` and ``PaintProfilesAnisGrid``.
 """
 
 import numpy as np
@@ -282,7 +292,7 @@ class DefaultRunnerGrid:
         ``planes`` (in place). ``table_z`` is the z-blended table with
         finite nodes only. Stages: packed_records, then reg[...] and
         pass[...] a bucket. A list in ``self.census`` gets each bucket's
-        counts (see ``grid_cellmajor._grid_pass``; for measurement only:
+        counts (see ``grid_cellmajor._bucket_pass``; for measurement only:
         it synchronises once a step)."""
         dt = self.dtype
         dim = 2 if gm.is2D else 3
@@ -319,23 +329,19 @@ class DefaultRunnerGrid:
             pk = packed[torch.as_tensor(sel, device=self.device)]
             rows = gcm.halo_rows(grids[1], grids[3:], table_z, pk[:, lnM_col],
                                  pk[:, p0:p0 + n_props], n_hi)
-            out_bm = tuple(torch.zeros(N ** dim, dtype=dt, device=self.device)
-                           for _ in planes)
-            args = (B_eff, n_hi, N, half, dense, counts, counts_host, pk,
-                    rows, g0, dg, float(g_hot[n_hi - 1]), eps, res)
             census = None
             if getattr(self, 'census', None) is not None:
                 census = dict(bucket=bi, H=len(sel), B=B, B_eff=B_eff, K=K,
                               F=B_eff ** dim, n_hi=n_hi, slots=0, inside=0,
                               steps=0)
                 self.census.append(census)
-            if mode == "paint":
-                fn = gcm.grid_paint_pass_2d if gm.is2D else gcm.grid_paint_pass
-                fn(*args, out_bm[0], census=census)
-            else:
-                fn = (gcm.grid_offsets_pass_2d if gm.is2D
-                      else gcm.grid_offsets_pass)
-                fn(mode == "offsets_rdelta", *args, out_bm, census=census)
+            # the bucket's block-major planes: the plain pass, or, where
+            # the rows carry a graph, its Function with the step-wise
+            # adjoint
+            out_bm = gcm.grid_pass_diff(
+                mode, dim, B_eff, n_hi, N, half, dense, counts, counts_host,
+                pk, rows, g0, dg, float(g_hot[n_hi - 1]), eps, res,
+                census=census)
             inv = self._grid_inv_perm(N, B_eff)
             for p, o in zip(planes, out_bm):
                 _permute_add(p, o, inv)
@@ -489,17 +495,13 @@ class BaryonifyGrid(DefaultRunnerGrid):
     """Baryonify a 2D/3D mass grid. The input grid must be a MASS grid
     (empty cells = 0)."""
 
-    def process(self):
+    def _device_map(self, table):
+        """The baryonified map of ``table`` on the device, in the hot
+        dtype, (N,)*dim: the offsets of every bucket (either method), then
+        the CIC redeposit of the original map."""
         model = self.model
-        if not hasattr(model, '_table'):
-            raise NameError("Displacement model has no table. Run "
-                            "setup_interpolator() first")
         gm = self.GriddedMap
-        orig_map = np.asarray(gm.map, dtype=np.float64)
-        if self.HaloNDCatalog.cat.size == 0:
-            # an empty catalog leaves the map untouched
-            return orig_map.copy()
-        cosmo, grids, table = self._prepare(model._table)
+        cosmo, grids, table = self._prepare(table)
         dt, dev = self.dtype, cosmo.device
         t0 = self._stage_t0()
         a, arrs = self._halo_arrays(cosmo, comoving_R=False)
@@ -532,9 +534,22 @@ class BaryonifyGrid(DefaultRunnerGrid):
         t0 = self._stage_t0()
         offsets = tuple(torch.where(torch.isfinite(o), o, 0.0)
                         for o in offsets)
-        new_map = self._cic_offsets(
-            gm, offsets, self._tensor(orig_map.reshape(-1), dt), dt)
+        orig = self._tensor(np.asarray(gm.map, dtype=np.float64).reshape(-1),
+                            dt)
+        new_map = self._cic_offsets(gm, offsets, orig, dt)
         self._stage("cic", t0, new_map)
+        return new_map
+
+    def process(self):
+        model = self.model
+        if not hasattr(model, '_table'):
+            raise NameError("Displacement model has no table. Run "
+                            "setup_interpolator() first")
+        orig_map = np.asarray(self.GriddedMap.map, dtype=np.float64)
+        if self.HaloNDCatalog.cat.size == 0:
+            # an empty catalog leaves the map untouched
+            return orig_map.copy()
+        new_map = self._device_map(model._table)
         t0 = self._stage_t0()
         new_map = new_map.to(torch.float64).cpu().numpy()
         self._stage("fetch_map", t0)
@@ -544,32 +559,66 @@ class BaryonifyGrid(DefaultRunnerGrid):
             "sum(oldmap) [%0.14e]" % (new_sum, old_sum))
         return new_map
 
+    def process_device(self, table=None):
+        """Differentiable baryonification (the port of the JAX package's
+        ``BaryonifyGrid.process_device``), both methods, 2D and 3D.
+
+        Runs the computation of :meth:`process` and returns the new map
+        as a tensor on the device, in the hot-path dtype and of the map's
+        shape, with no host copy and no conservation check. ``table``
+        (default ``model._table``) may carry a graph (e.g. from
+        ``build_table_device`` of parameters that require grad):
+        gradients flow from any scalar of the map through the CIC
+        redeposit (the scatter-add's backward, a kernel on the card, and
+        the CIC weights' derivative in the offsets), then through the
+        cell-major passes (a step-wise recomputed adjoint,
+        ``grid_cellmajor.grid_pass_diff``) or the windowed scatters, and
+        the row blend into the table. The geometry (registration,
+        candidates, packed records, CIC coordinate planes) depends only on
+        halo positions and the epsilon_max * R reach: it is staged once in
+        the runner's caches and held constant, so a fit registers only on
+        its first call. The values equal :meth:`process`'s: bit for bit
+        on the CPU; on the card up to the order in which the CIC's atomic
+        adds land (rounding)."""
+        model = self.model
+        if table is None:
+            if not hasattr(model, '_table'):
+                raise NameError("Displacement model has no table. Run "
+                                "setup_interpolator() first")
+            table = model._table
+        gm = self.GriddedMap
+        if self.HaloNDCatalog.cat.size == 0:
+            return self._tensor(np.asarray(gm.map, dtype=np.float64),
+                                self.dtype)
+        return self._device_map(table)
+
 
 class PaintProfilesGrid(DefaultRunnerGrid):
     """Paint profiles onto a 2D/3D grid: 2D grids read the projected
     table (``_ln2D``), 3D grids the real-space one (``_ln3D``).
     ``process()`` returns the painted-only map (float64 numpy)."""
 
-    def process(self):
+    def _table_attr(self):
         model = self.model
-        gm = self.GriddedMap
         p_keys = getattr(model, 'p_keys', []) or []
         if len(p_keys) > 0:
             from ..tabulate import ParamTabulatedProfile
             assert isinstance(model, ParamTabulatedProfile), (
                 f"You asked to use {p_keys} properties in painting. You "
                 f"must pass a ParamTabulatedProfile as the model.")
-        attr = '_ln2D' if gm.is2D else '_ln3D'
+        attr = '_ln2D' if self.GriddedMap.is2D else '_ln3D'
         if not hasattr(model, attr):
             raise NameError(
                 "PaintProfilesGrid requires a tabulated model "
                 "(TabulatedProfile / ParamTabulatedProfile).")
+        return attr
+
+    def _device_map(self, table):
+        """The painted map of the log-profile ``table`` on the device, in
+        the hot dtype, (N,)*dim."""
+        gm = self.GriddedMap
         dim = 2 if gm.is2D else 3
-        shape = (gm.Npix,) * dim
-        if self.HaloNDCatalog.cat.size == 0:
-            # an empty catalog paints nothing
-            return np.zeros(shape, dtype=np.float64)
-        cosmo, grids, table = self._prepare(getattr(model, attr))
+        cosmo, grids, table = self._prepare(table)
         dt, dev = self.dtype, cosmo.device
         t0 = self._stage_t0()
         a, arrs = self._halo_arrays(cosmo, comoving_R=True)
@@ -596,7 +645,38 @@ class PaintProfilesGrid(DefaultRunnerGrid):
             self._windowed(gm, a, arrs, R_com, Nsize, idx_all, grids, table,
                            None, (new_map,), "Painting Profile")
             self._stage("pass", t0, new_map)
+        return new_map.reshape((gm.Npix,) * dim)
+
+    def process(self):
+        gm = self.GriddedMap
+        attr = self._table_attr()
+        shape = (gm.Npix,) * (2 if gm.is2D else 3)
+        if self.HaloNDCatalog.cat.size == 0:
+            # an empty catalog paints nothing
+            return np.zeros(shape, dtype=np.float64)
+        new_map = self._device_map(getattr(self.model, attr))
         t0 = self._stage_t0()
-        out = new_map.to(torch.float64).cpu().numpy().reshape(shape)
+        out = new_map.to(torch.float64).cpu().numpy()
         self._stage("fetch_map", t0)
         return out
+
+    def process_device(self, table=None):
+        """Differentiable painting (the port of the JAX package's
+        ``PaintProfilesGrid.process_device``), both methods, 2D and 3D:
+        the painted map as a tensor on the device, in the hot-path dtype
+        and of the map's shape. ``table`` (default ``model._ln2D`` for 2D
+        maps, ``_ln3D`` for 3D: the LOG profile table) may carry a graph,
+        e.g. from ``TabulatedProfile.build_tables_device``; gradients flow
+        through the paint mode of the cell-major pass's adjoint or the
+        windowed scatters. Geometry is staged in the runner's caches and
+        held constant, as in :meth:`BaryonifyGrid.process_device`; the
+        values equal :meth:`process`'s bit for bit (on the card, the
+        scatter method's up to the order of its atomic adds)."""
+        gm = self.GriddedMap
+        if table is None:
+            table = getattr(self.model, self._table_attr())
+        if self.HaloNDCatalog.cat.size == 0:
+            return torch.zeros((gm.Npix,) * (2 if gm.is2D else 3),
+                               dtype=self.dtype,
+                               device=resolve_device(self.device))
+        return self._device_map(table)

@@ -40,14 +40,14 @@ import numpy as np
 import torch
 
 from ..ops.interp import blend_rows
+from ..ops.scatter_cuda import scatter_add_vjp
 
 __all__ = ["morton3", "demorton3", "morton2", "demorton2",
            "pick_block_size", "block_perm", "block_perm_2d",
            "register_halos_grid", "register_halos_grid_2d",
            "refine_block_candidates", "refine_block_candidates_2d",
-           "blend_table_z", "halo_rows",
-           "grid_offsets_pass", "grid_paint_pass", "grid_offsets_pass_2d",
-           "grid_paint_pass_2d", "PROP_COL0_3D", "PROP_COL0_2D",
+           "blend_table_z", "halo_rows", "gather_rows", "grid_pass_diff",
+           "PROP_COL0_3D", "PROP_COL0_2D",
            "PROP_COL0_SNAP", "MAX_PROPS_3D", "MAX_PROPS_2D",
            "MAX_PROPS_SNAP", "PASS_BUDGET"]
 
@@ -346,173 +346,259 @@ _COLS = {3: dict(pos=(0, 1, 2), R=3, lnR=5, cen=(6, 7, 8), Rm=None),
          2: dict(pos=(0, 1), R=2, lnR=4, cen=(5, 6), Rm=(7, 8, 9, 10))}
 
 
-def _grid_pass(mode, dim, B, n_hi, N, half, dense, counts, counts_host,
-               packed, rows, g0, dg, rad_hi, eps_max, res, planes,
-               census=None):
-    """One bucket of ``mode`` ('offsets', 'offsets_rdelta' or 'paint')
-    over every voxel in block-major order, added in place to ``planes``
-    (dim offset planes, or one paint plane, of N^dim each). A ``census``
-    dict gets the voxel-slots listed ('slots'), those that pass every
-    test and read the table ('inside') and the steps ('steps'); it
-    synchronises once a step, so it is for measurement only."""
-    dev, dt = packed.device, packed.dtype
-    cols = _COLS[dim]
-    nb = N // B
-    F = B ** dim
-    ncell = counts.shape[0]
-    K = dense.shape[0] // ncell
-    dense2 = dense.reshape(ncell, K).to(torch.int64)
-    counts = counts.to(torch.int64)
-    paint = mode == "paint"
-    rdelta = mode == "offsets_rdelta"
-    rows_flat = rows.reshape(-1)
-    # the per-halo columns a slot reads (each halo's offset from its
-    # nearest bin centre, its reach, ...), and each halo's window start
-    hcols = [packed[:, c] for c in cols['pos']] + [eps_max * packed[:, cols['R']]]
-    if rdelta:
-        hcols.append(packed[:, cols['lnR']])
-    if dim == 2:
-        hcols += [packed[:, c] for c in cols['Rm']]
-    hrec = torch.stack(hcols, dim=-1)
-    lo = packed[:, list(cols['cen'])].to(torch.int64) - half
-    o = torch.arange(B, device=dev)
+def gather_rows(rows_flat, idx):
+    """``rows_flat[idx]``. Where the rows carry a graph, the read goes
+    through the scatter-add's backward (``ops.scatter_cuda.
+    scatter_add_vjp``), whose own backward is the scatter-add: on the card
+    the scatter kernel, which sums runs of equal rows in neighbouring
+    lanes before its atomic adds. Autograd's backward of an indexed read
+    sorts the indices and walks each run of equal ones in one warp, which
+    the few row nodes that a step's voxels share make slow on the card
+    (minutes a backward at grid-256)."""
+    if not rows_flat.requires_grad:
+        return rows_flat[idx]
+    return scatter_add_vjp((rows_flat,), idx.reshape(-1))[0].reshape(
+        idx.shape)
 
-    def ax(v, d):
+
+class _GridBucket:
+    """One bucket of a grid pass: its constant inputs, the chunks of
+    blocks and groups of candidate slots that the pass steps through, the
+    geometry of a step (which depends on positions only) and its values
+    (which depend on the rows). ``mode`` is 'offsets', 'offsets_rdelta'
+    or 'paint'."""
+
+    def __init__(self, mode, dim, B, n_hi, N, half, dense, counts,
+                 counts_host, packed, g0, dg, rad_hi, eps_max, res):
+        dev = packed.device
+        cols = _COLS[dim]
+        self.dim, self.B, self.n_hi, self.N, self.half = dim, B, n_hi, N, half
+        self.F = self.unit = B ** dim
+        self.n_planes = 1 if mode == "paint" else dim
+        self.ncell = counts.shape[0]
+        self.K = dense.shape[0] // self.ncell
+        self.dense2 = dense.reshape(self.ncell, self.K).to(torch.int64)
+        self.counts = counts.to(torch.int64)
+        self.counts_host = counts_host
+        self.paint = mode == "paint"
+        self.rdelta = mode == "offsets_rdelta"
+        self.g0, self.dg, self.rad_hi, self.res = g0, dg, rad_hi, res
+        # the per-halo columns a slot reads (each halo's offset from its
+        # nearest bin centre, its reach, ...), and each halo's window
+        # start
+        hcols = ([packed[:, c] for c in cols['pos']]
+                 + [eps_max * packed[:, cols['R']]])
+        if self.rdelta:
+            hcols.append(packed[:, cols['lnR']])
+        if dim == 2:
+            hcols += [packed[:, c] for c in cols['Rm']]
+        self.hrec = torch.stack(hcols, dim=-1)
+        self.lo = packed[:, list(cols['cen'])].to(torch.int64) - half
+        self.o = torch.arange(B, device=dev)
+
+    def ax(self, v, d):
         """(C, G, B) per-axis values (B = 1: per slot) -> broadcastable
         over the block's B^dim voxels along axis d."""
-        shape = [1] * dim
+        shape = [1] * self.dim
         shape[d] = v.shape[2]
         return v.reshape(v.shape[:2] + tuple(shape))
 
-    C = max(1, min(ncell, PASS_BUDGET // (F * max(1, min(K, 16)))))
-    for c0 in range(0, ncell, C):
-        c1 = min(c0 + C, ncell)
-        k_max = int(counts_host[c0:c1].max())
-        if k_max == 0:
-            continue
-        # a voxel's coordinate on axis d depends on its block and its
-        # offset on that axis only: the per-axis terms are (C, G, B) and
-        # broadcast to (C, G, B^dim) where they meet
-        bc = _demorton(torch.arange(c0, c1, device=dev), dim)
-        iv = [b[:, None] * B + o[None, :] for b in bc]            # (C, B)
-        G = max(1, min(k_max, PASS_BUDGET // ((c1 - c0) * F)))
-        acc = [torch.zeros((c1 - c0, F), dtype=dt, device=dev)
-               for _ in planes]
-        for k0 in range(0, k_max, G):
-            k1 = min(k0 + G, k_max)
-            hid = dense2[c0:c1, k0:k1]                            # (C, G)
-            ok = (torch.arange(k0, k1, device=dev)[None, :]
-                  < counts[c0:c1, None])
-            rec = hrec[hid]                                       # (C, G, .)
-            hl = lo[hid]
-            dx, win = [], ax(ok[..., None], 0)
-            for d in range(dim):
-                # the voxel's place u in the halo's window [cen - half,
-                # cen + half) (periodic): its offset from the halo is
-                # (u - half) * res less the halo's offset from its bin
-                u = torch.remainder(iv[d][:, None, :] - hl[..., d, None], N)
-                dx.append((u - half).to(dt) * res - rec[..., d, None])
-                win = win & ax(u < 2 * half, d)
-            sq = ax(dx[0] * dx[0], 0) + ax(dx[1] * dx[1], 1)
-            if dim == 3:
-                sq = sq + ax(dx[2] * dx[2], 2)
-            r_c = torch.sqrt(sq)
-            if dim == 2:
-                Rm = [ax(rec[..., dim + 1 + j + rdelta, None], 0)
-                      for j in range(4)]
-                gx, gy = ax(dx[0], 0), ax(dx[1], 1)
-                ex = Rm[0] * gx + Rm[2] * gy
-                ey = Rm[1] * gx + Rm[3] * gy
-                r = torch.sqrt(ex * ex + ey * ey)
-            else:
-                r = r_c
-            rad = torch.log(torch.clamp(r, min=1e-30))
-            if rdelta:
-                rad = rad - ax(rec[..., dim + 1, None], 0)
-            t = (rad - g0) / dg
-            i = torch.clamp(torch.floor(t), 0, n_hi - 2)
-            w = t - i
-            base = ax(hid[..., None], 0) * n_hi + i.to(torch.int64)
-            a0, a1 = rows_flat[base], rows_flat[base + 1]
-            live = ((rad >= g0) & (rad <= rad_hi)
-                    & (r < ax(rec[..., dim, None], 0)) & win)
-            if census is not None:
-                census['slots'] += int(ok.sum()) * F
-                census['inside'] += int(live.sum())
-                census['steps'] += 1
-            # the lerp of two nodes (also at a -1e30 paint node: a weight
-            # of 0 or 1 gives the other node exactly, any other weight a
-            # value whose exp is 0)
-            val = torch.lerp(a0, a1, w)
-            if paint:
-                val = torch.exp(val)
-                val = torch.where(live & torch.isfinite(val), val, 0.0)
-                acc[0] += val.sum(dim=1).reshape(c1 - c0, F)
-            else:
-                val = torch.where(live & torch.isfinite(val), val, 0.0)
-                scale = (val / res) / torch.clamp(r_c, min=1e-30)
-                for d, (a, dd) in enumerate(zip(acc, dx)):
-                    a += (scale * ax(dd, d)).sum(dim=1).reshape(c1 - c0, F)
+    def chunks(self):
+        """(c0, c1, iv, [(k0, k1), ...]) of every chunk of blocks with a
+        candidate: iv the chunk's (C, B) voxel coordinates on each axis
+        (a voxel's coordinate on axis d depends on its block and its
+        offset on that axis only); a step is a group of candidate slots of
+        the chunk, one (blocks, slots, voxels) tensor of at most
+        PASS_BUDGET elements."""
+        F, ncell = self.F, self.ncell
+        C = max(1, min(ncell, PASS_BUDGET // (F * max(1, min(self.K, 16)))))
+        for c0 in range(0, ncell, C):
+            c1 = min(c0 + C, ncell)
+            k_max = int(self.counts_host[c0:c1].max())
+            if k_max == 0:
+                continue
+            bc = _demorton(torch.arange(c0, c1, device=self.o.device),
+                           self.dim)
+            iv = [b[:, None] * self.B + self.o[None, :] for b in bc]
+            G = max(1, min(k_max, PASS_BUDGET // ((c1 - c0) * F)))
+            yield c0, c1, iv, [(k0, min(k0 + G, k_max))
+                               for k0 in range(0, k_max, G)]
+
+    def geometry(self, c0, c1, iv, k0, k1, census=None):
+        """The step's row nodes and weights, its mask and, in the offsets
+        modes, its push directions: dict(base, w, live, r_c, dx). The
+        per-axis terms are (C, G, B) and broadcast to (C, G, B^dim) where
+        they meet."""
+        dim, N, half, ax = self.dim, self.N, self.half, self.ax
+        dev, dt = self.hrec.device, self.hrec.dtype
+        hid = self.dense2[c0:c1, k0:k1]                           # (C, G)
+        ok = (torch.arange(k0, k1, device=dev)[None, :]
+              < self.counts[c0:c1, None])
+        rec = self.hrec[hid]                                      # (C, G, .)
+        hl = self.lo[hid]
+        dx, win = [], ax(ok[..., None], 0)
+        for d in range(dim):
+            # the voxel's place u in the halo's window [cen - half, cen +
+            # half) (periodic): its offset from the halo is (u - half) *
+            # res less the halo's offset from its bin
+            u = torch.remainder(iv[d][:, None, :] - hl[..., d, None], N)
+            dx.append((u - half).to(dt) * self.res - rec[..., d, None])
+            win = win & ax(u < 2 * half, d)
+        sq = ax(dx[0] * dx[0], 0) + ax(dx[1] * dx[1], 1)
+        if dim == 3:
+            sq = sq + ax(dx[2] * dx[2], 2)
+        r_c = torch.sqrt(sq)
+        if dim == 2:
+            Rm = [ax(rec[..., dim + 1 + j + self.rdelta, None], 0)
+                  for j in range(4)]
+            gx, gy = ax(dx[0], 0), ax(dx[1], 1)
+            ex = Rm[0] * gx + Rm[2] * gy
+            ey = Rm[1] * gx + Rm[3] * gy
+            r = torch.sqrt(ex * ex + ey * ey)
+        else:
+            r = r_c
+        rad = torch.log(torch.clamp(r, min=1e-30))
+        if self.rdelta:
+            rad = rad - ax(rec[..., dim + 1, None], 0)
+        t = (rad - self.g0) / self.dg
+        i = torch.clamp(torch.floor(t), 0, self.n_hi - 2)
+        live = ((rad >= self.g0) & (rad <= self.rad_hi)
+                & (r < ax(rec[..., dim, None], 0)) & win)
+        if census is not None:
+            census['slots'] += int(ok.sum()) * self.F
+            census['inside'] += int(live.sum())
+            census['steps'] += 1
+        return dict(base=ax(hid[..., None], 0) * self.n_hi
+                    + i.to(torch.int64), w=t - i, live=live, r_c=r_c,
+                    dx=[ax(dd, d) for d, dd in enumerate(dx)])
+
+    def values(self, rows_flat, st):
+        """The step's (C, F) additions to each plane from the flat rows."""
+        C = st['base'].shape[0]
+        # the lerp of two nodes (also at a -1e30 paint node: a weight of 0
+        # or 1 gives the other node exactly, any other weight a value
+        # whose exp is 0)
+        val = torch.lerp(gather_rows(rows_flat, st['base']),
+                         gather_rows(rows_flat, st['base'] + 1), st['w'])
+        if self.paint:
+            val = torch.exp(val)
+            val = torch.where(st['live'] & torch.isfinite(val), val, 0.0)
+            return [val.sum(dim=1).reshape(C, self.F)]
+        val = torch.where(st['live'] & torch.isfinite(val), val, 0.0)
+        scale = (val / self.res) / torch.clamp(st['r_c'], min=1e-30)
+        return [(scale * dd).sum(dim=1).reshape(C, self.F)
+                for dd in st['dx']]
+
+
+def _zero_planes(bk, rows):
+    return tuple(torch.zeros(bk.ncell * bk.unit, dtype=rows.dtype,
+                             device=rows.device)
+                 for _ in range(bk.n_planes))
+
+
+def _bucket_pass(bk, rows, planes, census=None):
+    """Add the pass of bucket ``bk`` (a :class:`_GridBucket`, or the
+    snapshot's ``_SnapBucket``) of ``rows`` to ``planes`` in place, chunk
+    by chunk: ``bk.unit`` elements of each plane a block (cell). A
+    ``census`` dict gets the bucket's counts (the grid's: voxel-slots
+    listed 'slots', those that pass every test and read the table
+    'inside', and 'steps'); it synchronises once a step, so it is for
+    measurement only."""
+    rows_flat = rows.reshape(-1)
+    U = bk.unit
+    for c0, c1, cg, steps in bk.chunks():
+        acc = [torch.zeros((c1 - c0, U), dtype=rows.dtype,
+                           device=rows.device) for _ in planes]
+        for k0, k1 in steps:
+            st = bk.geometry(c0, c1, cg, k0, k1, census)
+            for a, v in zip(acc, bk.values(rows_flat, st)):
+                a += v
         for p, a in zip(planes, acc):
-            p[c0 * F:c1 * F] += a.reshape(-1)
+            p[c0 * U:c1 * U] += a.reshape(-1)
     return planes
 
 
-def grid_offsets_pass(use_rdelta, B, n_hi, N, half, dense, counts,
-                      counts_host, packed, rows, g0, dg, rad_hi, eps_max,
-                      res, planes, census=None):
-    """One bucket's displacement pass over every voxel of an N^3 grid in
-    block-major order, added in place to the three block-major offset
-    ``planes`` (pixel units).
+def _bucket_vjp(bk, rows, cts):
+    """The pass's VJP with respect to ``rows`` for the cotangent planes
+    ``cts``: each step's geometry is recomputed and its values taken
+    again under autograd, whose gradient in the rows is added up, so one
+    step's graph is held at a time. Where grad mode is on (a backward
+    with ``create_graph``), ``rows`` is the saved input with its history
+    and each step's gradient keeps its graph, so the result can be
+    differentiated again."""
+    create = torch.is_grad_enabled()
+    d_rows = torch.zeros_like(rows)
+    U = bk.unit
+    for c0, c1, cg, steps in bk.chunks():
+        g = [ct[c0 * U:c1 * U].reshape(c1 - c0, U) for ct in cts]
+        for k0, k1 in steps:
+            st = bk.geometry(c0, c1, cg, k0, k1)
+            with torch.enable_grad():
+                r = rows if create else rows.detach().requires_grad_(True)
+                (d,) = torch.autograd.grad(bk.values(r.reshape(-1), st), r,
+                                           g, create_graph=create)
+            d_rows = d_rows + d if create else d_rows.add_(d)
+    return d_rows
+
+
+class _PassFn(torch.autograd.Function):
+    """New planes = the pass of bucket ``bk`` of ``rows``; differentiable
+    in ``rows``, to any order. The forward runs the plain-op pass under
+    no_grad; the backward recomputes it step by step
+    (:func:`_bucket_vjp`), so memory stays that of one step's graph."""
+
+    @staticmethod
+    def forward(ctx, bk, rows):
+        ctx.bk = bk
+        ctx.save_for_backward(rows)
+        return _bucket_pass(bk, rows, _zero_planes(bk, rows))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        (rows,) = ctx.saved_tensors
+        return None, _bucket_vjp(ctx.bk, rows, cts)
+
+
+def _pass_diff(bk, rows, census=None):
+    """The pass of bucket ``bk`` as a differentiable function of ``rows``:
+    new planes with the values of :func:`_bucket_pass` on zero planes,
+    bit for bit. Where ``rows`` requires grad, the :class:`_PassFn`;
+    otherwise the plain pass (a ``census`` is only filled then)."""
+    if torch.is_grad_enabled() and rows.requires_grad:
+        return _PassFn.apply(bk, rows)
+    return _bucket_pass(bk, rows, _zero_planes(bk, rows), census)
+
+
+def grid_pass_diff(mode, dim, B, n_hi, N, half, dense, counts, counts_host,
+                   packed, rows, g0, dg, rad_hi, eps_max, res, census=None):
+    """One bucket of ``mode`` ('offsets', 'offsets_rdelta' or 'paint')
+    over every voxel (3D) or pixel (2D) in block-major order, as a
+    differentiable function of ``rows``: returns new block-major planes
+    (``dim`` offset planes in pixel units, or one paint plane, of N^dim
+    each). Where ``rows`` requires grad the backward recomputes the pass
+    a step at a time (the geometry is constant); otherwise this is the
+    plain pass.
 
     dense, counts : the bucket's (ncell * K,) Morton-block candidates and
                     (ncell,) counts (``counts_host`` a host copy)
-    packed : (H, 16) the bucket's records [dx, dy, dz, R_com, lnM,
-             lnRc, cen_x, cen_y, cen_z | props]: d* each halo's offset
-             from the centre of its nearest bin cen_* (Mpc)
+    packed : (H, 16) the bucket's records: in 3D [dx, dy, dz, R_com, lnM,
+             lnRc, cen_x, cen_y, cen_z | props], d* each halo's offset
+             from the centre of its nearest bin cen_* (Mpc); in 2D [dx,
+             dy, R_com, lnM, lnRc, cen_x, cen_y, Rm00, Rm01, Rm10, Rm11 |
+             props], the shear matrix mapping pixel offsets to the
+             elliptical frame (the identity for isotropic halos): the
+             table is read at the elliptical radius, the displacement
+             pushes along the circular unit vector
     rows : (H, n_hi) the halos' radial rows (:func:`halo_rows`) of the
-           displacement table, on the uniform grid of ln r (ln r/R_com
-           with ``use_rdelta``) from ``g0`` in steps ``dg``; ``rad_hi`` is
-           its node n_hi - 1 (the three in the hot dtype's values)
+           displacement table, or of a log-profile table with non-finite
+           nodes replaced by -1e30 (paint), on the uniform grid of ln r
+           (ln r/R_com in 'offsets_rdelta') from ``g0`` in steps ``dg``;
+           ``rad_hi`` is its node n_hi - 1 (the three in the hot dtype's
+           values)
     half : the bucket's cutout half-window (voxels)
-    census : None, or a dict of counts to add to (see ``_grid_pass``)
+    census : None, or a dict of counts to add to (see :func:`_bucket_pass`;
+             only filled without a graph)
     """
-    return _grid_pass("offsets_rdelta" if use_rdelta else "offsets", 3, B,
-                      n_hi, N, half, dense, counts, counts_host, packed,
-                      rows, g0, dg, rad_hi, eps_max, res, planes,
-                      census)
-
-
-def grid_paint_pass(B, n_hi, N, half, dense, counts, counts_host, packed,
-                    rows, g0, dg, rad_hi, eps_max, res, new_map,
-                    census=None):
-    """One bucket's painting pass over an N^3 grid (rows of a log-profile
-    table, non-finite nodes replaced by -1e30), added in place to the
-    block-major ``new_map``."""
-    return _grid_pass("paint", 3, B, n_hi, N, half, dense, counts,
-                      counts_host, packed, rows, g0, dg, rad_hi, eps_max,
-                      res, (new_map,), census)[0]
-
-
-def grid_offsets_pass_2d(use_rdelta, B, n_hi, N, half, dense, counts,
-                         counts_host, packed, rows, g0, dg, rad_hi, eps_max,
-                         res, planes, census=None):
-    """2D version of :func:`grid_offsets_pass` (two planes). ``packed``
-    is [dx, dy, R_com, lnM, lnRc, cen_x, cen_y, Rm00, Rm01, Rm10, Rm11 |
-    props]: the shear matrix maps pixel offsets to the elliptical frame
-    (the identity for isotropic halos); the displacement is read at the
-    elliptical radius and pushes along the circular unit vector."""
-    return _grid_pass("offsets_rdelta" if use_rdelta else "offsets", 2, B,
-                      n_hi, N, half, dense, counts, counts_host, packed,
-                      rows, g0, dg, rad_hi, eps_max, res, planes,
-                      census)
-
-
-def grid_paint_pass_2d(B, n_hi, N, half, dense, counts, counts_host, packed,
-                       rows, g0, dg, rad_hi, eps_max, res, new_map,
-                       census=None):
-    """2D version of :func:`grid_paint_pass` (read at the elliptical
-    radius)."""
-    return _grid_pass("paint", 2, B, n_hi, N, half, dense, counts,
-                      counts_host, packed, rows, g0, dg, rad_hi, eps_max,
-                      res, (new_map,), census)[0]
+    return _pass_diff(_GridBucket(mode, dim, B, n_hi, N, half, dense, counts,
+                                  counts_host, packed, g0, dg, rad_hi,
+                                  eps_max, res), rows, census)

@@ -23,11 +23,14 @@ dtype on the device; on the host they are added to the float64 positions,
 which are wrapped back into [0, L]. An empty catalog moves nothing, and
 under ``cellmajor`` a catalog redshift outside the table moves nothing.
 
+``process_device`` is the differentiable core (cell-major only, as in
+the JAX package): the displaced positions as device tensors, with
+gradients into the table through the passes' step-wise adjoint.
+
 Precision: ``precision="auto"`` is float64 on the CPU and float32 on
 CUDA, as in the JAX package.
 
-Not ported yet: ``process_device`` (the differentiable core) and
-``mesh=``.
+Not ported yet: ``mesh=``.
 """
 
 import numpy as np
@@ -286,11 +289,13 @@ class BaryonifySnapshot(DefaultRunnerSnapshot):
         return [s for s in np.array_split(order, self.n_buckets)
                 if s.size > 0]
 
-    def _prepare(self):
-        """(grids, table) in the hot dtype on the device."""
+    def _prepare(self, table=None):
+        """(grids, table) in the hot dtype on the device; ``table``
+        defaults to the model's."""
         dev, dt = resolve_device(self.device), self.dtype
+        table = self.model._table if table is None else table
         return (tuple(g.to(device=dev, dtype=dt) for g in self.model._grids),
-                self.model._table.to(device=dev, dtype=dt))
+                table.to(device=dev, dtype=dt))
 
     # ----- gather method -----
     def _process_gather(self, a, R_com, R_q, xh, use_rdelta):
@@ -388,10 +393,12 @@ class BaryonifySnapshot(DefaultRunnerSnapshot):
             cache[key] = (dense, counts, counts.cpu().numpy(), K)
         return cache[key]
 
-    def _process_cellmajor(self, a, R_com, R_q, xh, cols, use_rdelta):
+    def _process_cellmajor(self, a, R_com, R_q, xh, cols, use_rdelta,
+                           table=None):
         """The dense pass of every bucket; returns (the padded offset
         planes, in the hot dtype on the device, the padded slot of each
-        particle). A list in
+        particle). ``table`` (default the model's) may carry a graph: the
+        passes are then recorded with their step-wise adjoint. A list in
         ``self.census`` gets each bucket's counts (see
         ``snapshot_cellmajor.snapshot_offsets_pass``; for measurement
         only: it synchronises once a step)."""
@@ -400,7 +407,7 @@ class BaryonifySnapshot(DefaultRunnerSnapshot):
         nb = tree.n_cells
         L = float(self.ParticleSnapshot.L)
         eps = float(self.epsilon_max)
-        grids, table = self._prepare()
+        grids, table = self._prepare(table)
         t0 = self._stage_t0()
         table_z, inb_z = gcm.blend_table_z(
             table, grids[0], float(np.log(1.0 + self.HaloNDCatalog.redshift)))
@@ -439,9 +446,57 @@ class BaryonifySnapshot(DefaultRunnerSnapshot):
                 census = dict(bucket=bi, H=len(idx), K=K, P=P_pad,
                               n_hi=n_hi, pairs=0, inside=0, steps=0)
                 self.census.append(census)
-            scm.snapshot_offsets_pass(
+            bucket = scm.snapshot_pass_diff(
                 use_rdelta, P_pad, n_hi, dense, counts, counts_host, planes,
                 counts_p, pk, rows, g0, dg, float(g_hot[n_hi - 1]), eps, a,
-                L, out, census=census)
+                L, census=census)
+            for o, b in zip(out, bucket):
+                o += b
             self._stage(f"pass[b{bi} K{K} n_hi{n_hi}]", t0, out[0])
         return out, slot_of
+
+    def _positions(self, dt):
+        """The original (x, y, z) particle positions on the device in the
+        hot dtype, cached per dtype."""
+        cache = self.__dict__.setdefault('_pos_cache', {})
+        if dt not in cache:
+            cat = self.ParticleSnapshot.cat
+            cache[dt] = tuple(self._tensor(cat[c], dt) for c in 'xyz')
+        return cache[dt]
+
+    def process_device(self, table=None):
+        """Differentiable displacement (the port of the JAX package's
+        ``BaryonifySnapshot.process_device``), cell-major only, as there.
+
+        Returns the displaced (x, y, z) positions in the original particle
+        order as tensors on the device, in the hot-path dtype: each
+        original position plus its offset, wrapped back into [0, L] on the
+        device, as the JAX package does. ``table`` (default
+        ``model._table``) may carry a graph (e.g. from
+        ``build_table_device``): gradients flow from any scalar of the
+        positions (e.g. a P(k) band of their CIC density) through the
+        passes' step-wise adjoint (``snapshot_cellmajor.
+        snapshot_pass_diff``) and the row blend into the table. The cell
+        list, the padded particle planes and the registrations are staged
+        once in the runner's caches and held constant. :meth:`process`
+        adds the same offsets to the positions in float64 on the host: in
+        float64 the two agree bit for bit; in float32 they differ by the
+        rounding of the positions to float32."""
+        if self.method != "cellmajor":
+            raise ValueError(f"process_device runs the cell-major method "
+                             f"only; this runner's method is {self.method!r}")
+        pos = self._positions(self.dtype)
+        if self.HaloNDCatalog.cat.size == 0:
+            return tuple(p.clone() for p in pos)
+        L = float(self.ParticleSnapshot.L)
+        self._check_caches()
+        a, R_com, R_q, xh, cols = self._halo_geom()
+        use_rdelta = bool(getattr(self.model, 'Rdelta_sampling', False))
+        planes, src = self._process_cellmajor(a, R_com, R_q, xh, cols,
+                                              use_rdelta, table=table)
+        out = []
+        for p, o in zip(pos, planes):
+            x = p + o[src]
+            x = torch.where(x > L, x - L, x)
+            out.append(torch.where(x < 0, x + L, x))
+        return tuple(out)

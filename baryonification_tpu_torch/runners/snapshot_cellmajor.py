@@ -34,10 +34,11 @@ the pass costs a few dozen launches a step, not a dozen a candidate.
 import numpy as np
 import torch
 
-from .grid_cellmajor import PASS_BUDGET
+from .grid_cellmajor import PASS_BUDGET, _bucket_pass, _pass_diff, \
+    gather_rows
 
 __all__ = ["np_morton3_of_rowmajor", "pad_particles_by_cell",
-           "snapshot_offsets_pass"]
+           "snapshot_offsets_pass", "snapshot_pass_diff"]
 
 
 def _np_spread3(v):
@@ -96,6 +97,109 @@ def _cell_chunk(ncell, F, target):
     return c
 
 
+class _SnapBucket:
+    """One bucket of the snapshot pass: its constant inputs, its chunks
+    of cells and groups of candidate slots, the geometry of a step
+    (positions only) and its values (the rows); the pass and its adjoint
+    both step through it (``grid_cellmajor._GridBucket`` is the
+    grid's)."""
+
+    def __init__(self, use_rdelta, P, n_hi, dense, counts_h, counts_host,
+                 planes, counts_p, packed, g0, dg, rad_hi, eps_max, a_scale,
+                 L):
+        self.ncell = counts_h.shape[0]
+        self.K = dense.shape[0] // self.ncell
+        self.P = self.unit = P
+        self.n_planes = 3
+        self.n_hi, self.rdelta = n_hi, use_rdelta
+        self.dense2 = dense.reshape(self.ncell, self.K).to(torch.int64)
+        self.counts_h = counts_h.to(torch.int64)
+        self.counts_host = counts_host
+        self.counts_p = counts_p.to(torch.int64)
+        self.g0, self.dg, self.rad_hi = g0, dg, rad_hi
+        self.a_scale, self.L = a_scale, L
+        # the per-halo columns a slot reads: position, reach (, ln R_com)
+        hcols = [packed[:, 0], packed[:, 1], packed[:, 2],
+                 eps_max * packed[:, 3]]
+        if use_rdelta:
+            hcols.append(packed[:, 5])
+        self.hrec = torch.stack(hcols, dim=-1)
+        self.pos = [p.reshape(self.ncell, P) for p in planes]
+        self.slot = torch.arange(P, device=packed.device)
+
+    def chunks(self):
+        """(c0, c1, (p_ok, pos), [(k0, k1), ...]) of every chunk of cells
+        with a candidate: p_ok the chunk's (C, 1, P) real-particle mask and
+        pos its (C, 1, P) position planes; a step is one (cells, slots,
+        particles) tensor of at most PASS_BUDGET elements."""
+        P = self.P
+        C = _cell_chunk(self.ncell, P * max(1, min(self.K, 16)), PASS_BUDGET)
+        for c0 in range(0, self.ncell, C):
+            c1 = c0 + C
+            k_max = int(self.counts_host[c0:c1].max())
+            if k_max == 0:
+                continue
+            p_ok = (self.slot[None, :]
+                    < self.counts_p[c0:c1, None])[:, None, :]
+            pos = [p[c0:c1, None, :] for p in self.pos]
+            G = max(1, min(k_max, PASS_BUDGET // (C * P)))
+            yield c0, c1, (p_ok, pos), [(k0, min(k0 + G, k_max))
+                                        for k0 in range(0, k_max, G)]
+
+    def geometry(self, c0, c1, cg, k0, k1, census=None):
+        """The step's row nodes and weights, mask, radii and min-image
+        deltas: dict(base, w, live, r, dx)."""
+        dev = self.hrec.device
+        L = self.L
+        p_ok, pos = cg
+        hid = self.dense2[c0:c1, k0:k1]                        # (C, G)
+        ok = (torch.arange(k0, k1, device=dev)[None, :]
+              < self.counts_h[c0:c1, None])
+        rec = self.hrec[hid]                                   # (C, G, .)
+        dx = []
+        for d in range(3):
+            v = pos[d] - rec[..., d, None]
+            dx.append(v - L * torch.round(v / L))              # (C, G, P)
+        r = torch.sqrt(dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2])
+        rad = torch.log(torch.clamp(r, min=1e-30))
+        if self.rdelta:
+            rad = rad - rec[..., 4, None]
+        t = (rad - self.g0) / self.dg
+        i = torch.clamp(torch.floor(t), 0, self.n_hi - 2)
+        live = ((rad >= self.g0) & (rad <= self.rad_hi)
+                & (r < rec[..., 3, None]) & ok[..., None] & p_ok)
+        if census is not None:
+            census['pairs'] += int((ok[..., None] & p_ok).sum())
+            census['inside'] += int(live.sum())
+            census['steps'] += 1
+        return dict(base=hid[..., None] * self.n_hi + i.to(torch.int64),
+                    w=t - i, live=live, r=r, dx=dx)
+
+    def values(self, rows_flat, st):
+        """The step's (C, P) additions to each offset plane."""
+        val = torch.lerp(gather_rows(rows_flat, st['base']),
+                         gather_rows(rows_flat, st['base'] + 1), st['w'])
+        val = torch.where(st['live'] & torch.isfinite(val), val,
+                          0.0) * self.a_scale
+        scale = val / torch.clamp(st['r'], min=1e-30)
+        return [(scale * dd).sum(dim=1) for dd in st['dx']]
+
+
+def snapshot_pass_diff(use_rdelta, P, n_hi, dense, counts_h, counts_host,
+                       planes, counts_p, packed, rows, g0, dg, rad_hi,
+                       eps_max, a_scale, L, census=None):
+    """One bucket's pass as a differentiable function of ``rows``: new
+    padded offset planes with the values of :func:`snapshot_offsets_pass`
+    on zero planes, bit for bit. Where ``rows`` requires grad the
+    backward recomputes the pass a step at a time (positions and
+    candidates are constant; ``grid_cellmajor._PassFn``); otherwise this
+    is the plain pass (a ``census`` is only filled then)."""
+    return _pass_diff(_SnapBucket(use_rdelta, P, n_hi, dense, counts_h,
+                                  counts_host, planes, counts_p, packed, g0,
+                                  dg, rad_hi, eps_max, a_scale, L),
+                      rows, census)
+
+
 def snapshot_offsets_pass(use_rdelta, P, n_hi, dense, counts_h, counts_host,
                           planes, counts_p, packed, rows, g0, dg, rad_hi,
                           eps_max, a_scale, L, out, census=None):
@@ -119,59 +223,7 @@ def snapshot_offsets_pass(use_rdelta, P, n_hi, dense, counts_h, counts_host,
              'steps' are added to; it synchronises once a step, so it is
              for measurement only
     """
-    dev, dt = packed.device, packed.dtype
-    ncell = counts_h.shape[0]
-    K = dense.shape[0] // ncell
-    dense2 = dense.reshape(ncell, K).to(torch.int64)
-    counts_h = counts_h.to(torch.int64)
-    counts_p = counts_p.to(torch.int64)
-    rows_flat = rows.reshape(-1)
-    # the per-halo columns a slot reads: position, reach (, ln R_com)
-    hcols = [packed[:, 0], packed[:, 1], packed[:, 2], eps_max * packed[:, 3]]
-    if use_rdelta:
-        hcols.append(packed[:, 5])
-    hrec = torch.stack(hcols, dim=-1)
-    pos = [p.reshape(ncell, P) for p in planes]
-    slot = torch.arange(P, device=dev)
-    C = _cell_chunk(ncell, P * max(1, min(K, 16)), PASS_BUDGET)
-    for c0 in range(0, ncell, C):
-        c1 = c0 + C
-        k_max = int(counts_host[c0:c1].max())
-        if k_max == 0:
-            continue
-        G = max(1, min(k_max, PASS_BUDGET // (C * P)))
-        p_ok = (slot[None, :] < counts_p[c0:c1, None])[:, None, :]
-        pc = [p[c0:c1, None, :] for p in pos]                 # (C, 1, P)
-        acc = [torch.zeros((C, P), dtype=dt, device=dev) for _ in range(3)]
-        for k0 in range(0, k_max, G):
-            k1 = min(k0 + G, k_max)
-            hid = dense2[c0:c1, k0:k1]                         # (C, G)
-            ok = (torch.arange(k0, k1, device=dev)[None, :]
-                  < counts_h[c0:c1, None])
-            rec = hrec[hid]                                    # (C, G, .)
-            dx = []
-            for d in range(3):
-                v = pc[d] - rec[..., d, None]
-                dx.append(v - L * torch.round(v / L))          # (C, G, P)
-            r = torch.sqrt(dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2])
-            rad = torch.log(torch.clamp(r, min=1e-30))
-            if use_rdelta:
-                rad = rad - rec[..., 4, None]
-            t = (rad - g0) / dg
-            i = torch.clamp(torch.floor(t), 0, n_hi - 2)
-            w = t - i
-            base = hid[..., None] * n_hi + i.to(torch.int64)
-            val = torch.lerp(rows_flat[base], rows_flat[base + 1], w)
-            live = ((rad >= g0) & (rad <= rad_hi)
-                    & (r < rec[..., 3, None]) & ok[..., None] & p_ok)
-            if census is not None:
-                census['pairs'] += int((ok[..., None] & p_ok).sum())
-                census['inside'] += int(live.sum())
-                census['steps'] += 1
-            val = torch.where(live & torch.isfinite(val), val, 0.0) * a_scale
-            scale = val / torch.clamp(r, min=1e-30)
-            for a, dd in zip(acc, dx):
-                a += (scale * dd).sum(dim=1)
-        for o, a in zip(out, acc):
-            o[c0 * P:c1 * P] += a.reshape(-1)
-    return out
+    bk = _SnapBucket(use_rdelta, P, n_hi, dense, counts_h, counts_host,
+                     planes, counts_p, packed, g0, dg, rad_hi, eps_max,
+                     a_scale, L)
+    return _bucket_pass(bk, rows, out, census)

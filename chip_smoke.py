@@ -14,8 +14,8 @@ and fails on any fault:
      the least time the card could take (the bound). The scatter takes
      unsorted rows, as the runners make them, at three inputs (a real
      chunk of the shell path, 4M clustered rows, and the 1.34e8 CIC rows
-     that the grid path's auto method gives it at 256^3), with the whole
-     call, the library call doing the same function, and the device
+     that the grid path's auto method gives it at 256^3, in eight calls
+     of one CIC corner each), with the whole call, the library call doing the same function, and the device
      launches a call; both Legendre kernels also get their issue bound; the
      cell-major pass runs in both modes at the shell path's bucket with
      the most slot-pixels, after a census of the path's buckets;
@@ -49,8 +49,9 @@ and fails on any fault:
      halos) and 2D map (2048^2, 2e5 halos) runs, Baryonification3D/2D
      tables built on the card: BaryonifyGrid cold and warm with stages
      under "auto" (the cell-major method: plain PyTorch passes, then the
-     CIC redeposit, one scatter launch) and with method="scatter"; the
-     2D run also paints a TabulatedProfile(Gas). Mass conserved, the two
+     CIC redeposit, one scatter launch a corner) and with
+     method="scatter"; the 2D run also paints a TabulatedProfile(Gas).
+     Mass conserved, the two
      methods' maps compared, the census of each pass (voxel-slots listed
      and inside) with its operations bound, and the device launches,
      idle share and peak memory of a warm call; the 2D run also paints
@@ -72,7 +73,7 @@ and fails on any fault:
   9. families path: grid-256 under BaryonifyGrid("auto") with the
      Arico20 (reference example 12's parameters) and Mead20
      (Params_TAGN_7p8) DMO/DMB pairs, Baryonification3D tables built on
-     the card; mass conserved, one scatter launch (the CIC) a call;
+     the card; mass conserved, eight scatter launches (the CIC) a call;
   10. snapshot path: bench_runners.py's bench_snap (L = 500 Mpc, 5e6
      uniform particles, 1e5 halos, eps_max 15, the grid phase's
      Baryonification3D table): BaryonifySnapshot under "auto" (the
@@ -86,7 +87,31 @@ and fails on any fault:
      method in float64 (rtol 1e-10, atol 1e-10) and float32
      (SNAP_METHODS_F32_BAR), and the scatter kernel against its plain
      version at the gather run's largest chunk;
-  11. dP(k) path: examples/10_delta_pk_snapshot.py and
+  11. gradgrid: grid-256 differentiated at full width (bench_runners'
+     bench_grid inputs): chi^2 = sum (map(ln M_c) - map(ln M_c,true))^2
+     through float64 build_table_device and float32
+     BaryonifyGrid.process_device under "auto" (the cell-major passes'
+     step-wise adjoint, the CIC through the scatter kernel and its
+     backward kernel scatter_add_vjp): a cold and a warm value_and_grad
+     with seconds, peak memory and no registration in the warm step, and
+     one more with the memory that the forward keeps split by stage, the
+     float64 gradient against central differences, process_device()
+     against process(); the backward kernel against its plain version on
+     the CIC's 1.34e8 rows (eight calls, one a corner) with its time, the
+     library call's (torch.where over an indexed gather) and its bytes
+     bound; the scatter and its backward on 2^31 + 2^20 rows in one call
+     (three chunks) and a CIC deposit of 8 * 700^3 rows, exactly; then the
+     2D baryonify, the 2D tSZ paint and the 3D Gas paint at smaller sizes,
+     both methods, process_device() against process() and one backward
+     each;
+  12. gradsnap: snap-5e6 (bench_snap's inputs) differentiated: chi^2 on
+     example 15's seven P(k) bands at 256^3 through
+     BaryonifySnapshot.process_device, cold and warm value_and_grad,
+     float64 against central differences, process_device() against
+     process() (float64 bit for bit);
+  13. ex15: examples/15_gradient_fit_dPk.py on the card at its sizes, in
+     float64, the full tier (20 Adam steps), its three asserts;
+  14. dP(k) path: examples/10_delta_pk_snapshot.py and
      examples/12_arico_delta_pk_snapshot.py on the card: the halo-model
      suppression against the 15 scraped Schneider+19 Fig. 2 curves at the
      example's bars (0.035 a curve, 0.030 overall), and the two mock boxes
@@ -94,16 +119,16 @@ and fails on any fault:
      2): table, BaryonifySnapshot (float64, "auto"), make_map on the
      host, power_spectrum_3d on the card; measured vs predicted RMS below
      0.050 and the examples' least suppression;
-  12. C_ell path: examples/09_delta_cls_shells.py at its full resolution
+  15. C_ell path: examples/09_delta_cls_shells.py at its full resolution
      (NSIDE 1024, lmax 2048): paint a DMO shell from 3000 halos, baryonify
      it for theta_ej in {2, 4, 8}, and assert the example's four shape
      checks on the anafast ratios; the cell-major and analysis kernels
      must have been launched;
-  13. synthesis path: synfast then anafast at NSIDE 1024 / lmax 2048
+  16. synthesis path: synfast then anafast at NSIDE 1024 / lmax 2048
      (recovered C_ell inside cosmic variance), and alm2map then
      map2alm(iter=3) (residual below iter=0's); the synthesis kernel must
      have been launched;
-  14. reference: a small shell (both methods), anafast, alm2map and
+  17. reference: a small shell (both methods), anafast, alm2map and
      paint (both methods) at NSIDE 64 on the card (float64 and float32)
      against the port's CPU float64 runs, the two shell methods against
      each other on the card in float64, a small table built on the card
@@ -430,8 +455,9 @@ def check_scatter(T, torch, sc, device, n_halo, nside):
 def cic_rows(T, torch, device, cell="grid"):
     """The CIC rows of a grid cell's redeposit, as its ``auto`` path
     makes them: one process() with ops.scatter's deposit recorded (its
-    cell positions and the map's values, float32), then the 2^d N^d
-    (destination, value) rows that the deposit hands the kernel."""
+    cell positions and the map's values, float32), then the 2^d
+    (destination, value) row sets of N^d rows, one a CIC corner, that the
+    deposit hands the kernel one call each."""
     from baryonification_tpu_torch.ops import scatter as tsc
     from baryonification_tpu_torch.runners import grid as tgrid
     dim, N, L, n_halo = GRID_CELLS[cell]
@@ -451,31 +477,38 @@ def cic_rows(T, torch, device, cell="grid"):
     finally:
         setattr(tgrid, name, orig)
     pos, vals, dt = seen[0]
-    return tsc._cic_rows(N, pos, vals, dt), N ** dim
+    return list(tsc._cic_corners(N, pos, vals, dt)), N ** dim
 
 
 def check_scatter_cic(T, torch, sc, device):
     """The scatter kernel against its plain version on the CIC rows of
-    grid-256 (one plane; float32 as the path, and float64), with the
-    whole call's CUDA-event time, the library call (mask, compaction, one
-    index_add_), the device launches a call and the bytes bound. Returns
-    (max float32 error, dict of times in ms)."""
-    (idx, v32), npix = cic_rows(T, torch, device)
-    v32 = v32.to(torch.float32)
-    n = idx.shape[0]
-    per_pix = torch.bincount(idx.long(), minlength=npix)
+    grid-256 (one plane; float32 as the path, and float64): the deposit's
+    calls, one a CIC corner, into one accumulator, with their CUDA-event
+    time, the library call's (mask, compaction, one index_add_ a corner),
+    the device launches and the bytes bound. Returns (max float32 error,
+    dict of times in ms)."""
+    corners, npix = cic_rows(T, torch, device)
+    corners = [(i, v.to(torch.float32)) for i, v in corners]
+    n = sum(i.shape[0] for i, _ in corners)
+    per_pix = sum(torch.bincount(i.long(), minlength=npix)
+                  for i, _ in corners)
     n_touched = int((per_pix > 0).sum())
     log(f"kernels: scatter_add grid-256 CIC input: Npix={npix} C=1 "
-        f"rows={n} touched pixels={n_touched} max rows/pixel="
+        f"{len(corners)} calls of {corners[0][0].shape[0]} rows, {n} rows "
+        f"in all; touched pixels={n_touched} max rows/pixel="
         f"{int(per_pix.max())} mean rows/touched pixel={n / n_touched:.2f}")
     del per_pix
     errs = {}
+
+    def deposit(fn, dt):
+        acc = torch.zeros(npix, dtype=dt, device=device)
+        for i, v in corners:
+            fn((acc,), i, (v.to(dt),))
+        return acc
+
     for dt, name in ((torch.float64, "f64"), (torch.float32, "f32")):
-        v = (v32.to(dt),)
-        want = sc.scatter_add_accum_reference(
-            (torch.zeros(npix, dtype=dt, device=device),), idx, v)[0]
-        got = sc.scatter_add_accum(
-            (torch.zeros(npix, dtype=dt, device=device),), idx, v)[0]
+        want = deposit(sc.scatter_add_accum_reference, dt)
+        got = deposit(sc.scatter_add_accum, dt)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if dt == torch.float64:
@@ -490,17 +523,19 @@ def check_scatter_cic(T, torch, sc, device):
               f"plain version: max err {err:.3e} ({tol})")
         log(f"kernels: scatter_add grid-256 CIC {name} agrees with plain "
             f"index_add_: max|err|={err:.3e} ({tol})")
-        del want, got, v
+        del want, got
     acc = torch.zeros(npix, dtype=torch.float32, device=device)
 
     def library():
-        ok = idx < npix
-        acc.index_add_(0, idx[ok].to(torch.int64), v32[ok])
+        for i, v in corners:
+            ok = i < npix
+            acc.index_add_(0, i[ok].to(torch.int64), v[ok])
 
-    fns = dict(call=lambda: sc.scatter_add_accum((acc,), idx, (v32,)),
-               plain=lambda: sc.scatter_add_accum_reference((acc,), idx,
-                                                            (v32,)),
-               library=library)
+    def each(fn):
+        return lambda: [fn((acc,), i, (v,)) for i, v in corners]
+
+    fns = dict(call=each(sc.scatter_add_accum),
+               plain=each(sc.scatter_add_accum_reference), library=library)
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
@@ -516,8 +551,8 @@ def check_scatter_cic(T, torch, sc, device):
     on_dev = {k: ("device launches not measured" if c is None else
                   f"{c} device launches a call, {d:.4f} ms on the device")
               for k, (c, d, _) in n_dev.items()}
-    log(f"kernels: scatter_add grid-256 CIC f32 C=1: whole call "
-        f"(scatter_add_accum) {ms['call']:.4f} ms (runs "
+    log(f"kernels: scatter_add grid-256 CIC f32 C=1: the deposit's "
+        f"{len(corners)} calls (scatter_add_accum) {ms['call']:.4f} ms (runs "
         + ", ".join(f"{x:.4f}" for x in runs["call"])
         + f"; {on_dev['call']}); plain (mask + index_add_) "
         f"{ms['plain']:.4f} ms; library (mask, compaction, one index_add_) "
@@ -1253,9 +1288,10 @@ TIMED_RUN = {"scatter_add": "grid BaryonifyGrid (auto = cellmajor)",
              "legendre_alm": "C_ell path (baryonify + anafast)",
              "legendre_synth": "synthesis path",
              "cellmajor_vjp": "grad (value_and_grad, float32)",
-             "cellmajor_vjp2": "fit (examples 14, 16, 18)"}
+             "cellmajor_vjp2": "fit (examples 14, 16, 18)",
+             "scatter_add_vjp": "gradgrid (value_and_grad, float32)"}
 COUNTERS = []       # the LAUNCHES dicts of the kernel modules
-SCATTER = []        # the names of the scatter module's kernels
+SCATTER = []        # the name of the scatter module's forward kernel
 CELLMAJOR = []      # the name of the cell-major module's forward kernel
 PATH_LAUNCHES = {}  # path -> launch counts of its run (read_counts)
 
@@ -1557,9 +1593,9 @@ def compare_maps(label, a, b, base):
 def grid_path(T, torch, device, cell):
     """One of bench_runners.py's grid runs on the card: BaryonifyGrid cold
     and warm with stages under ``auto`` (the cell-major method: the
-    scatter kernel launched once, for the CIC redeposit; the cell-major
-    shell kernel never) and with method="scatter" (the kernel launched
-    once a chunk and for the CIC), the two maps compared; grid2d also
+    scatter kernel launched once a CIC corner, for the redeposit; the
+    cell-major shell kernel never) and with method="scatter" (the kernel
+    launched once a chunk and for the CIC), the two maps compared; grid2d also
     paints a TabulatedProfile(Gas) both ways, and once more both ways in
     float64, against which each float32 paint is held. Returns the launch
     counts of every cold run, by run."""
@@ -1586,9 +1622,9 @@ def grid_path(T, torch, device, cell):
             torch, runner, label, [] if paint else SCATTER,
             CELLMAJOR + (SCATTER if paint else []), paint=paint)
         if not paint:
-            check(out[label]["scatter_add"] == 1,
-                  f"{label}: the CIC redeposit is one scatter launch, got "
-                  f"{out[label]['scatter_add']}")
+            check(out[label]["scatter_add"] == 2 ** dim,
+                  f"{label}: the CIC redeposit is one scatter launch a "
+                  f"corner ({2 ** dim}), got {out[label]['scatter_add']}")
         grid_census(torch, runner, label, mode, dim, dname)
         label_s = f"{cell} {name} (scatter)"
         sc_map, out[label_s], _ = run_process(
@@ -2039,7 +2075,7 @@ def families_path(T, torch, device):
     ("auto") with the Arico20 and Mead20 DMO/DMB pairs: each
     Baryonification3D table built on the card (timed), process() cold
     and warm; mass conserved, the map changed, the CIC one scatter launch
-    a call."""
+    a corner."""
     dim, N, L, n_halo = GRID_CELLS["grid"]
     cat, gm = nd_catalog(T, dim, N, L, n_halo)
     out = {}
@@ -2065,9 +2101,9 @@ def families_path(T, torch, device):
         label = f"families grid {fam} BaryonifyGrid (auto = cellmajor)"
         _, out[label], _ = run_process(torch, runner, label, SCATTER,
                                        CELLMAJOR)
-        check(out[label]["scatter_add"] == 1,
-              f"{label}: the CIC redeposit is one scatter launch, got "
-              f"{out[label]['scatter_add']}")
+        check(out[label]["scatter_add"] == 2 ** dim,
+              f"{label}: the CIC redeposit is one scatter launch a corner "
+              f"({2 ** dim}), got {out[label]['scatter_add']}")
     return out
 
 
@@ -2861,13 +2897,14 @@ def grid_points(grid):
             np.geomspace(grid["R_min"], grid["R_max"], grid["N_samples_R"]))
 
 
-def table_of(T, cosmo, grid, par):
-    """The Baryonification2D table of the profile parameters ``par``
-    (tensors carry their graph) at ``grid``'s points, (z, M, r)."""
+def table_of(T, cosmo, grid, par, dim=2, eps=EPS_MAX):
+    """The Baryonification2D (``dim`` 3: 3D) table of the profile
+    parameters ``par`` (tensors carry their graph) at ``grid``'s points,
+    (z, M, r), through build_table_device."""
     z, M, r = grid_points(grid)
-    m = T.Baryonification2D(T.DarkMatterOnly(**par),
-                            T.DarkMatterBaryon(**par), cosmo,
-                            epsilon_max=EPS_MAX)
+    cls = T.Baryonification2D if dim == 2 else T.Baryonification3D
+    m = cls(T.DarkMatterOnly(**par), T.DarkMatterBaryon(**par), cosmo,
+            epsilon_max=eps)
     return m.build_table_device(z, M, r).reshape(len(z), len(M), len(r))
 
 
@@ -3413,6 +3450,681 @@ def fit_path(T, torch, cmc, device):
                 bound_ms=bound, bound_by=by)
 
 
+# ----- the differentiable grid and snapshot paths: gradgrid, gradsnap,
+# ex15 -----
+
+# examples/15_gradient_fit_dPk.py: its truth, start, table grid and sizes
+EX15_LN_MC_TRUE = float(np.log(10 ** 13.6))
+EX15_LN_MC_START = float(np.log(10 ** 14.4))
+EX15_Z = np.geomspace(0.2, 0.3, 2)
+EX15_M = np.geomspace(1e13, 1e15, 6)
+EX15_R = np.geomspace(1e-2, 40, 48)
+EX15_SIZE = dict(L=120.0, n_part=30_000, n_halo=25, Ng=48, seed=4)
+
+
+def ex15_box(L, n_part, n_halo, seed):
+    """The example's mock DMO box, drawn in its order from one generator:
+    (halo positions (n_halo, 3), halo masses, particle positions
+    (n_part, 3)); half the particles clustered around the halos."""
+    rng = np.random.default_rng(seed)
+    hx = rng.uniform(0, L, (n_halo, 3))
+    hM = 10 ** rng.uniform(14.0, 14.9, n_halo)
+    n_clust = n_part // 2
+    host = rng.choice(n_halo, n_clust, p=hM / hM.sum())
+    r_nfw = 0.9 * rng.power(0.8, n_clust)[:, None]
+    dirs = rng.normal(size=(n_clust, 3))
+    dirs /= np.linalg.norm(dirs, axis=1)[:, None]
+    pos = np.concatenate([np.mod(hx[host] + r_nfw * dirs * 3.0, L),
+                          rng.uniform(0, L, (n_part - n_clust, 3))])
+    return hx, hM, pos
+
+
+def ex15_bands(L, Ng):
+    """The example's seven k-band masks over the rfftn grid, (7, Ng^2
+    (Ng/2 + 1)) float64."""
+    kf = 2 * np.pi / L
+    kx = np.fft.fftfreq(Ng, d=1.0 / Ng)
+    k2 = (kx[:, None, None] ** 2 + kx[None, :, None] ** 2
+          + np.fft.rfftfreq(Ng, d=1.0 / Ng)[None, None, :] ** 2)
+    binid = np.digitize((np.sqrt(k2) * kf).ravel(),
+                        np.linspace(1.5 * kf, 12 * kf, 8))
+    return np.stack([(binid == i + 1).astype(np.float64) for i in range(7)])
+
+
+def pk_bands(T, torch, L, Ng, dt, device):
+    """Example 15's P(k): a function of particle positions (x, y, z) that
+    gives the seven bands of the power of their CIC density on Ng^3
+    cells (cic_deposit_3d in ``dt``, the scatter kernel on the card, then
+    rfftn), each band's mean over its modes."""
+    masks = torch.as_tensor(ex15_bands(L, Ng), dtype=dt, device=device)
+    n_modes = masks.sum(-1).clamp(min=1)
+    res = L / Ng
+
+    def pk(x, y, z):
+        rho = T.ops.scatter.cic_deposit_3d(
+            Ng, x / res - 0.5, y / res - 0.5, z / res - 0.5,
+            torch.ones_like(x), dtype=dt)
+        delta = rho - rho.mean()
+        pw = torch.fft.rfftn(delta).abs().reshape(-1) ** 2
+        return (masks * pw).sum(-1) / n_modes
+
+    return pk
+
+
+def ex15_chain(T, torch, device, L, n_part, n_halo, Ng, seed,
+               precision="float64"):
+    """The example's chain through the port on ``device``: returns
+    (table_of, ratio_of, runner). ``table_of(lnMc)`` is the
+    Baryonification3D table of Schneider19 with CollisionlessMatter
+    (r_steps 1500, max_iter 6) through build_table_device on the
+    example's 2 x 6 x 48 grid; ``ratio_of(table)`` the seven binned P(k)
+    bands of the displaced particles' CIC density (process_device ->
+    cic_deposit_3d -> rfftn) over those of the undisplaced box."""
+    hx, hM, pos = ex15_box(L, n_part, n_halo, seed)
+    cosmo = T.Cosmology.from_dict(COSMO, device=device)
+    snap = T.ParticleSnapshot(x=pos[:, 0], y=pos[:, 1], z=pos[:, 2],
+                              M=np.ones(n_part), L=L, redshift=0.25,
+                              cosmo=COSMO)
+    cat = T.HaloNDCatalog(x=hx[:, 0], y=hx[:, 1], z=hx[:, 2], M=hM,
+                          redshift=0.25, cosmo=COSMO)
+    model0 = T.Baryonification3D(T.DarkMatterOnly(**PAR),
+                                 T.DarkMatterBaryon(**PAR), cosmo,
+                                 epsilon_max=10)
+    model0.setup_interpolator(
+        z_min=EX15_Z[0], z_max=EX15_Z[-1], N_samples_z=len(EX15_Z),
+        M_min=EX15_M[0], M_max=EX15_M[-1], N_samples_Mass=len(EX15_M),
+        R_min=EX15_R[0], R_max=EX15_R[-1], N_samples_R=len(EX15_R),
+        verbose=False)
+    runner = T.BaryonifySnapshot(cat, snap, epsilon_max=10, model=model0,
+                                 method="cellmajor", verbose=False,
+                                 device=device, precision=precision)
+    pk = pk_bands(T, torch, L, Ng, runner.dtype, device)
+    p_dmo = pk(*(torch.as_tensor(snap.cat[c], dtype=runner.dtype,
+                                 device=device) for c in "xyz"))
+
+    def table_of(lnMc):
+        par = dict(PAR, M_c=torch.exp(lnMc))
+        clm = T.CollisionlessMatter(r_steps=1500, max_iter=6, **par)
+        m = T.Baryonification3D(
+            T.DarkMatterOnly(**par),
+            T.DarkMatterBaryon(collisionlessmatter=clm, **par), cosmo,
+            epsilon_max=10)
+        return m.build_table_device(EX15_Z, EX15_M, EX15_R).reshape(
+            len(EX15_Z), len(EX15_M), len(EX15_R))
+
+    return table_of, (lambda table: pk(*runner.process_device(table))
+                      / p_dmo), runner
+
+
+# float32 bar, rms/mean, of process_device() against process() on the
+# card: the same computation, whose atomic adds (the CIC, the windowed
+# scatters) land in another order, so the maps differ by rounding only
+DEVICE_F32_BAR = 1e-6
+# the bounded sizes of the 2D paths and the paints (and of every scatter
+# method), where process_device() is held against process() and one
+# backward runs: cell -> (dim, N, box L [Mpc], halos), bench_runners'
+# resolutions (grid2d's 0.49 Mpc cells, grid-256's 1.95 Mpc)
+GRAD_SMALL = {"grid2d": (2, 512, 250.0, 20_000),
+              "paint3d": (3, 64, 125.0, 2_000)}
+# gradsnap: example 15's P(k) bands at this mesh over bench_snap's box
+GRAD_SNAP_NG = 256
+# the CIC deposit of more than 2^31 rows (8 N^3) that gradgrid runs
+BIG_CIC_N = 700
+# no TPU kernel replaced: the backward of the Pallas scatter-add
+VJP_REPLACES = "baryonification_tpu/ops/scatter_pallas.py:204"
+
+
+def value_and_grad(torch, loss_of, x0, device):
+    """(loss, d loss / d x at x0, forward s, backward s) on the card."""
+    x = torch.tensor(x0, dtype=torch.float64, device=device,
+                     requires_grad=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = loss_of(x)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (g,) = torch.autograd.grad(loss, x)
+    torch.cuda.synchronize()
+    return (float(loss.detach()), float(g), t1 - t0,
+            time.perf_counter() - t1)
+
+
+@contextlib.contextmanager
+def synced_time(torch, module, name, times):
+    """``module.name`` timed for the block: each call, synchronised before
+    and after, adds its seconds to ``times``."""
+    fn = getattr(module, name)
+
+    def timed_fn(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, timed_fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def warm_value_and_grad(torch, label, loss_of, x0, device, reg_module,
+                        reg_name, pass_module):
+    """A cold and a warm value_and_grad of ``loss_of`` at ``x0`` with the
+    registrations (calls of ``reg_module.reg_name``) of each, the peak
+    device memory of the warm one, and then one more warm step with the
+    passes' forwards and backwards timed (``pass_module``'s
+    ``_bucket_pass`` and ``_bucket_vjp``, the grid and snapshot passes'
+    step loops, synchronised: for the breakdown only). Returns (cold,
+    warm, peak GiB)."""
+    regs = []
+    with spied(reg_module, reg_name, regs.append):
+        cold = value_and_grad(torch, loss_of, x0, device)
+        regs_cold = len(regs)
+        regs.clear()
+        torch.cuda.reset_peak_memory_stats()
+        warm = value_and_grad(torch, loss_of, x0, device)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        regs_warm = len(regs)
+    t_fwd, t_bwd = [], []
+    with synced_time(torch, pass_module, "_bucket_pass", t_fwd), \
+            synced_time(torch, pass_module, "_bucket_vjp", t_bwd):
+        split = value_and_grad(torch, loss_of, x0, device)
+    log(f"{label}: cold value_and_grad forward {cold[2]:.3f} s, backward "
+        f"{cold[3]:.3f} s ({regs_cold} registrations); warm forward "
+        f"{warm[2]:.3f} s, backward {warm[3]:.3f} s, peak memory "
+        f"{peak:.2f} GiB, registrations {regs_warm}; loss {warm[0]:.6e}, "
+        f"gradient {warm[1]:.6e}; a third step with the passes synced: "
+        f"forward {split[2]:.3f} s of which the {len(t_fwd)} bucket passes "
+        f"{sum(t_fwd):.3f} s, backward {split[3]:.3f} s of which their "
+        f"{len(t_bwd)} adjoints {sum(t_bwd):.3f} s")
+    check(regs_warm == 0, f"{label}: the warm step registered {regs_warm} "
+          f"buckets")
+    check(np.isfinite(warm[1]) and warm[1] != 0, f"{label}: gradient "
+          f"{warm[1]!r}")
+    return cold, warm, peak
+
+
+@contextlib.contextmanager
+def held_memory(torch, targets, held):
+    """Each ``(owner, name)`` of ``targets`` (a module or a class)
+    wrapped for the block: the device memory that a call leaves allocated
+    beyond the tensors it returns (what autograd saved for the backward,
+    and what the call keeps) is added to ``held[name]``."""
+    saved = [(o, n, o.__dict__.get(n), getattr(o, n)) for o, n in targets]
+
+    def wrap(name, fn):
+        def f(*args, **kw):
+            m0 = torch.cuda.memory_allocated()
+            out = fn(*args, **kw)
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            n_out = sum(o.untyped_storage().nbytes() for o in outs
+                        if torch.is_tensor(o))
+            held[name] = (held.get(name, 0) + torch.cuda.memory_allocated()
+                          - m0 - n_out)
+            return out
+        return f
+
+    for o, n, _, fn in saved:
+        setattr(o, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for o, n, own, _ in saved:
+            if own is None:
+                delattr(o, n)
+            else:
+                setattr(o, n, own)
+
+
+def memory_split(torch, label, loss_of, x0, device, targets):
+    """One more warm value_and_grad with the device memory split: what is
+    allocated when it starts (the runners' caches, the targets), what the
+    forward leaves for the backward (in all, and held by each of
+    ``targets``' calls, see :func:`held_memory`), and the peaks of the
+    forward and of the backward over the start. Returns a dict in GiB."""
+    x = torch.tensor(x0, dtype=torch.float64, device=device,
+                     requires_grad=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    held = {}
+    with held_memory(torch, targets, held):
+        loss = loss_of(x)
+    kept = torch.cuda.memory_allocated() - base
+    peak_fwd = torch.cuda.max_memory_allocated() - base
+    torch.autograd.grad(loss, x)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    gib = {k: v / 2**30 for k, v in held.items()}
+    out = dict(start=base / 2**30, kept=kept / 2**30,
+               peak_forward=peak_fwd / 2**30, peak=peak / 2**30, **gib)
+    log(f"{label}: memory: {out['start']:.2f} GiB allocated at the start "
+        f"of a warm step (runners, caches, targets); the forward keeps "
+        f"{out['kept']:.2f} GiB for the backward, of which "
+        + ", ".join(f"{k} {v:.2f} GiB" for k, v in gib.items())
+        + f", the rest {out['kept'] - sum(gib.values()):.2f} GiB; peaks "
+        f"over the start: forward {out['peak_forward']:.2f} GiB, backward "
+        f"{out['peak']:.2f} GiB (so the step's peak is "
+        f"{out['start'] + out['peak']:.2f} GiB)")
+    return out
+
+
+def check_fd(torch, label, loss_of, x0, g64, device):
+    """The float64 gradient ``g64`` of ``loss_of`` at ``x0`` against
+    central differences at GRAD_FD_STEPS: GRAD_FD_BAR, or
+    GRAD_FD_KINK_BAR where the differences depend on their step (the
+    CIC's floor() kinks). Returns the largest relative error."""
+    f64 = dict(dtype=torch.float64, device=device)
+    fds = []
+    with torch.no_grad():
+        for h in GRAD_FD_STEPS:
+            fp = float(loss_of(torch.tensor(x0 + h, **f64)))
+            fm = float(loss_of(torch.tensor(x0 - h, **f64)))
+            fds.append((fp - fm) / (2 * h))
+    spread = (max(fds) - min(fds)) / abs(fds[-1])
+    bar = GRAD_FD_KINK_BAR if spread > GRAD_FD_BAR else GRAD_FD_BAR
+    errs = [abs(g64 - fd) / abs(fd) for fd in fds]
+    log(f"{label}: float64 gradient {g64:.10e}; central differences "
+        + ", ".join(f"h={h:g}: {fd:.10e} (rel {e:.3e})"
+                    for h, fd, e in zip(GRAD_FD_STEPS, fds, errs))
+        + f"; spread {spread:.3e}, held at {bar:g}")
+    check(np.isfinite(g64) and g64 != 0 and max(errs) <= bar,
+          f"{label}: float64 gradient {g64!r} against central differences "
+          f"{fds} (bar {bar})")
+    return max(errs)
+
+
+def check_scatter_vjp(T, torch, sc, device):
+    """The backward kernel against its plain version on grid-256's CIC
+    rows (8 calls of 1.68e7 rows, one a CIC corner, as the gradgrid
+    path's backward hands them it), float32 and float64, exactly (a
+    gather); the CUDA-event time of the 8 calls beside the plain
+    version's, the library call's (one torch.where over an indexed
+    gather a corner) and the bytes bound, with the device launches.
+    Returns the kernels-line record."""
+    corners, npix = cic_rows(T, torch, device)
+    idxs = [i for i, _ in corners]
+    del corners
+    n = sum(i.shape[0] for i in idxs)
+    n_live = sum(int((i < npix).sum()) for i in idxs)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    for dt in (torch.float64, torch.float32):
+        ct = torch.randn(npix, generator=gen, dtype=torch.float64).to(
+            device, dt)
+        err = 0.0
+        for i in idxs:
+            got = sc.scatter_add_vjp((ct,), i)[0]
+            want = sc.scatter_add_vjp_reference((ct,), i)[0]
+            err = max(err, float((got - want).abs().max()))
+        log(f"gradgrid: scatter_add_vjp grid-256 CIC rows ({len(idxs)} "
+            f"calls, {n} rows, {n_live} aimed at a pixel) {str(dt)[6:]} "
+            f"against its plain version: max|err| {err:.3e} (bar 0: a "
+            f"gather)")
+        check(err == 0, f"scatter_add_vjp {dt} disagrees with its plain "
+              f"version: {err:.3e}")
+        del got, want
+
+    def library():
+        return [torch.where(i < npix, ct[torch.where(i < npix, i, 0)], 0.0)
+                for i in idxs]
+
+    fns = dict(call=lambda: [sc.scatter_add_vjp((ct,), i) for i in idxs],
+               plain=lambda: [sc.scatter_add_vjp_reference((ct,), i)
+                              for i in idxs],
+               library=library)
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    runs = {k: [] for k in fns}
+    for k in ("plain", "library", "call", "call", "library", "plain"):
+        runs[k].append(cuda_ms(torch, fns[k], 5))
+    ms = {k: sum(r) / len(r) for k, r in runs.items()}
+    n_dev = {k: device_launches(torch, fns[k]) for k in ("call", "library")}
+    # every row's int32 index read and its float32 cotangent written once,
+    # each row aimed at a pixel gathers one float32
+    n_bytes = n * 4 + n_live * 4 + n * 4
+    bound = n_bytes / PEAK_BYTES * 1e3
+    on_dev = {k: ("device launches not measured" if c is None else
+                  f"{c} device launches, {d:.4f} ms on the device")
+              for k, (c, d, _) in n_dev.items()}
+    log(f"gradgrid: scatter_add_vjp grid-256 CIC f32 C=1: the "
+        f"{len(idxs)} calls {ms['call']:.4f} ms (runs "
+        + ", ".join(f"{x:.4f}" for x in runs["call"])
+        + f"; {on_dev['call']}); plain (mask, int64 ids, index_select, "
+        f"where) {ms['plain']:.4f} ms; library (torch.where(ok, ct[safe], "
+        f"0)) {ms['library']:.4f} ms ({on_dev['library']}); bound "
+        f"{bound:.5f} ms ({n_bytes / 1e6:.2f} MB at {PEAK_BYTES / 1e12:.2f} "
+        f"TB/s); kernel at {100 * bound / ms['call']:.1f}% of the bound")
+    return dict(name="scatter_add_vjp", route="cuda",
+                source="baryonification_tpu_torch/csrc/scatter_add.cu",
+                replaces=VJP_REPLACES, max_abs_err=0.0, ms=ms["call"],
+                plain_ms=ms["plain"], bound_ms=bound, bound_by="bytes",
+                library_ms=ms["library"])
+
+
+def check_scatter_big(T, torch, sc, device):
+    """The scatter-add and its backward past the kernels' int row count,
+    each in one call, and a CIC deposit of more than 2^31 rows, all
+    checked exactly: (1) 2^31 + 2^20 rows of 1.0 aimed at 2^20 pixels
+    (each pixel gets 2049: exact in float32) in ceil(rows / CHUNK_ROWS)
+    launches; (2) the backward of those rows gathers each pixel's
+    cotangent 2049 times; (3) cic_deposit_3d of unit cells shifted by a
+    quarter cell on every axis at N = BIG_CIC_N, float32, whose every cell
+    gets the eight weights (3/4 or 1/4 a axis) that sum to 1 exactly."""
+    npix = 1 << 20
+    reps = (1 << 11) + 1
+    n = npix * reps
+    launches = -(-n // sc.CHUNK_ROWS)
+    idx = torch.arange(npix, dtype=torch.int32, device=device).repeat(reps)
+    before = dict(sc.LAUNCHES)
+    vals = torch.ones(n, dtype=torch.float32, device=device)
+    acc = torch.zeros(npix, dtype=torch.float32, device=device)
+    t0 = time.perf_counter()
+    sc.scatter_add_accum((acc,), idx, (vals,))
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    del vals
+    bad_fwd = int((acc != reps).sum())
+    ct = torch.arange(npix, dtype=torch.float32, device=device)
+    t0 = time.perf_counter()
+    (out,) = sc.scatter_add_vjp((ct,), idx)
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0
+    bad_bwd = int((out.view(reps, npix) != ct).sum())
+    del out, idx, acc, ct
+    got = {k: sc.LAUNCHES[k] - before[k] for k in before}
+    log(f"gradgrid: one scatter_add_accum of {n} rows (> 2^31) into "
+        f"{npix} pixels: {got['scatter_add']} launches (CHUNK_ROWS "
+        f"{sc.CHUNK_ROWS}, expected {launches}), {t_fwd * 1e3:.2f} ms, "
+        f"{bad_fwd} pixels off {reps}; its scatter_add_vjp: "
+        f"{got['scatter_add_vjp']} launches, {t_bwd * 1e3:.2f} ms, "
+        f"{bad_bwd} rows off their cotangent")
+    check(got["scatter_add"] == launches and bad_fwd == 0,
+          "scatter_add_accum past 2^31 rows is wrong")
+    check(got["scatter_add_vjp"] == launches and bad_bwd == 0,
+          "scatter_add_vjp past 2^31 rows is wrong")
+    N = BIG_CIC_N
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    i = torch.arange(N ** 3, device=device, dtype=torch.int32)
+    pos = [((i // N ** (2 - d)) % N).to(torch.float32) + 0.25
+           for d in range(3)]
+    del i
+    n0 = sc.LAUNCHES["scatter_add"]
+    t0 = time.perf_counter()
+    m = T.ops.scatter.cic_deposit_3d(N, *pos, torch.ones_like(pos[0]),
+                                     dtype=torch.float32)
+    torch.cuda.synchronize()
+    t_cic = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    off = float((m - 1.0).abs().max())
+    calls = sc.LAUNCHES["scatter_add"] - n0
+    del m, pos
+    torch.cuda.empty_cache()
+    log(f"gradgrid: cic_deposit_3d at N={N} ({8 * N ** 3} rows, > 2^31) "
+        f"float32: {calls} launches, {t_cic * 1e3:.2f} ms, peak "
+        f"{peak:.2f} GiB over what was held before, max|cell - 1| {off!r}"
+        f" (bar 0)")
+    check(8 * N ** 3 > 2 ** 31 and off == 0.0,
+          f"cic_deposit_3d at N={N}: max|cell - 1| {off!r}")
+
+
+def device_vs_process(torch, label, runner, base):
+    """process_device() against process() of one runner on the card,
+    rms over ``base`` (the original map's mean, or the paint's), at
+    DEVICE_F32_BAR (float32) or exactly 1e-12 (float64)."""
+    got = runner.process_device().to(torch.float64).cpu().numpy()
+    want = runner.process()
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"{label}: process_device() of shape {got.shape}, not finite or "
+          f"not process()'s {want.shape}")
+    rms = np.sqrt(np.mean((got - want) ** 2)) / base(want)
+    bar = DEVICE_F32_BAR if runner.dtype == torch.float32 else 1e-12
+    log(f"{label}: process_device() against process() on the card "
+        f"({str(runner.dtype)[6:]}): rms {rms:.3e} (bar {bar:g}; the "
+        f"atomic adds land in another order)")
+    check(rms <= bar, f"{label}: process_device() differs from process(): "
+          f"{rms:.3e}")
+    return rms
+
+
+def grad_small(T, torch, device):
+    """The 2D baryonify (grid2d's model) and both paints (the tSZ table
+    in 2D, the Gas table in 3D) at GRAD_SMALL's sizes, both methods,
+    float32: process_device() against process(), and one backward of a
+    table scale (finite, not 0). Returns the launch counts."""
+    reset_counts()
+    dim2, N2, L2, H2 = GRAD_SMALL["grid2d"]
+    dim3, N3, L3, H3 = GRAD_SMALL["paint3d"]
+    cat2, gm2 = nd_catalog(T, dim2, N2, L2, H2)
+    cat3, gm3 = nd_catalog(T, dim3, N3, L3, H3)
+    cases = [("grid2d BaryonifyGrid", "BaryonifyGrid", cat2, gm2,
+              grid_model(T, torch, device, 2), GRID_EPS, "_table"),
+             ("grid2d PaintProfilesGrid tsz_model(32)", "PaintProfilesGrid",
+              cat2, gm2, tsz_model(T, torch, device, 32), GRID_PAINT_EPS,
+              "_ln2D"),
+             ("paint3d PaintProfilesGrid Gas", "PaintProfilesGrid", cat3,
+              gm3, grid_model(T, torch, device, 3, "gas"), GRID_PAINT_EPS,
+              "_ln3D")]
+    for label, cls, cat, gm, mdl, eps, attr in cases:
+        paint = cls == "PaintProfilesGrid"
+        for method in ("auto", "scatter"):
+            runner = getattr(T, cls)(cat, gm, epsilon_max=eps, model=mdl,
+                                     verbose=False, device=device,
+                                     method=method)
+            name = (f"{label} ({runner.method}, N={gm.Npix}, "
+                    f"{cat.cat.size} halos)")
+            base = (lambda m: m.mean()) if paint else \
+                (lambda m, g=gm: g.map.mean())
+            device_vs_process(torch, f"gradgrid: {name}", runner, base)
+            tab = getattr(mdl, attr)
+            loss = (lambda m: m.double().sum()) if paint else \
+                (lambda m: (m.double() ** 2).sum())
+            res = value_and_grad(
+                torch, lambda s: loss(runner.process_device(tab * s)), 1.0,
+                device)
+            log(f"gradgrid: {name}: d loss / d table scale {res[1]:.6e} "
+                f"(forward {res[2]:.3f} s, backward {res[3]:.3f} s)")
+            check(np.isfinite(res[1]) and res[1] != 0,
+                  f"gradgrid: {name}: gradient {res[1]!r}")
+    return read_counts("gradgrid small sizes (2D, paints, scatter methods)",
+                       ("scatter_add", "scatter_add_vjp"))
+
+
+def gradgrid_path(T, torch, sc, device):
+    """grid-256 (bench_runners.py's bench_grid: 256^3, 1e5 halos, eps_max
+    15, the RUNNERS_GRID table grid) differentiated: chi^2 = sum (map(ln
+    M_c) - map(ln M_c,true))^2 through float64 build_table_device and
+    float32 process_device under ``auto`` (cell-major): a cold and a warm
+    value_and_grad (seconds, peak memory, no registration in the warm
+    step; the scatter and its backward kernel launched), the float64
+    gradient against central differences, process_device() against
+    process(); then the backward kernel against its plain version on the
+    CIC's rows, and the 2D path and both paints at GRAD_SMALL. Returns
+    the kernels-line record of scatter_add_vjp."""
+    from baryonification_tpu_torch.runners import grid as tgrid
+    from baryonification_tpu_torch.runners import grid_cellmajor as tgcm
+    dim, N, L, n_halo = GRID_CELLS["grid"]
+    model = grid_model(T, torch, device, dim)
+    cat, gm = nd_catalog(T, dim, N, L, n_halo)
+    cosmo = T.Cosmology.from_dict(COSMO, device=device)
+    f64 = dict(dtype=torch.float64, device=device)
+    runners = {p: T.BaryonifyGrid(cat, gm, epsilon_max=GRID_EPS, model=model,
+                                  verbose=False, device=device, precision=p)
+               for p in ("float32", "float64")}
+    auto = T.BaryonifyGrid(cat, gm, epsilon_max=GRID_EPS, model=model,
+                           verbose=False, device=device)
+    check(auto.method == "cellmajor" and auto.dtype == torch.float32,
+          f"gradgrid: auto is {auto.method} in {auto.dtype}")
+    runners["float32"] = auto
+    tab = lambda x: table_of(T, cosmo, RUNNERS_GRID,
+                             dict(PAR, M_c=torch.exp(x)), dim, GRID_EPS)
+    with torch.no_grad():
+        truth = tab(torch.tensor(LN_MC_TRUE, **f64))
+        targets = {p: r.process_device(truth).double()
+                   for p, r in runners.items()}
+    chi2 = lambda p: lambda x: ((runners[p].process_device(tab(x)).double()
+                                 - targets[p]) ** 2).sum()
+    label = (f"gradgrid (grid-256: N={N}^3, {n_halo} halos, table "
+             f"{tuple(truth.shape)})")
+    reset_counts()
+    cold, warm, peak = warm_value_and_grad(
+        torch, label, chi2("float32"), LN_MC_START, device, tgcm,
+        "register_halos_grid", tgcm)
+    read_counts("gradgrid (value_and_grad, float32)",
+                ("scatter_add", "scatter_add_vjp"))
+    mem = memory_split(torch, label, chi2("float32"), LN_MC_START, device,
+                       [(T.Baryonification3D, "build_table_device"),
+                        (tgcm, "grid_pass_diff"),
+                        (tgrid, "cic_deposit_3d")])
+    v64 = value_and_grad(torch, chi2("float64"), LN_MC_START, device)
+    rel32 = abs(warm[1] - v64[1]) / abs(v64[1])
+    log(f"{label}: float64 value_and_grad forward {v64[2]:.3f} s, backward "
+        f"{v64[3]:.3f} s; float32 gradient {rel32:.3e} from float64")
+    check_fd(torch, label, chi2("float64"), LN_MC_START, v64[1], device)
+    for p, r in runners.items():
+        device_vs_process(torch, f"{label} {p}", r,
+                          lambda m: gm.map.mean())
+    del runners, auto, targets
+    torch.cuda.empty_cache()
+    rec = check_scatter_vjp(T, torch, sc, device)
+    rec.update(forward_s=warm[2], backward_s=warm[3], peak_gib=peak,
+               memory_gib=mem)
+    torch.cuda.empty_cache()
+    check_scatter_big(T, torch, sc, device)
+    grad_small(T, torch, device)
+    return rec
+
+
+def gradsnap_path(T, torch, device):
+    """snap-5e6 (bench_runners.py's bench_snap: 5e6 particles, 1e5 halos,
+    L = 500, eps_max 15, the RUNNERS_GRID table grid) differentiated:
+    chi^2 = 1e4 sum (ratio(ln M_c) - ratio(ln M_c,true))^2 on example
+    15's seven P(k) bands at Ng = GRAD_SNAP_NG, through float64
+    build_table_device and float32 process_device under ``auto``: a cold
+    and a warm value_and_grad, the float64 gradient against central
+    differences, process_device() against process() (float64 bit for
+    bit; float32 within the positions' rounding)."""
+    from baryonification_tpu_torch.runners import grid_cellmajor as tgcm
+    from baryonification_tpu_torch.runners import snapshot_cellmajor as tscm
+    model = grid_model(T, torch, device, 3)
+    L, n_part, n_halo = SNAP_CELL
+    cat, snap = snap_inputs(T, L, n_part, n_halo, seed=3)
+    cosmo = T.Cosmology.from_dict(COSMO, device=device)
+    f64 = dict(dtype=torch.float64, device=device)
+    runners = {p: T.BaryonifySnapshot(cat, snap, epsilon_max=SNAP_EPS,
+                                      model=model, verbose=False,
+                                      device=device, precision=p)
+               for p in ("float32", "float64")}
+    check(runners["float32"].method == "cellmajor", "gradsnap: not "
+          "cell-major")
+    tab = lambda x: table_of(T, cosmo, RUNNERS_GRID,
+                             dict(PAR, M_c=torch.exp(x)), 3, GRID_EPS)
+    pks, targets = {}, {}
+    with torch.no_grad():
+        truth = tab(torch.tensor(LN_MC_TRUE, **f64))
+        for p, r in runners.items():
+            pk = pk_bands(T, torch, L, GRAD_SNAP_NG, r.dtype, device)
+            p_dmo = pk(*r._positions(r.dtype))
+            pks[p] = (lambda table, pk=pk, r=r, p_dmo=p_dmo:
+                      (pk(*r.process_device(table)) / p_dmo).double())
+            targets[p] = pks[p](truth)
+    sig = float((targets["float64"] - 1).abs().max())
+    log(f"gradsnap: max |P_B/P_DMO - 1| over the bands at the truth "
+        f"{sig:.4e} (float64)")
+    check(sig > 0, "gradsnap: no suppression")
+    chi2 = lambda p: lambda x: ((pks[p](tab(x)) - targets[p]) ** 2).sum() \
+        * 1e4
+    label = (f"gradsnap (snap-5e6: {n_part} particles, {n_halo} halos, "
+             f"P(k) bands on {GRAD_SNAP_NG}^3)")
+    reset_counts()
+    cold, warm, peak = warm_value_and_grad(
+        torch, label, chi2("float32"), LN_MC_START, device, tgcm,
+        "register_halos_grid", tgcm)
+    read_counts("gradsnap (value_and_grad, float32)",
+                ("scatter_add", "scatter_add_vjp"))
+    mem = memory_split(torch, label, chi2("float32"), LN_MC_START, device,
+                       [(T.Baryonification3D, "build_table_device"),
+                        (tscm, "snapshot_pass_diff"),
+                        (T.ops.scatter, "cic_deposit_3d")])
+    v64 = value_and_grad(torch, chi2("float64"), LN_MC_START, device)
+    rel32 = abs(warm[1] - v64[1]) / abs(v64[1])
+    log(f"{label}: float64 value_and_grad forward {v64[2]:.3f} s, backward "
+        f"{v64[3]:.3f} s; float32 gradient {rel32:.3e} from float64")
+    check_fd(torch, label, chi2("float64"), LN_MC_START, v64[1], device)
+    for p, r in runners.items():
+        got = [x.double().cpu().numpy() for x in r.process_device()]
+        want = r.process()
+        # minimum image: a position that rounds onto the box edge wraps to
+        # 0 in one precision and stays at L in the other
+        diff = max(float(np.abs(d - L * np.round(d / L)).max())
+                   for d in (g - want[c] for g, c in zip(got, "xyz")))
+        bar = 0.0 if p == "float64" else 4 * L * 2.0 ** -24
+        log(f"gradsnap: process_device() against process() {p}: max|diff| "
+            f"{diff:.3e} Mpc, minimum image (bar {bar:.3e}: "
+            + ("bit for bit)" if p == "float64" else
+               "process() adds the offsets in float64 on the host, "
+               "process_device() to the float32 positions on the card)"))
+        check(diff <= bar, f"gradsnap: process_device() {p} differs from "
+              f"process(): {diff:.3e}")
+    return dict(forward_s=warm[2], backward_s=warm[3], peak_gib=peak,
+                memory_gib=mem)
+
+
+def example15(T, torch, device):
+    """examples/15_gradient_fit_dPk.py through the port on the card at its
+    sizes (L 120, 30,000 particles, 25 halos, Ng 48, seed 4), float64,
+    the full tier (20 Adam steps at lr 0.2), with its three asserts."""
+    f64 = dict(dtype=torch.float64, device=device)
+    t0 = time.perf_counter()
+    table_of, ratio_of, _ = ex15_chain(T, torch, device, **EX15_SIZE)
+    with torch.no_grad():
+        target = ratio_of(table_of(torch.tensor(EX15_LN_MC_TRUE, **f64)))
+    sig = float((target - 1).abs().max())
+    log(f"ex15: suppression signal at truth: max |P_B/P_DMO - 1| = "
+        f"{sig:.4f} (staging and the truth's chain "
+        f"{time.perf_counter() - t0:.2f} s)")
+    check(sig > 0.015, "ex15: mock suppression too small to fit")
+    chi2 = lambda x: ((ratio_of(table_of(x)) - target) ** 2).sum() * 1e4
+    start = []
+
+    def progress(step, params, loss, grad):
+        if step == 0:
+            start.append((loss, float(grad)))
+            check(start[0][1] * (EX15_LN_MC_START - EX15_LN_MC_TRUE) > 0,
+                  "ex15: gradient must point back toward the truth")
+        if step % 4 == 0 or step == 19:
+            log(f"ex15: step {step:2d}: ln M_c = {float(params):.4f} "
+                f"(truth {EX15_LN_MC_TRUE:.4f}), chi2 = {loss:.4e}")
+
+    t0 = time.perf_counter()
+    res = T.fit(chi2, torch.tensor(EX15_LN_MC_START, **f64), steps=20,
+                learning_rate=0.2, callback=progress)
+    per_step = (time.perf_counter() - t0) / 20
+    err = abs(float(res.params) - EX15_LN_MC_TRUE)
+    off = abs(EX15_LN_MC_START - EX15_LN_MC_TRUE)
+    log(f"ex15: chi2 start {start[0][0]:.4e}, gradient {start[0][1]:+.3e}; "
+        f"recovered ln M_c = {float(res.params):.4f} (truth "
+        f"{EX15_LN_MC_TRUE:.4f}; residual {err:.4f} = {err / off:.1%} of "
+        f"the injected offset), chi2 {res.loss:.4e}; {per_step:.3f} s an "
+        f"Adam step (full tier, 20 steps)")
+    check(err < 0.10 * off, "ex15: M_c not recovered from dP(k)")
+    return per_step
+
+
+def ex15_path(T, torch, device):
+    """Example 15 on the card; the scatter kernel and its backward must
+    have been launched (the CIC deposits of its P(k))."""
+    reset_counts()
+    example15(T, torch, device)
+    read_counts("ex15 (example 15, full tier)",
+                ("scatter_add", "scatter_add_vjp"))
+
+
 def ptxas_summary(build_log):
     """[(kernel<type, rings per thread>, registers, spill bytes)] from the
     output of ``ptxas -v``."""
@@ -3459,6 +4171,8 @@ def build_all(torch, sc, lc, cmc):
         times = list(pool.map(build, names))
     for dt in (torch.float32, torch.float64):
         sc._kernel(dt)
+        if "scatter_add_vjp" in sc.LAUNCHES:
+            sc._kernel(dt, "scatter_add_vjp")
         cmc._kernel(dt)
         for entry in ADJOINT:
             if entry in cmc.LAUNCHES:
@@ -3478,7 +4192,8 @@ def build_all(torch, sc, lc, cmc):
 
 
 PHASES = ("kernels", "shell", "grad", "fit", "grid", "grid2d", "tsz",
-          "families", "snap", "pk", "cl", "synth", "reference")
+          "families", "snap", "gradgrid", "gradsnap", "ex15", "pk", "cl",
+          "synth", "reference")
 
 
 def main(argv=None):
@@ -3509,7 +4224,7 @@ def main(argv=None):
     check("jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                         if v is not None}, "JAX was imported")
     COUNTERS.extend([sc.LAUNCHES, lc.LAUNCHES, cmc.LAUNCHES])
-    SCATTER.extend(sc.LAUNCHES)
+    SCATTER.append("scatter_add")
     CELLMAJOR.append("cellmajor_pass")
 
     device = torch.device("cuda", 0)
@@ -3554,6 +4269,12 @@ def main(argv=None):
         runs = snap_path(T, torch, sc, device)
         log("snap: scatter_add launches by run: " + ", ".join(
             f"{k} {c['scatter_add']}" for k, c in runs.items()))
+    if "gradgrid" in phases:
+        records["scatter_add_vjp"] = gradgrid_path(T, torch, sc, device)
+    if "gradsnap" in phases:
+        gradsnap_path(T, torch, device)
+    if "ex15" in phases:
+        ex15_path(T, torch, device)
     if "pk" in phases:
         pk_path(T, torch, device)
     if "cl" in phases:
@@ -3569,7 +4290,7 @@ def main(argv=None):
     # each kernel's launches on every path that was driven, each path run
     # with the counts set to 0 just before it and read just after; the
     # line's launches are those of the run whose inputs give its time
-    kernel_of = {k: "scatter_add" for k in SCATTER}
+    kernel_of = {k: k for k in sc.LAUNCHES}
     kernel_of.update({k: k for k in cmc.LAUNCHES})
     kernel_of.update({k: k for k in lc.LAUNCHES})
     for path, counts in PATH_LAUNCHES.items():

@@ -25,7 +25,13 @@ runs on the card in float64 against the CPU, with the launches that show
 the grid path going through the scatter kernel. The snapshot cases run
 ``BaryonifySnapshot`` on the card in float64 against the CPU, both
 methods (the gather method through the scatter kernel), and the dP(k)
-case examples/10's halo-model suppression.
+case examples/10's halo-model suppression. The scatter's backward kernel
+is held against its plain version (a gather: exactly), the chunked
+launches (the chunk length lowered) against one launch, forward and
+backward, the autograd of the scatter-add by ``gradcheck`` and
+``gradgradcheck``, and the grid and snapshot runners' ``process_device``
+on the card in float64 against ``process()`` and against the CPU, values
+and gradients.
 """
 
 import numpy as np
@@ -928,8 +934,8 @@ def _cic_positions(N, dim, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_cic_deposit_kernel_matches_plain(dim, dtype, cuda_device):
-    """cic_deposit_{2d,3d} on the card (one scatter launch of 2^d N^d
-    rows) against the plain version on the same rows on the card: float64
+    """cic_deposit_{2d,3d} on the card (one scatter launch a CIC corner,
+    N^d rows each) against the plain version on the same rows on the card: float64
     to rtol 1e-12 (the same sums in another order), float32 to 1e-5 of
     max|map|; the total is conserved."""
     from baryonification_tpu_torch.ops import scatter as tsc
@@ -938,8 +944,8 @@ def test_cic_deposit_kernel_matches_plain(dim, dtype, cuda_device):
     before = sc.LAUNCHES["scatter_add"]
     fn = tsc.cic_deposit_2d if dim == 2 else tsc.cic_deposit_3d
     got = fn(N, *pos, vals, dtype=dtype)
-    assert sc.LAUNCHES["scatter_add"] == before + 1
-    idx, rows = tsc._cic_rows(N, pos, vals, dtype)
+    assert sc.LAUNCHES["scatter_add"] == before + 2 ** dim
+    idx, rows = map(torch.cat, zip(*tsc._cic_corners(N, pos, vals, dtype)))
     assert idx.shape[0] == 2 ** dim * N ** dim
     (want,) = sc.scatter_add_accum_reference(
         (torch.zeros(N ** dim, dtype=dtype, device=cuda_device),), idx,
@@ -994,9 +1000,9 @@ def test_grid_runners_on_card_match_cpu(method, cuda_device):
     """BaryonifyGrid and PaintProfilesGrid on the card in float64 against
     the port's CPU float64 run of the same method (3D, and 2D with
     ellipticity), to rms/mean < 1e-10. Every baryonify launches the
-    scatter kernel (the CIC redeposit, and the windows of the scatter
-    method), never the cell-major shell kernel; the cell-major paint
-    launches neither."""
+    scatter kernel (the CIC redeposit, one launch a corner, and the
+    windows of the scatter method), never the cell-major shell kernel;
+    the cell-major paint launches neither."""
     T, model, gas, grids = _small_grids()
     for dim, (cat, gm) in grids.items():
         ell = dict(use_ellipticity=dim == 2, method=method, verbose=False)
@@ -1012,10 +1018,11 @@ def test_grid_runners_on_card_match_cpu(method, cuda_device):
                       **ell).process()
             n_sc = sc.LAUNCHES["scatter_add"] - before[0]
             assert cmc.LAUNCHES["cellmajor_pass"] == before[1]
+            n_cic = 2 ** dim if runner == "BaryonifyGrid" else 0
             if method == "scatter":
-                assert n_sc > (runner == "BaryonifyGrid")
+                assert n_sc > n_cic
             else:
-                assert n_sc == (runner == "BaryonifyGrid")
+                assert n_sc == n_cic
             scale = gm.map.mean() if runner == "BaryonifyGrid" \
                 else want.mean()
             rms = np.sqrt(np.mean((got - want) ** 2)) / scale
@@ -1026,8 +1033,8 @@ def test_grid_runners_on_card_match_cpu(method, cuda_device):
 @pytest.mark.cuda
 def test_grid_auto_is_cellmajor_on_card(cuda_device):
     """``auto`` resolves to the cell-major method on the card, and one
-    process() of BaryonifyGrid launches the scatter kernel exactly once:
-    the CIC redeposit (float32, the card's default)."""
+    process() of BaryonifyGrid launches the scatter kernel only for the
+    CIC redeposit, once a corner (float32, the card's default)."""
     T, model, _, grids = _small_grids()
     cat, gm = grids[3]
     runner = T.BaryonifyGrid(cat, gm, epsilon_max=10, model=model,
@@ -1035,7 +1042,7 @@ def test_grid_auto_is_cellmajor_on_card(cuda_device):
     assert runner.method == "cellmajor" and runner.dtype == torch.float32
     before = sc.LAUNCHES["scatter_add"]
     out = runner.process()
-    assert sc.LAUNCHES["scatter_add"] == before + 1
+    assert sc.LAUNCHES["scatter_add"] == before + 8
     assert np.isclose(out.sum(), gm.map.sum())
 
 
@@ -1177,3 +1184,187 @@ def test_pk_suppression_on_card_matches_cpu(cuda_device):
     want, got = out["cpu"], out[str(cuda_device)]
     assert 1 - want.min() > 0.05
     assert np.abs(got / want - 1).max() < 1e-10
+
+
+# ----- the scatter-add's backward, the chunked launches, and the
+# differentiable grid and snapshot paths -----
+
+def _vjp_rows(C, dtype, device, npix=700, n=5000, seed=0, integer=False):
+    """Unsorted int32 rows with sentinel rows (== npix and beyond), C
+    value planes and C cotangent planes; ``integer`` values (small
+    integers) sum exactly in any order."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, npix, n).astype(np.int32)
+    idx[rng.random(n) < 0.15] = npix
+    idx[:7] = npix + np.arange(7) * 1000
+    mk = (lambda m: rng.integers(-8, 9, m).astype(np.float64)) if integer \
+        else (lambda m: rng.normal(size=m))
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    return (torch.tensor(idx, device=device),
+            tuple(t(mk(n)) for _ in range(C)),
+            tuple(t(mk(npix)) for _ in range(C)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C", [1, 2, 3])
+def test_scatter_vjp_kernel_matches_plain(C, dtype, cuda_device):
+    """scatter_add_vjp on the card (one launch) against its plain version
+    (masked index_select) on the same rows: a gather, so exact; int64
+    rows past the sentinel give 0 as int32 ones do."""
+    idx, _, cts = _vjp_rows(C, dtype, cuda_device, seed=C)
+    before = sc.LAUNCHES["scatter_add_vjp"]
+    got = sc.scatter_add_vjp(cts, idx)
+    assert sc.LAUNCHES["scatter_add_vjp"] == before + 1
+    want = sc.scatter_add_vjp_reference(cts, idx)
+    got64 = sc.scatter_add_vjp(cts, idx.long())
+    for g, g64, w in zip(got, got64, want):
+        assert g.dtype == dtype and g.shape == idx.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+        torch.testing.assert_close(g64, w, rtol=0, atol=0)
+    assert bool((got[0][idx >= cts[0].shape[0]] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C", [1, 2, 3])
+def test_scatter_chunked_matches_one_launch(C, dtype, cuda_device,
+                                            monkeypatch):
+    """With the chunk length lowered to 1000 rows, the forward and the
+    backward of 5000 rows (sentinel rows included) take five launches
+    each and equal one launch: the forward on integer values, which sum
+    exactly in any order, and the backward (a gather) exactly."""
+    idx, vals, cts = _vjp_rows(C, dtype, cuda_device, seed=10 + C,
+                               integer=True)
+    npix = cts[0].shape[0]
+    one = sc.scatter_add_accum(tuple(torch.zeros_like(g) for g in cts), idx,
+                               vals)
+    d_one = sc.scatter_add_vjp(cts, idx)
+    monkeypatch.setattr(sc, "CHUNK_ROWS", 1000)
+    before = dict(sc.LAUNCHES)
+    chunked = sc.scatter_add_accum(tuple(torch.zeros_like(g) for g in cts),
+                                   idx, vals)
+    d_chunked = sc.scatter_add_vjp(cts, idx)
+    assert sc.LAUNCHES["scatter_add"] == before["scatter_add"] + 5
+    assert sc.LAUNCHES["scatter_add_vjp"] == before["scatter_add_vjp"] + 5
+    want = sc.scatter_add_accum_reference(
+        tuple(torch.zeros(npix, dtype=dtype, device=cuda_device)
+              for _ in range(C)), idx, vals)
+    for a, b, w in zip(chunked, one, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    for a, b in zip(d_chunked, d_one):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_scatter_autograd_gradcheck_on_card(cuda_device):
+    """torch.autograd.gradcheck (and gradgradcheck: the backward's own
+    VJP is the scatter-add) of scatter_add_accum in float64 on the card,
+    into accumulators that carry a graph, two planes, sentinel rows; the
+    backward launches the scatter_add_vjp kernel."""
+    idx, vals, base = _vjp_rows(2, torch.float64, cuda_device, npix=40,
+                                n=120, seed=3)
+    leaves = tuple(t.clone().requires_grad_(True) for t in base + vals)
+
+    def f(a0, a1, v0, v1):
+        accs = (a0 * 1.0, a1 * 1.0)
+        return sc.scatter_add_accum(accs, idx, (v0, v1))
+
+    before = sc.LAUNCHES["scatter_add_vjp"]
+    assert torch.autograd.gradcheck(f, leaves)
+    assert torch.autograd.gradgradcheck(f, leaves)
+    assert sc.LAUNCHES["scatter_add_vjp"] > before
+
+
+def _grad_of_scale(runner, table, loss):
+    """(first, second) derivative of loss(process_device(table * s)) at
+    s = 1, the second by double backward."""
+    s = torch.tensor(1.0, dtype=torch.float64, requires_grad=True)
+    out = runner.process_device(table.to(runner.device) * s)
+    (g,) = torch.autograd.grad(loss(out), s, create_graph=True)
+    (h,) = torch.autograd.grad(g, s)
+    return float(g.detach()), float(h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cellmajor", "scatter"])
+def test_grid_process_device_on_card_matches_cpu(method, cuda_device):
+    """BaryonifyGrid and PaintProfilesGrid.process_device on the card in
+    float64 (3D, and 2D with ellipticity): the map against process() on
+    the card to rms/mean < 1e-12 (the CIC's atomic adds land in no fixed
+    order) and against the CPU's to 1e-10; the first and second
+    derivatives in a table scale against the CPU's to 1e-8. Every
+    backward launches the scatter_add_vjp kernel (the CIC's, the windowed
+    scatters' or the cell-major passes' row reads)."""
+    T, model, gas, grids = _small_grids()
+    for dim, (cat, gm) in grids.items():
+        kw = dict(use_ellipticity=dim == 2, method=method, verbose=False)
+        for runner, mdl, eps in (("BaryonifyGrid", model, 10),
+                                 ("PaintProfilesGrid", gas, 5)):
+            cls = getattr(T, runner)
+            tab = mdl._table if runner == "BaryonifyGrid" else (
+                mdl._ln2D if dim == 2 else mdl._ln3D)
+            loss = (lambda m: (m ** 2).sum()) if runner == "BaryonifyGrid" \
+                else (lambda m: m.sum())
+            cpu = cls(cat, gm, epsilon_max=eps, model=mdl, device="cpu", **kw)
+            card = cls(cat, gm, epsilon_max=eps, model=mdl,
+                       device=cuda_device, precision="float64", **kw)
+            want = cpu.process_device().numpy()
+            got = card.process_device().cpu().numpy()
+            proc = card.process()
+            scale = gm.map.mean() if runner == "BaryonifyGrid" \
+                else want.mean()
+            assert np.sqrt(np.mean((got - proc) ** 2)) / scale < 1e-12
+            assert np.sqrt(np.mean((got - want) ** 2)) / scale < 1e-10
+            want = _grad_of_scale(cpu, tab, loss)
+            before = sc.LAUNCHES["scatter_add_vjp"]
+            got = _grad_of_scale(card, tab, loss)
+            assert sc.LAUNCHES["scatter_add_vjp"] > before, (dim, runner)
+            for g_card, g_cpu in zip(got, want):
+                assert g_cpu != 0 and abs(g_card - g_cpu) / abs(g_cpu) \
+                    < 1e-8, (dim, runner, got, want)
+
+
+@pytest.mark.cuda
+def test_snapshot_process_device_on_card_matches_cpu(cuda_device):
+    """BaryonifySnapshot.process_device on the card in float64: the
+    positions equal process()'s bit for bit (one pass, no atomics; the
+    wrap into [0, L] on the card) and the CPU's to 1e-12 of the box; the
+    first and second derivatives of the sum of squared x offsets in a
+    table scale against the CPU's to 1e-8."""
+    T, model, _, _ = _small_grids()
+    cd = dict(Omega_m=0.3, Omega_b=0.05, h=0.7, sigma8=0.8, n_s=0.96,
+              w0=-1.0)
+    rng = np.random.default_rng(9)
+    L, n_part, n_halo = 60.0, 8000, 12
+    snap = T.ParticleSnapshot(*rng.uniform(0, L, (3, n_part)),
+                              M=np.ones(n_part), L=L, redshift=0.25, cosmo=cd)
+    cat = T.HaloNDCatalog(x=rng.uniform(0, L, n_halo),
+                          y=rng.uniform(0, L, n_halo),
+                          z=rng.uniform(0, L, n_halo),
+                          M=10 ** rng.uniform(13.5, 14.8, n_halo),
+                          redshift=0.25, cosmo=cd)
+    kw = dict(epsilon_max=10, model=model, method="cellmajor", verbose=False)
+    cpu = T.BaryonifySnapshot(cat, snap, device="cpu", **kw)
+    card = T.BaryonifySnapshot(cat, snap, device=cuda_device,
+                               precision="float64", **kw)
+    got = card.process_device()
+    proc = card.process()
+    want = cpu.process_device()
+    for c, g, w in zip("xyz", got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), proc[c])
+        assert float((g.cpu() - w).abs().max()) < 1e-12 * L
+
+    def loss(pos, x0):
+        d = pos[0] - x0
+        d = d - L * torch.round(d / L)
+        return (d * d).sum()
+
+    want, got = (_grad_of_scale(
+        r, model._table,
+        lambda pos, r=r: loss(pos, torch.as_tensor(snap.cat['x'],
+                                                   device=r.device)))
+        for r in (cpu, card))
+    for g_card, g_cpu in zip(got, want):
+        assert g_cpu != 0 and abs(g_card - g_cpu) / abs(g_cpu) < 1e-8
