@@ -30,7 +30,15 @@ Ported so far:
   kernel's hand-written adjoint and second-order entries),
   ``build_table_device``, ``TabulatedProfile.build_tables_device`` and
   ``cosmology_device``, with ``inference`` (``fit``,
-  ``laplace_covariance``, ``hmc_sample``) on top.
+  ``laplace_covariance``, ``hmc_sample``) on top;
+- the differentiable grid and snapshot paths (``process_device`` of
+  ``BaryonifyGrid``, ``PaintProfilesGrid`` and ``BaryonifySnapshot``);
+- ``PaintProfilesAnisGrid``: a profile painted as a function of an
+  existing 2D map, both methods, with ``build_remap_device`` and a
+  ``process_device`` differentiable in the remap and the canvas map;
+- FITS HEALPix maps (``io.read_healpix_fits``, ``write_healpix_fits``,
+  ``LightconeShell(path=...)``), the rest of ``ops.healpix`` and
+  ``ops.interp``, and the reference's misc utilities.
 Every runner has two methods: ``cellmajor`` (what ``"auto"`` takes on the
 card: candidate lists per coarse cell or block and one pass a bucket; the
 shell's pass is the kernel ``csrc/cellmajor_pass.cu``, the grid's and the
@@ -57,6 +65,8 @@ from . import ops
 from . import cosmology
 from .cosmology import Cosmology, CosmologyDevice, MassDef, cosmology_device
 from . import utils
+from .utils import (build_cosmodict, log_time, generate_operator_method,
+                    destory_Pk)
 from . import io
 from .io import (HaloLightConeCatalog, HaloNDCatalog, LightconeShell,
                  GriddedMap, ParticleSnapshot)
@@ -73,7 +83,8 @@ from . import runners
 from .runners import (DefaultRunner, BaryonifyShell, PaintProfilesShell,
                       PaintProfilesAnisShell, DefaultRunnerGrid,
                       BaryonifyGrid, PaintProfilesGrid,
-                      DefaultRunnerSnapshot, BaryonifySnapshot)
+                      PaintProfilesAnisGrid, DefaultRunnerSnapshot,
+                      BaryonifySnapshot)
 from .tabulate import (TabulatedProfile, ParamTabulatedProfile,
                        TabulatedCorrelation3D)
 from . import analysis

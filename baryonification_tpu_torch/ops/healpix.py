@@ -1,11 +1,11 @@
-"""HEALPix RING-scheme geometry in PyTorch: the shell runner's subset.
+"""HEALPix RING-scheme geometry in PyTorch.
 
-The port of the parts of ``baryonification_tpu.ops.healpix`` that the
-shell runner's ``scatter`` and ``cellmajor`` methods call: pixel/angle
-conversions, ring bookkeeping, bilinear interpolation weights (closed
+The port of ``baryonification_tpu.ops.healpix``: pixel/angle conversions
+(both ways), ring bookkeeping, bilinear interpolation weights (closed
 form and table based), per-ring tables, on-device pixel-centre planes,
-the fixed-shape disc window that replaces healpy's ``query_disc``, and
-the NESTED <-> RING conversions.
+the fixed-shape disc windows that replace healpy's ``query_disc``
+(``disc_window`` by pixel-centre vectors, ``disc_window_mask_tab`` by a
+per-ring test), the NESTED <-> RING conversions and ``ud_grade``.
 
 Conventions match HEALPix: theta = colatitude in [0, pi], phi in [0, 2pi),
 ring index i = 1..4n-1 (Gorski et al. 2005). Closed-form functions
@@ -14,11 +14,13 @@ an integer) on the inputs' device; pixel ids are int64.
 """
 
 import math
+from functools import lru_cache
 
 import torch
 
 __all__ = ["npix", "nside2resol", "ang2vec", "vec2ang", "radec2ang",
-           "pix2ang", "pix2vec", "ring_info", "z_to_ring",
+           "pix2ang", "pix2vec", "ang2pix", "vec2pix", "ring_info",
+           "z_to_ring", "disc_window", "ud_grade",
            "get_interp_weights", "get_interp_weights_parts", "RingTables",
            "pixel_planes_device", "ring_above_tab",
            "get_interp_weights_parts_tab", "get_interp_weights_tab",
@@ -103,6 +105,43 @@ def pix2ang(nside, ipix, dtype=torch.float64):
 def pix2vec(nside, ipix, dtype=torch.float64):
     theta, phi = pix2ang(nside, ipix, dtype)
     return ang2vec(theta, phi)
+
+
+def ang2pix(nside, theta, phi):
+    """(theta, phi) tensors -> RING pixel ids (int64; healpy's
+    algorithm)."""
+    n = nside
+    z = torch.cos(theta)
+    za = z.abs()
+    tt = torch.remainder(phi, 2 * math.pi) / (0.5 * math.pi)   # in [0, 4)
+
+    # equatorial: |z| <= 2/3
+    temp1 = n * (0.5 + tt)
+    temp2 = n * (z * 0.75)
+    jp = torch.floor(temp1 - temp2).to(torch.int64)
+    jm = torch.floor(temp1 + temp2).to(torch.int64)
+    ir = n + 1 + jp - jm          # ring counted from z = 2/3: 1..2n+1
+    kshift = 1 - (ir & 1)
+    ip = torch.remainder(_floordiv(jp + jm - n + kshift + 1, 2), 4 * n)
+    pix_eq = 2 * n * (n - 1) + 4 * n * (ir - 1) + ip
+
+    # polar caps
+    tp = tt - torch.floor(tt)
+    tmp = n * torch.sqrt(torch.clamp(3.0 * (1.0 - za), min=0.0))
+    jp_c = torch.floor(tp * tmp).to(torch.int64)
+    jm_c = torch.floor((1.0 - tp) * tmp).to(torch.int64)
+    ir_c = jp_c + jm_c + 1
+    ip_c = torch.remainder(torch.floor(tt * ir_c).to(torch.int64), 4 * ir_c)
+    pix_n = 2 * ir_c * (ir_c - 1) + ip_c
+    pix_s = 12 * n * n - 2 * ir_c * (ir_c + 1) + ip_c
+
+    pix_polar = torch.where(z > 0, pix_n, pix_s)
+    return torch.where(za <= 2.0 / 3.0, pix_eq, pix_polar)
+
+
+def vec2pix(nside, x, y, z):
+    """Unit vector components -> RING pixel ids (healpy.vec2pix)."""
+    return ang2pix(nside, *vec2ang(torch.stack([x, y, z], dim=-1)))
 
 
 # ----- ring bookkeeping -----
@@ -343,6 +382,53 @@ def disc_window_mask_tab(tables, theta0, phi0, radius, n_rings, n_phi):
     return pix, valid & slot_ok
 
 
+def disc_window(nside, theta0, phi0, radius, n_rings, n_phi):
+    """Fixed-shape pixel window around each disc of angular ``radius``
+    about (theta0, phi0) (tensors of one shape): (pix, valid) of shape
+    (..., n_rings, n_phi), RING pixel ids and a mask of the pixels whose
+    centres lie inside the disc (healpy query_disc, inclusive=False),
+    tested by the dot product of the pixel-centre and disc-centre unit
+    vectors. ``n_rings`` / ``n_phi`` bound the largest disc of the
+    batch. ``disc_window_mask_tab`` is the runners' per-ring form."""
+    n = nside
+    dt = theta0.dtype
+    cos_r = torch.cos(radius)
+    v0 = ang2vec(theta0, phi0)
+
+    # candidate rings from the first at or below the top of the disc
+    z_hi = torch.cos(torch.clamp(theta0 - radius, min=0.0))
+    ring_lo = torch.clamp(z_to_ring(n, z_hi), 1, 4 * n - 1)
+    k = torch.arange(n_rings, device=theta0.device)
+    rings_raw = ring_lo[..., None] + k
+    ring_ok = rings_raw <= 4 * n - 1      # the clamped last ring once
+    rings = torch.clamp(rings_raw, 1, 4 * n - 1)
+
+    z, start, npr, shift = ring_info(n, rings, dt)
+    dphi_pix = 2.0 * math.pi / npr.to(dt)
+
+    # the disc's phi half-width on each ring
+    st0 = torch.sin(theta0)[..., None]
+    ct0 = torch.cos(theta0)[..., None]
+    st = torch.sqrt(torch.clamp(1.0 - z * z, min=1e-30))
+    cosdphi = (cos_r[..., None] - z * ct0) / (st * st0 + 1e-30)
+    no_overlap = cosdphi > 1.0
+
+    # the pixel nearest the centre in each ring and symmetric offsets
+    t = phi0[..., None] / dphi_pix - shift
+    j_center = torch.round(t).to(torch.int64)
+    m = torch.arange(n_phi, device=theta0.device) - (n_phi // 2)
+    j = j_center[..., None] + m                     # (..., NR, NP)
+    pix = start[..., None] + torch.remainder(j, npr[..., None])
+
+    inside = (pix2vec(n, pix, dt) * v0[..., None, None, :]).sum(-1) \
+        >= cos_r[..., None, None]
+    valid = inside & ~no_overlap[..., None] & ring_ok[..., None]
+    # candidate slots that alias the same pixel (a ring shorter than NP)
+    span = torch.clamp(npr[..., None], max=n_phi)
+    half = _floordiv(span, 2)
+    return pix, valid & (m >= -half) & (m < span - half)
+
+
 # ----- NESTED ordering -----
 #
 # The cell-major pass wants the fine pixels of any coarse cell contiguous
@@ -461,3 +547,46 @@ def nest2ring_all(nside, device):
     """RING id of every NESTED pixel, in NESTED order (int64 on
     ``device``)."""
     return nest2ring(nside, torch.arange(npix(nside), device=device))
+
+
+@lru_cache(maxsize=8)
+def _udgrade_index(nside_in, nside_out, device):
+    """RING id of every NESTED pixel at both resolutions (int64 on
+    ``device``), cached per NSIDE pair and device."""
+    return nest2ring_all(nside_in, device), nest2ring_all(nside_out, device)
+
+
+def ud_grade(hmap, nside_out, power=0.0):
+    """Up- or downgrade a RING map (healpy.ud_grade, on the map's device):
+    degrading averages each output pixel's NESTED children (summed in
+    order), upgrading
+    copies the parent into its children. The result is divided by
+    (nside_in / nside_out) ** power: power = -2 keeps the map's sum (mass
+    maps), 0 its mean. Integer maps are promoted to float (an average of
+    children is no integer). Bad pixels (UNSEEN) are not treated apart.
+    """
+    if not (hmap.is_floating_point() or hmap.is_complex()):
+        hmap = hmap.to(torch.promote_types(hmap.dtype, torch.float32))
+    npix_in = hmap.shape[-1]
+    nside_in = int(round(math.sqrt(npix_in / 12)))
+    if 12 * nside_in ** 2 != npix_in:
+        raise ValueError(f"ud_grade: invalid map size {npix_in}")
+    nside_out = int(nside_out)
+    r_in, r_out = _udgrade_index(nside_in, nside_out, hmap.device)
+    lead = hmap.shape[:-1]
+    if nside_out <= nside_in:
+        k = (nside_in // nside_out) ** 2
+        # the children summed in NESTED order (a scan's last element: a
+        # sequential sum on the CPU, as XLA's), then divided by their count
+        vals = hmap[..., r_in].reshape(lead + (-1, k)).cumsum(dim=-1)[
+            ..., -1] / k
+    else:
+        k = (nside_out // nside_in) ** 2
+        vals = torch.repeat_interleave(hmap[..., r_in], k, dim=-1)
+    out = torch.zeros(lead + (12 * nside_out ** 2,), dtype=hmap.dtype,
+                      device=hmap.device)
+    out[..., r_out] = vals
+    if power:
+        out = out / torch.tensor((nside_in / nside_out) ** power,
+                                 dtype=hmap.dtype, device=hmap.device)
+    return out

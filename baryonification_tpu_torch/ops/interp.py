@@ -7,6 +7,8 @@ the batch as leading dimensions: ``(..., N)`` curves, with the knots
 
 - ``pchip_*``: Fritsch-Carlson monotone cubic (scipy
   ``PchipInterpolator``), used by every mass-profile inversion;
+- ``searchsorted_interp``: linear with the end values clamped
+  (``jnp.interp``);
 - ``masked_compact``: fixed-shape compaction of masked curves;
 - ``ndlinear_interp``: multilinear interpolation, NaN outside the grid;
 - ``blend_table_radial`` (``blend_rows``) + ``radial_readout``: the
@@ -17,7 +19,10 @@ import math
 
 import torch
 
-__all__ = ["pchip_derivatives", "pchip_eval", "masked_compact",
+from ..utils import interp
+
+__all__ = ["pchip_derivatives", "pchip_eval", "pchip_interp",
+           "searchsorted_interp", "masked_compact",
            "ndlinear_interp", "blend_table_radial", "blend_rows",
            "radial_readout"]
 
@@ -100,6 +105,19 @@ def pchip_eval(xq, x, y, d, extrapolate=True, deriv=0):
     if not extrapolate:
         out = torch.where((xq < x0) | (xq > xN), math.nan, out)
     return out
+
+
+def pchip_interp(xq, x, y, extrapolate=True):
+    """One-shot monotone cubic interpolation of the curves (x, y) at xq
+    (shapes as :func:`pchip_eval`)."""
+    return pchip_eval(xq, x, y, pchip_derivatives(x, y),
+                      extrapolate=extrapolate)
+
+
+def searchsorted_interp(xq, x, y):
+    """Linear interpolation with the end values clamped (``jnp.interp``;
+    ``utils.interp``)."""
+    return interp(xq, x, y)
 
 
 def masked_compact(x, y, mask, pad_dx=1.0):

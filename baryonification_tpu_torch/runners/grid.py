@@ -38,24 +38,33 @@ Precision: ``precision="auto"`` is float64 on the CPU and float32 on
 CUDA, as in the JAX package. The per-halo preprocessing (radii, buckets,
 nearest bins) runs in float64 on the host, as there.
 
-Not ported yet: ``mesh=`` and ``PaintProfilesAnisGrid``.
+``PaintProfilesAnisGrid`` paints a profile as a function of an existing
+2D map (y(delta) in place of y(r)): ``scatter`` is the reference's loop
+over halos, ``cellmajor`` reads a remap table ln Paint(ln Canvas) per mass
+node in one block-major pass a bucket
+(``grid_cellmajor.grid_anis_paint_pass_2d``); its ``process_device`` is
+differentiable in the remap and in the canvas map.
+
+Not ported yet: ``mesh=``.
 """
+
+from itertools import product
 
 import numpy as np
 import torch
 
 from ..cosmology import Cosmology, MassDef
-from ..ops.interp import blend_table_radial, radial_readout
+from ..ops.interp import blend_table_radial, ndlinear_interp, radial_readout
 from ..ops.scatter import cic_deposit_2d, cic_deposit_3d
 from ..ops.scatter_cuda import scatter_add_accum
-from ..utils import resolve_device
+from ..utils import interp, interp_rows, resolve_device
 from . import grid_cellmajor as gcm
 from ._method import resolve_method
 from .shell import DefaultRunner
 from .shell_cellmajor import dense_cell_candidates
 
 __all__ = ['build_Rmat', 'DefaultRunnerGrid', 'BaryonifyGrid',
-           'PaintProfilesGrid']
+           'PaintProfilesGrid', 'PaintProfilesAnisGrid']
 
 
 def build_Rmat(A, q):
@@ -167,7 +176,8 @@ class DefaultRunnerGrid:
     def _check_gcaches(self):
         """Drop the per-catalog caches if the catalog object was swapped."""
         if getattr(self, '_gcache_cat', None) is not self.HaloNDCatalog:
-            for attr in ('_gpacked_cache', '_gdense_cache'):
+            for attr in ('_gpacked_cache', '_gdense_cache',
+                         '_anis_remap_cache'):
                 self.__dict__.pop(attr, None)
             self._gcache_cat = self.HaloNDCatalog
 
@@ -253,18 +263,21 @@ class DefaultRunnerGrid:
             cache[key] = (dense, counts, counts.cpu().numpy(), K, B_eff)
         return cache[key]
 
-    def _grid_inv_perm(self, N, B):
-        """Row-major voxel/pixel id -> block-major position (to unsort the
-        pass outputs), cached per (N, B)."""
+    def _grid_perms(self, N, B):
+        """(block-major position -> row-major voxel/pixel id, and its
+        inverse, to unsort the pass outputs), cached per (N, B)."""
         cache = self.__dict__.setdefault('_gperm_cache', {})
         dim = 2 if self.GriddedMap.is2D else 3
         if (N, B, dim) not in cache:
-            perm = (gcm.block_perm_2d(N, B, self.device) if dim == 2
-                    else gcm.block_perm(N, B, self.device))
+            perm = (gcm.block_perm_2d(N, B, device=self.device) if dim == 2
+                    else gcm.block_perm(N, B, device=self.device))
             inv = torch.empty_like(perm)
             inv[perm] = torch.arange(N ** dim, device=self.device)
-            cache[(N, B, dim)] = inv
+            cache[(N, B, dim)] = (perm, inv)
         return cache[(N, B, dim)]
+
+    def _grid_inv_perm(self, N, B):
+        return self._grid_perms(N, B)[1]
 
     def _cic_coords(self, N, dim, dt):
         """Row-major integer cell-coordinate planes on the device, cached
@@ -285,6 +298,41 @@ class DefaultRunnerGrid:
         pos = [o + c for o, c in zip(offsets, planes)]
         deposit = cic_deposit_2d if gm.is2D else cic_deposit_3d
         return deposit(N, *pos, vals, dtype=dt)
+
+    def _block_buckets(self, arrs, R_com, Nsize, idx_all, dt):
+        """The cell-major buckets of the halos ``idx_all``, by cutout size:
+        yields (bucket, its halos, their cutout half-window, (B, dense,
+        counts, counts on the host, K, B_eff)), each registered in blocks
+        (:meth:`_grid_dense`; stage reg[...])."""
+        N, res = self.GriddedMap.Npix, self.GriddedMap.res
+        eps = float(self.epsilon_max)
+        for bi, idx in enumerate(_nsize_buckets(Nsize[idx_all],
+                                                self.n_buckets)):
+            sel = idx_all[idx]
+            half = int(Nsize[sel].max() // 2)
+            B = gcm.pick_block_size(N, max(half, 4))
+            t0 = self._stage_t0()
+            blocks = self._grid_dense(bi, B, sel, arrs, (half + 1) * res,
+                                      eps * R_com[sel] * arrs['qfac'][sel],
+                                      dt)
+            self._stage(f"reg[b{bi} B{B}->{blocks[-1]} H{len(sel)}]", t0,
+                        blocks[1])
+            yield bi, sel, half, (B,) + blocks
+
+    def _census_entry(self, label, bi, sel, B, B_eff, K, n_hi):
+        """Print a bucket's line (``verbose``); where ``self.census`` is a
+        list, append the bucket's census dict to it and return it (the
+        pass fills its counts), else None."""
+        F = B_eff ** (2 if self.GriddedMap.is2D else 3)
+        if self.verbose:
+            print(f"{label}: bucket {bi + 1} ({len(sel)} halos, "
+                  f"B={B}->{B_eff}, K={K}, F={F}, n_hi={n_hi})")
+        if getattr(self, 'census', None) is None:
+            return None
+        census = dict(bucket=bi, H=len(sel), B=B, B_eff=B_eff, K=K, F=F,
+                      n_hi=n_hi, slots=0, inside=0, steps=0)
+        self.census.append(census)
+        return census
 
     def _cellmajor_buckets(self, gm, arrs, R_com, Nsize, idx_all, grids,
                            table_z, mode, planes, label):
@@ -308,33 +356,16 @@ class DefaultRunnerGrid:
         t0 = self._stage_t0()
         packed = self._grid_packed(arrs, R_com, dt)
         self._stage("packed_records", t0, packed)
-        for bi, idx in enumerate(_nsize_buckets(Nsize[idx_all],
-                                                self.n_buckets)):
-            sel = idx_all[idx]
-            half = int(Nsize[sel].max() // 2)
-            B = gcm.pick_block_size(N, max(half, 4))
-            t0 = self._stage_t0()
-            dense, counts, counts_host, K, B_eff = self._grid_dense(
-                bi, B, sel, arrs, (half + 1) * res,
-                eps * R_com[sel] * arrs['qfac'][sel], dt)
-            self._stage(f"reg[b{bi} B{B}->{B_eff} H{len(sel)}]", t0, counts)
+        for bi, sel, half, (B, dense, counts, counts_host, K, B_eff) in \
+                self._block_buckets(arrs, R_com, Nsize, idx_all, dt):
             rad_max = (np.log(eps) if mode == "offsets_rdelta"
                        else np.log(eps * R_com[sel].max()))
             n_hi = self._node_bound(g2_np, rad_max, len(g2_np))
-            if self.verbose:
-                print(f"{label}: bucket {bi + 1} ({len(sel)} halos, "
-                      f"B={B}->{B_eff}, K={K}, F={B_eff ** dim}, "
-                      f"n_hi={n_hi})")
+            census = self._census_entry(label, bi, sel, B, B_eff, K, n_hi)
             t0 = self._stage_t0()
             pk = packed[torch.as_tensor(sel, device=self.device)]
             rows = gcm.halo_rows(grids[1], grids[3:], table_z, pk[:, lnM_col],
                                  pk[:, p0:p0 + n_props], n_hi)
-            census = None
-            if getattr(self, 'census', None) is not None:
-                census = dict(bucket=bi, H=len(sel), B=B, B_eff=B_eff, K=K,
-                              F=B_eff ** dim, n_hi=n_hi, slots=0, inside=0,
-                              steps=0)
-                self.census.append(census)
             # the bucket's block-major planes: the plain pass, or, where
             # the rows carry a graph, its Function with the step-wise
             # adjoint
@@ -680,3 +711,381 @@ class PaintProfilesGrid(DefaultRunnerGrid):
                                dtype=self.dtype,
                                device=resolve_device(self.device))
         return self._device_map(table)
+
+
+def _remap_rows(lnP, lnC, good, lnq):
+    """Remap rows of R curves (R, Nb) of ln Paint and ln Canvas taken at
+    the same radii, ``good`` (R, Nb) marking the valid points: (R, Nq + 2)
+    ln Paint at the (Nq,) ``lnq`` over each curve's valid points sorted by
+    ln Canvas (the queries clipped to the curve's range, so the ends are
+    clamped), then the curve's canvas range lo and hi. A curve with fewer
+    than two valid points gets sentinels: rows of -1e30, lo = 1e30 and hi
+    = -1e30, an empty range. Masked points sort past every valid one (1e15
+    + j; the sort is stable), and exact ties among the sorted points are
+    broken by steps of 1e-12, so the interpolation never divides by 0 and
+    its gradient stays finite. Differentiable in lnP and lnC."""
+    j = torch.arange(lnC.shape[-1], dtype=lnC.dtype, device=lnC.device)
+    xs, s = torch.sort(torch.where(good, lnC, 1e15 + j), dim=-1, stable=True)
+    tie = torch.cat([torch.zeros_like(xs[:, :1], dtype=torch.bool),
+                     xs[:, 1:] <= xs[:, :-1]], dim=-1)
+    xs = xs + torch.cumsum(tie.to(xs.dtype), dim=-1) * 1e-12
+    ys = torch.gather(torch.where(good, lnP, 0.0), -1, s)
+    lo = torch.where(good, lnC, 1e30).amin(dim=-1)
+    hi = torch.where(good, lnC, -1e30).amax(dim=-1)
+    q = torch.minimum(torch.maximum(lnq, lo[:, None]), hi[:, None])
+    ok = good.sum(dim=-1) >= 2
+    return torch.cat([torch.where(ok[:, None], interp_rows(q, xs, ys), -1e30),
+                      torch.where(ok, lo, 1e30)[:, None],
+                      torch.where(ok, hi, -1e30)[:, None]], dim=-1)
+
+
+class PaintProfilesAnisGrid(DefaultRunnerGrid):
+    """Density-dependent painting on a 2D map: for each halo, the radial
+    (Paint, Canvas) profile pair gives a monotone Canvas -> Paint mapping,
+    read at the existing map values inside the halo's cutout, so the map
+    is painted y(delta) in place of y(r). 2D only.
+
+    - ``method="scatter"`` (what ``"auto"`` takes on the CPU): the
+      reference's loop over halos, one at a time: the exact profile pair
+      on the halo's own radius grid (``Nbin_interp`` points) and a
+      log-log interpolation read on its cutout, NaN (painting nothing)
+      outside the pair's canvas range; each halo's cutout is added by the
+      scatter-add (the kernel on the card). Where a cutout wraps past the
+      map (2 half > N) the reference's ``new_map[flat] +=`` keeps one of
+      the repeated pixels' writes; here each adds.
+    - ``method="cellmajor"`` (``"auto"`` on the card): the remap ln
+      Paint(ln Canvas) is tabulated once per (M [, prop...]) node on a
+      uniform grid of ``Nq_interp`` ln Canvas values at the catalog
+      redshift, then one block-major pass a bucket reads it, blended at
+      each halo's mass and props, at the log of the canvas value
+      (``grid_cellmajor.grid_anis_paint_pass_2d``). The cutout window is
+      clipped to the map.
+
+    ``process_device(remap=None, canvas=None)`` is the cell-major method
+    as a differentiable function of the remap table (e.g. from
+    :meth:`build_remap_device` of tables that carry a graph) and of the
+    canvas map (e.g. ``BaryonifyGrid.process_device``'s output).
+    """
+
+    def __init__(self, HaloNDCatalog, GriddedMap, epsilon_max,
+                 Painting_model=None, Canvas_model=None, Nbin_interp=1000,
+                 Nq_interp=96, mass_def=None, verbose=True, halo_chunk=64,
+                 n_buckets=8, precision="auto", method="auto", *,
+                 device="cuda"):
+        super().__init__(HaloNDCatalog, GriddedMap, epsilon_max,
+                         Painting_model, mass_def=mass_def, verbose=verbose,
+                         halo_chunk=halo_chunk, n_buckets=n_buckets,
+                         precision=precision, method=method, device=device)
+        self.Canvas_model = Canvas_model
+        self.Nbin_interp = Nbin_interp
+        self.Nq_interp = Nq_interp
+
+    # ----- the remap table -----
+    def _node_radii(self, cosmo, a, M_nodes):
+        """(NM, Nbin_interp) radii of each node: the loop's radius domain
+        for a halo of that mass, [1e-6, sqrt(2) half res] with half its
+        cutout half-window (at least 1)."""
+        gm = self.GriddedMap
+        R = self.mass_def.get_radius(cosmo, torch.as_tensor(
+            M_nodes, dtype=torch.float64, device=cosmo.device), a)
+        R = np.atleast_1d(R.cpu().numpy()) / a
+        Nsize = (2 * self.epsilon_max * R / gm.res).astype(np.int64) // 2 * 2
+        r_hi = np.sqrt(2.0) * np.maximum(Nsize // 2, 1) * gm.res
+        return np.stack([np.geomspace(1e-6, max(h, 2e-6), self.Nbin_interp)
+                         for h in r_hi])
+
+    def _profile_pair(self, cosmo, r, M, a, props):
+        """The (Paint, Canvas) projected profiles at the float64 numpy
+        radii ``r`` of one mass, on the runner's device. A tabulated model
+        reads its tables with the cosmology they were built with (on
+        their device), any other model computes with the runner's."""
+        out = []
+        for m in (self.model, self.Canvas_model):
+            mc = m.cosmo if hasattr(m, '_grids') else cosmo
+            prof = m.projected(mc, torch.as_tensor(
+                r, dtype=torch.float64, device=mc.device), M, a, **props)
+            out.append(prof.to(cosmo.device))
+        return out
+
+    def _anis_remap_table(self, cosmo, a):
+        """Cached :meth:`_anis_remap_table_impl`: the remap depends only on
+        the models, a, epsilon_max, the grid and the interpolation sizes,
+        all fixed for the runner's lifetime. Cleared on a catalog swap
+        (the mass nodes of an untabulated model come from the catalog)."""
+        gm = self.GriddedMap
+        key = (id(self.model), id(self.Canvas_model), float(a),
+               float(self.epsilon_max), float(gm.res), gm.Npix,
+               float(np.asarray(gm.bins)[0]), self.Nq_interp,
+               self.Nbin_interp)
+        self._check_gcaches()
+        cached = getattr(self, '_anis_remap_cache', None)
+        if cached is None or cached[0] != key:
+            self._anis_remap_cache = (key, self._anis_remap_table_impl(
+                cosmo, a))
+        return self._anis_remap_cache[1]
+
+    def _anis_remap_table_impl(self, cosmo, a):
+        """ln Paint on a uniform ln Canvas grid, per (M [, prop...]) node,
+        in float64 on the runner's device.
+
+        Each node's (Paint, Canvas) pair is evaluated on the radius domain
+        the loop uses for a halo of the node's mass (:meth:`_node_radii`),
+        so its valid canvas range is the loop's interpolation domain. The
+        range rides in two extra rows (Nq, Nq + 1) that the pass blends
+        with the profile rows. Returns (lnq (Nq,) numpy, gM (NM,) numpy,
+        the prop grids (numpy), remap (NM, Nq + 2 [, P...]) tensor);
+        degenerate nodes carry the sentinels of :func:`_remap_rows`."""
+        Paint = self.model
+        p_keys = getattr(Paint, 'p_keys', []) or []
+        if p_keys:
+            from ..tabulate import ParamTabulatedProfile
+            assert isinstance(Paint, ParamTabulatedProfile), (
+                "per-halo properties on the cell-major anis path need a "
+                "ParamTabulatedProfile Painting_model (its prop grids "
+                "define the table axes)")
+            assert len(p_keys) <= gcm.MAX_PROPS_ANIS_2D, (
+                f"the cell-major anis path fits at most "
+                f"{gcm.MAX_PROPS_ANIS_2D} extra parameter axes (the last "
+                f"packed column carries the per-halo window half); got "
+                f"{len(p_keys)} - use method='scatter'")
+            gprops = tuple(g.cpu().numpy().astype(np.float64)
+                           for g in Paint._grids[3:])
+        else:
+            gprops = ()
+        if hasattr(Paint, '_grids'):
+            gM = Paint._grids[1].cpu().numpy().astype(np.float64)
+        else:
+            lnM = np.log(self.HaloNDCatalog.cat['M'].astype(np.float64))
+            pad = max(0.05 * (lnM.max() - lnM.min()), 1e-3)
+            gM = np.linspace(lnM.min() - pad, lnM.max() + pad, 33)
+        M_nodes = np.exp(gM)
+        r_nodes = self._node_radii(cosmo, a, M_nodes)
+        combos = list(product(*[range(len(g)) for g in gprops]))
+        pairs = [self._profile_pair(cosmo, r, float(M_i), a, {
+            k: float(gprops[i][combo[i]]) for i, k in enumerate(p_keys)})
+            for M_i, r in zip(M_nodes, r_nodes) for combo in combos]
+        P, C = (torch.stack(x) for x in zip(*pairs))
+        good = torch.isfinite(P) & torch.isfinite(C) & (P > 0) & (C > 0)
+        if not bool(good.any()):
+            raise ValueError("anis remap: no valid (Paint, Canvas) profile "
+                             "points at any table node")
+        lnP = torch.log(torch.where(good, P, 1.0))
+        lnC = torch.log(torch.where(good, C, 1.0))
+        lnq = np.linspace(float(lnC[good].min()), float(lnC[good].max()),
+                          self.Nq_interp)
+        rows = _remap_rows(lnP, lnC, good, torch.as_tensor(
+            lnq, dtype=torch.float64, device=cosmo.device))
+        NM, Q = len(M_nodes), self.Nq_interp + 2
+        remap = rows.reshape(NM, len(combos), Q).transpose(1, 2).reshape(
+            (NM, Q) + tuple(len(g) for g in gprops))
+        return lnq, gM, gprops, remap
+
+    def build_remap_device(self, paint_table=None, canvas_table=None):
+        """The remap table of :meth:`_anis_remap_table_impl` as a
+        differentiable function of the models' projected log tables
+        (``paint_table`` / ``canvas_table``, default ``._ln2D``), which
+        may carry a graph, e.g. from ``TabulatedProfile.
+        build_tables_device`` of parameters that require grad: gradients
+        then flow from profile parameters through the tables and the remap
+        into the map of :meth:`process_device`. TabulatedProfile models
+        only (no extra parameter axes).
+
+        Node for node the host build's: the same radius domains, lnq
+        grid and mass nodes (taken from it), the same valid points (a
+        positive exp of the log readouts; radii off the table read NaN and
+        drop out), the same clamped resampling and sentinels
+        (:func:`_remap_rows`, all nodes at once). Returns the (NM, Nq + 2)
+        remap in float64 on the runner's device."""
+        Paint, Canvas = self.model, self.Canvas_model
+        assert not (getattr(Paint, 'p_keys', []) or []), (
+            "build_remap_device supports TabulatedProfile models only (no "
+            "extra parameter axes); per-halo-property remaps use the host "
+            "build")
+        for m, name in ((Paint, "Painting_model"), (Canvas, "Canvas_model")):
+            if not hasattr(m, '_grids'):
+                raise NameError(f"{name} has no table - run "
+                                "setup_interpolator() first")
+        dev = resolve_device(self.device)
+        f64 = dict(dtype=torch.float64, device=dev)
+        cosmo = Cosmology.from_dict(self.cosmo, device=dev)
+        a = 1.0 / (1.0 + self.HaloNDCatalog.redshift)
+        lnq, gM, _, _ = self._anis_remap_table(cosmo, a)
+        lnr = torch.as_tensor(np.log(self._node_radii(cosmo, a, np.exp(gM))),
+                              **f64)
+        coords = (torch.full_like(lnr, float(np.log(1.0 / a))),
+                  torch.as_tensor(gM, **f64)[:, None], lnr)
+        ln = []
+        for m, tab in ((Paint, paint_table), (Canvas, canvas_table)):
+            tab = (m._ln2D if tab is None else tab).to(**f64)
+            # non-finite nodes -> an inert finite stand-in (exp -> 0), so
+            # the readout and its gradient stay NaN-free
+            tab = torch.where(torch.isfinite(tab), tab, -1e30)
+            ln.append(ndlinear_interp(tuple(g.to(**f64) for g in m._grids),
+                                      tab, coords))
+        good = (torch.exp(ln[0]) > 0.0) & (torch.exp(ln[1]) > 0.0)
+        return _remap_rows(ln[0], ln[1], good, torch.as_tensor(lnq, **f64))
+
+    # ----- the two methods -----
+    def _anis_setup(self):
+        """(cosmology, a, the halo arrays, Nsize) of a call, or None for an
+        empty catalog; checks the map and the models."""
+        gm = self.GriddedMap
+        assert gm.is2D, ("Can only paint tSZ on 2D maps. You have passed a "
+                         "3D Map")
+        assert (list(getattr(self.model, 'p_keys', []) or [])
+                == list(getattr(self.Canvas_model, 'p_keys', []) or []))
+        if self.HaloNDCatalog.cat.size == 0:
+            return None
+        cosmo = Cosmology.from_dict(self.cosmo,
+                                    device=resolve_device(self.device))
+        t0 = self._stage_t0()
+        a, arrs = self._halo_arrays(cosmo, comoving_R=True)
+        self._stage("halo_arrays", t0)
+        Nsize = (2 * self.epsilon_max * arrs['R'] / gm.res).astype(np.int64)
+        return cosmo, a, arrs, Nsize // 2 * 2
+
+    def _paint_anis_cellmajor(self, cosmo, a, arrs, Nsize, remap=None,
+                              canvas=None):
+        """The cell-major paint of the halos with ``Nsize`` >= 2, their
+        cutout windows clipped to the map, as a device tensor (N, N) in the
+        hot dtype, differentiable in ``remap`` (default: the host build's)
+        and ``canvas`` (default: the map). The lnq grid, mass nodes and
+        prop grids are always the host build's. Stages: remap, packed_records, then reg[...] and
+        pass[...] a bucket. A list in ``self.census`` gets each bucket's
+        counts (for measurement only)."""
+        gm = self.GriddedMap
+        dt, dev = self.dtype, cosmo.device
+        N, res = gm.Npix, gm.res
+        eps = float(self.epsilon_max)
+        R_com = arrs['R']
+        t0 = self._stage_t0()
+        lnq, gM, gprops, remap_host = self._anis_remap_table(cosmo, a)
+        self._stage("remap", t0, remap_host)
+        n_hi = self.Nq_interp
+        # the canvas grid's nodes as the hot dtype holds them
+        q_hot = lnq.astype(str(dt).split('.')[-1])
+        q0, dq = float(q_hot[0]), float(q_hot[1] - q_hot[0])
+        table_q = (remap_host if remap is None else remap).to(device=dev,
+                                                              dtype=dt)
+        table_q = torch.where(torch.isfinite(table_q), table_q, -1e30)
+        gM_t = self._tensor(gM, dt)
+        gprops_t = tuple(self._tensor(g, dt) for g in gprops)
+        p0 = gcm.PROP_COL0_2D
+        t0 = self._stage_t0()
+        packed = self._grid_packed(arrs, R_com, dt)
+        self._stage("packed_records", t0, packed)
+        canvas_rm = (self._tensor(np.asarray(gm.map, dtype=np.float64)
+                                  .reshape(-1), dt) if canvas is None
+                     else canvas.reshape(-1).to(device=dev, dtype=dt))
+        new_map = torch.zeros(N * N, dtype=dt, device=dev)
+        Nsize = np.clip(Nsize, 0, N)
+        for bi, sel, _, (B, dense, counts, counts_host, K, B_eff) in \
+                self._block_buckets(arrs, R_com, Nsize,
+                                    np.where(Nsize >= 2)[0], dt):
+            census = self._census_entry("Anis Painting", bi, sel, B, B_eff,
+                                        K, n_hi)
+            t0 = self._stage_t0()
+            pk = packed[torch.as_tensor(sel, device=dev)]
+            # each halo's own cutout half-window: a shared bucket window
+            # would paint outside the smaller halos' cutouts
+            pk[:, gcm.ANIS_HALF_COL_2D] = self._tensor(Nsize[sel] // 2, dt)
+            rows = gcm.halo_rows(gM_t, gprops_t, table_q, pk[:, 3],
+                                 pk[:, p0:p0 + len(gprops_t)], n_hi + 2)
+            # halos off the mass (or prop) grid have no row: they paint
+            # nothing, and a finite stand-in keeps the gradients NaN-free
+            live_h = torch.isfinite(rows).all(dim=1)
+            rows = torch.where(live_h[:, None], rows, 0.0)
+            perm, inv = self._grid_perms(N, B_eff)
+            (out_bm,) = gcm.grid_anis_paint_pass_2d(
+                B_eff, n_hi, N, dense, counts, counts_host, pk, rows, live_h,
+                q0, dq, eps, res, canvas_rm[perm], census=census)
+            _permute_add(new_map, out_bm, inv)
+            self._stage(f"pass[b{bi} B{B_eff} K{K} n_hi{n_hi}]", t0, new_map)
+        return new_map.reshape(N, N)
+
+    def _paint_anis_loop(self, cosmo, a, arrs, Nsize):
+        """The reference's loop over halos (float64, on the runner's
+        device): a flat (N^2,) map."""
+        gm = self.GriddedMap
+        N, res = gm.Npix, gm.res
+        dev = cosmo.device
+        f64 = dict(dtype=torch.float64, device=dev)
+        cat = self.HaloNDCatalog.cat
+        p_keys = getattr(self.model, 'p_keys', []) or []
+        R_com = arrs['R']
+        orig = torch.as_tensor(np.asarray(gm.map, dtype=np.float64)
+                               .reshape(-1), **f64)
+        new_map = torch.zeros_like(orig)
+        cen_x, cen_y = (self._nearest_bins(arrs[c]) for c in ('x', 'y'))
+        for j in np.where(Nsize >= 2)[0]:
+            half = int(Nsize[j] // 2)
+            ar = np.arange(2 * half)
+            x_inds = np.mod(ar + cen_x[j] - half, N)
+            y_inds = np.mod(ar + cen_y[j] - half, N)
+            xx = (ar - half) * res
+            r_grid = np.sqrt(xx[:, None] ** 2 + xx[None, :] ** 2).reshape(-1)
+            flat = torch.as_tensor((x_inds[:, None] * N + y_inds[None, :])
+                                   .reshape(-1), device=dev)
+            P, C = self._profile_pair(
+                cosmo, np.geomspace(max(r_grid.min(), 1e-6), r_grid.max(),
+                                    self.Nbin_interp),
+                float(cat['M'][j]), a, {k: float(cat[k][j]) for k in p_keys})
+            good = torch.isfinite(P) & torch.isfinite(C) & (P > 0) & (C > 0)
+            if int(good.sum()) < 2:
+                continue
+            P, C = P[good], C[good]
+            s = torch.argsort(C, stable=True)
+            lnC, lnP = torch.log(C[s]), torch.log(P[s])
+            vals = orig[flat]
+            lnv = torch.where(vals > 0, torch.log(torch.clamp(vals,
+                                                              min=1e-300)),
+                              np.nan)
+            # np.interp(..., left=nan, right=nan)
+            painted = torch.exp(torch.where(
+                (lnv < lnC[0]) | (lnv > lnC[-1]), np.nan,
+                interp(lnv, lnC, lnP)))
+            keep = torch.isfinite(painted) & (torch.as_tensor(
+                r_grid, **f64) < R_com[j] * self.epsilon_max)
+            scatter_add_accum((new_map,), flat.to(torch.int32),
+                              (torch.where(keep, painted, 0.0),))
+        return new_map
+
+    def process(self):
+        """The painted-only map (float64 numpy, (N, N))."""
+        N = self.GriddedMap.Npix
+        setup = self._anis_setup()
+        if setup is None:                  # an empty catalog paints nothing
+            return np.zeros((N, N), dtype=np.float64)
+        cosmo, a, arrs, Nsize = setup
+        if self.method == "cellmajor":
+            new_map = self._paint_anis_cellmajor(cosmo, a, arrs, Nsize)
+        else:
+            t0 = self._stage_t0()
+            new_map = self._paint_anis_loop(cosmo, a, arrs, Nsize)
+            self._stage("pass", t0, new_map)
+        t0 = self._stage_t0()
+        out = new_map.to(torch.float64).cpu().numpy().reshape(N, N)
+        self._stage("fetch_map", t0)
+        return out
+
+    def process_device(self, remap=None, canvas=None):
+        """Differentiable density-dependent painting (the port of the JAX
+        package's ``PaintProfilesAnisGrid.process_device``): the cell-major
+        method whatever ``method`` is, the map as an (N, N) tensor on the
+        device in the hot dtype. ``remap`` is the (NM, Nq + 2 [, P...])
+        remap table (default the host build's; e.g. from
+        :meth:`build_remap_device`), ``canvas`` the existing (N, N) map
+        (default ``GriddedMap.map``; e.g. ``BaryonifyGrid.process_device``'s
+        output, to paint after a differentiable baryonification); either
+        may carry a graph. The lnq grid, mass nodes and prop grids stay the
+        host build's, and the geometry is cached per catalog. With the
+        default inputs the values equal :meth:`process`'s (cell-major) bit
+        for bit."""
+        N = self.GriddedMap.Npix
+        setup = self._anis_setup()
+        if setup is None:
+            return torch.zeros((N, N), dtype=self.dtype,
+                               device=resolve_device(self.device))
+        cosmo, a, arrs, Nsize = setup
+        return self._paint_anis_cellmajor(cosmo, a, arrs, Nsize, remap,
+                                          canvas)

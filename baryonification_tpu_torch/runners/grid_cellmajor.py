@@ -1,16 +1,15 @@
 """Cell-major grid passes: candidate lists per block, one dense pass.
 
-The port of ``baryonification_tpu.runners.grid_cellmajor`` without the
-anisotropic paint pass. As in the shell's cell-major method, the loop is
-inverted: voxels (3D) or pixels (2D) are taken in BLOCK-major order, B^d
-of them a block, blocks in Morton order (consecutive ids are spatially
-compact and the 2^d children of block b at the next finer level are ids
-2^d b .. 2^d b + 2^d - 1). Each halo registers in every block its reach
-can touch (a stable sort of the (block, halo) pairs, so each block lists
-its halos in ascending id, as in the JAX package), the lists are refined
-to finer blocks while they are long, and one dense pass a bucket sums,
-for every voxel, its block's candidates. Each voxel is written once a
-bucket; there is no scatter.
+The port of ``baryonification_tpu.runners.grid_cellmajor``. As in the
+shell's cell-major method, the loop is inverted: voxels (3D) or pixels
+(2D) are taken in BLOCK-major order, B^d of them a block, blocks in
+Morton order (consecutive ids are spatially compact and the 2^d children
+of block b at the next finer level are ids 2^d b .. 2^d b + 2^d - 1).
+Each halo registers in every block its reach can touch (a stable sort of
+the (block, halo) pairs, so each block lists its halos in ascending id,
+as in the JAX package), the lists are refined to finer blocks while they
+are long, and one dense pass a bucket sums, for every voxel, its block's
+candidates. Each voxel is written once a bucket; there is no scatter.
 
 The passes keep the JAX package's semantics, including the reference's
 per-bucket cutout: a halo only reaches voxels whose index lies, on every
@@ -22,7 +21,9 @@ a pass (:func:`blend_table_z`), each halo's radial row once a bucket
 of two nodes. The candidate loop takes a group of candidate slots of a
 chunk of blocks at once, as one (blocks, slots, voxels) tensor of at most
 ``PASS_BUDGET`` elements, so a chunk costs a few dozen launches, not a few
-dozen a candidate.
+dozen a candidate. The anisotropic paint (:func:`grid_anis_paint_pass_2d`)
+steps through the same loop with a window of each halo's own, a readout
+at the log of an existing map's value, and that map as a second input.
 
 The packed records carry the nearest-bin indices as floats (exact for
 N <= 2^24 in float32) and, in place of each halo's position, its offset
@@ -33,7 +34,9 @@ package subtracts two box coordinates. In float32 a box coordinate near
 L = 1000 Mpc is rounded by ~3e-5 Mpc, and a flat-topped profile (a paint
 convolved with a wide pixel window) then flips whole pixels in or out at
 the disc edge; the offsets keep the voxel-halo separation to ~1e-7 of
-itself. In float64 the two forms agree to rounding.
+itself. In float64 the two forms agree to rounding. The anisotropic
+paint measures from the centre of the nearest bin, as the reference's
+cutout does, so its offsets are exact integers times res.
 """
 
 import numpy as np
@@ -47,17 +50,20 @@ __all__ = ["morton3", "demorton3", "morton2", "demorton2",
            "register_halos_grid", "register_halos_grid_2d",
            "refine_block_candidates", "refine_block_candidates_2d",
            "blend_table_z", "halo_rows", "gather_rows", "grid_pass_diff",
-           "PROP_COL0_3D", "PROP_COL0_2D",
-           "PROP_COL0_SNAP", "MAX_PROPS_3D", "MAX_PROPS_2D",
-           "MAX_PROPS_SNAP", "PASS_BUDGET"]
+           "grid_anis_paint_pass_2d", "PROP_COL0_3D", "PROP_COL0_2D",
+           "PROP_COL0_SNAP", "ANIS_HALF_COL_2D", "MAX_PROPS_3D",
+           "MAX_PROPS_2D", "MAX_PROPS_ANIS_2D", "MAX_PROPS_SNAP",
+           "PASS_BUDGET"]
 
 # packed-record column where the extra table-axis coordinates start
 # (16-wide records; the columns before it are geometry)
 PROP_COL0_3D = 9      # [dx dy dz R lnM lnR cenx ceny cenz | props]
 PROP_COL0_2D = 11     # [dx dy R lnM lnR cenx ceny Rm00 Rm01 Rm10 Rm11 | props]
 PROP_COL0_SNAP = 6    # snapshot: [x y z R lnM lnR | props]
+ANIS_HALF_COL_2D = 15  # anisotropic paint: each halo's cutout half-window
 MAX_PROPS_3D = 16 - PROP_COL0_3D
 MAX_PROPS_2D = 16 - PROP_COL0_2D
+MAX_PROPS_ANIS_2D = ANIS_HALF_COL_2D - PROP_COL0_2D
 MAX_PROPS_SNAP = 16 - PROP_COL0_SNAP
 
 # window rows (halos x window blocks) registered at once
@@ -170,16 +176,16 @@ def _block_perm(N, B, dim, device):
     return flat
 
 
-def block_perm(N, B, device="cpu"):
-    """(N^3,) int64: the row-major voxel id ((x N + y) N + z) of each
-    block-major position b B^3 + f, b the block's Morton id and
+def block_perm(N, B, *, device):
+    """(N^3,) int64 on ``device``: the row-major voxel id ((x N + y) N + z)
+    of each block-major position b B^3 + f, b the block's Morton id and
     f = (ox B + oy) B + oz."""
     return _block_perm(N, B, 3, device)
 
 
-def block_perm_2d(N, B, device="cpu"):
-    """(N^2,) int64: the row-major pixel id (x N + y) of each block-major
-    position b B^2 + f, f = ox B + oy."""
+def block_perm_2d(N, B, *, device):
+    """(N^2,) int64 on ``device``: the row-major pixel id (x N + y) of each
+    block-major position b B^2 + f, f = ox B + oy."""
     return _block_perm(N, B, 2, device)
 
 
@@ -496,77 +502,108 @@ def _zero_planes(bk, rows):
                  for _ in range(bk.n_planes))
 
 
-def _bucket_pass(bk, rows, planes, census=None):
+def _bucket_pass(bk, rows, planes, census=None, extra=()):
     """Add the pass of bucket ``bk`` (a :class:`_GridBucket`, or the
     snapshot's ``_SnapBucket``) of ``rows`` to ``planes`` in place, chunk
-    by chunk: ``bk.unit`` elements of each plane a block (cell). A
+    by chunk: ``bk.unit`` elements of each plane a block (cell). ``extra``
+    are further inputs laid out as the planes (the anisotropic paint's
+    canvas); the values of a step get each one's slice of the chunk. A
     ``census`` dict gets the bucket's counts (the grid's: voxel-slots
-    listed 'slots', those that pass every test and read the table
-    'inside', and 'steps'); it synchronises once a step, so it is for
-    measurement only."""
+    listed 'slots', those that pass every test of the geometry 'inside',
+    and 'steps'); it synchronises once a step, so it is for measurement
+    only."""
     rows_flat = rows.reshape(-1)
     U = bk.unit
     for c0, c1, cg, steps in bk.chunks():
         acc = [torch.zeros((c1 - c0, U), dtype=rows.dtype,
                            device=rows.device) for _ in planes]
+        xs = [x[c0 * U:c1 * U].reshape(c1 - c0, U) for x in extra]
         for k0, k1 in steps:
             st = bk.geometry(c0, c1, cg, k0, k1, census)
-            for a, v in zip(acc, bk.values(rows_flat, st)):
+            for a, v in zip(acc, bk.values(rows_flat, st, *xs)):
                 a += v
         for p, a in zip(planes, acc):
             p[c0 * U:c1 * U] += a.reshape(-1)
     return planes
 
 
-def _bucket_vjp(bk, rows, cts):
-    """The pass's VJP with respect to ``rows`` for the cotangent planes
-    ``cts``: each step's geometry is recomputed and its values taken
-    again under autograd, whose gradient in the rows is added up, so one
-    step's graph is held at a time. Where grad mode is on (a backward
-    with ``create_graph``), ``rows`` is the saved input with its history
+def _bucket_vjp(bk, rows, cts, extra=(), needs=None):
+    """The pass's VJP with respect to ``rows`` and the ``extra`` inputs
+    (those that ``needs`` marks; all by default) for the cotangent planes
+    ``cts``: each step's geometry is recomputed and its values taken again
+    under autograd, whose gradient in the inputs is added up, so one
+    step's graph is held at a time. Where grad mode is on (a backward with
+    ``create_graph``), the inputs are the saved ones with their history
     and each step's gradient keeps its graph, so the result can be
-    differentiated again."""
+    differentiated again. Returns one gradient an input (None where not
+    needed)."""
     create = torch.is_grad_enabled()
-    d_rows = torch.zeros_like(rows)
+    inputs = (rows,) + tuple(extra)
+    needs = tuple(needs) if needs is not None else (True,) * len(inputs)
+    want = [j for j, n in enumerate(needs) if n]
+    grads = [torch.zeros_like(x) if n else None
+             for x, n in zip(inputs, needs)]
     U = bk.unit
     for c0, c1, cg, steps in bk.chunks():
         g = [ct[c0 * U:c1 * U].reshape(c1 - c0, U) for ct in cts]
+        span = slice(c0 * U, c1 * U)
+        with torch.enable_grad():
+            # the extra inputs' slices of the chunk: leaves, or (keeping
+            # the graph) views of the saved inputs
+            xs = [rows if create else rows.detach().requires_grad_(needs[0])]
+            xs += [(x[span] if create else x[span].detach().requires_grad_(n))
+                   .reshape(c1 - c0, U) for x, n in zip(extra, needs[1:])]
         for k0, k1 in steps:
             st = bk.geometry(c0, c1, cg, k0, k1)
             with torch.enable_grad():
-                r = rows if create else rows.detach().requires_grad_(True)
-                (d,) = torch.autograd.grad(bk.values(r.reshape(-1), st), r,
-                                           g, create_graph=create)
-            d_rows = d_rows + d if create else d_rows.add_(d)
-    return d_rows
+                ds = torch.autograd.grad(
+                    bk.values(xs[0].reshape(-1), st, *xs[1:]),
+                    [xs[j] for j in want], g, create_graph=create,
+                    allow_unused=True)
+            for j, d in zip(want, ds):
+                if d is None:
+                    continue
+                if j == 0:
+                    grads[0] = grads[0] + d if create else grads[0].add_(d)
+                elif create:
+                    grads[j] = grads[j].index_add(
+                        0, torch.arange(c0 * U, c1 * U, device=d.device),
+                        d.reshape(-1))
+                else:
+                    grads[j][span] += d.reshape(-1)
+    return grads
 
 
 class _PassFn(torch.autograd.Function):
-    """New planes = the pass of bucket ``bk`` of ``rows``; differentiable
-    in ``rows``, to any order. The forward runs the plain-op pass under
-    no_grad; the backward recomputes it step by step
-    (:func:`_bucket_vjp`), so memory stays that of one step's graph."""
+    """New planes = the pass of bucket ``bk`` of ``rows`` (and its
+    ``extra`` inputs); differentiable in each, to any order. The forward
+    runs the plain-op pass under no_grad; the backward recomputes it step
+    by step (:func:`_bucket_vjp`), so memory stays that of one step's
+    graph."""
 
     @staticmethod
-    def forward(ctx, bk, rows):
+    def forward(ctx, bk, rows, *extra):
         ctx.bk = bk
-        ctx.save_for_backward(rows)
-        return _bucket_pass(bk, rows, _zero_planes(bk, rows))
+        ctx.save_for_backward(rows, *extra)
+        return _bucket_pass(bk, rows, _zero_planes(bk, rows), extra=extra)
 
     @staticmethod
     def backward(ctx, *cts):
-        (rows,) = ctx.saved_tensors
-        return None, _bucket_vjp(ctx.bk, rows, cts)
+        rows, *extra = ctx.saved_tensors
+        return (None, *_bucket_vjp(ctx.bk, rows, cts, extra,
+                                   ctx.needs_input_grad[1:]))
 
 
-def _pass_diff(bk, rows, census=None):
-    """The pass of bucket ``bk`` as a differentiable function of ``rows``:
-    new planes with the values of :func:`_bucket_pass` on zero planes,
-    bit for bit. Where ``rows`` requires grad, the :class:`_PassFn`;
-    otherwise the plain pass (a ``census`` is only filled then)."""
-    if torch.is_grad_enabled() and rows.requires_grad:
-        return _PassFn.apply(bk, rows)
-    return _bucket_pass(bk, rows, _zero_planes(bk, rows), census)
+def _pass_diff(bk, rows, census=None, extra=()):
+    """The pass of bucket ``bk`` as a differentiable function of ``rows``
+    (and of ``extra``): new planes with the values of :func:`_bucket_pass`
+    on zero planes, bit for bit. Where an input requires grad, the
+    :class:`_PassFn`; otherwise the plain pass (a ``census`` is only
+    filled then)."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (rows,) + tuple(extra)):
+        return _PassFn.apply(bk, rows, *extra)
+    return _bucket_pass(bk, rows, _zero_planes(bk, rows), census, extra)
 
 
 def grid_pass_diff(mode, dim, B, n_hi, N, half, dense, counts, counts_host,
@@ -602,3 +639,104 @@ def grid_pass_diff(mode, dim, B, n_hi, N, half, dense, counts, counts_host,
     return _pass_diff(_GridBucket(mode, dim, B, n_hi, N, half, dense, counts,
                                   counts_host, packed, g0, dg, rad_hi,
                                   eps_max, res), rows, census)
+
+
+class _AnisBucket(_GridBucket):
+    """One bucket of the anisotropic (density-dependent) 2D paint: the
+    blocks and candidate slots of :class:`_GridBucket`, with its own
+    geometry and values. A halo paints a pixel of its own cutout window
+    (half-width from the packed column ``ANIS_HALF_COL_2D``, not the
+    bucket's) that lies within eps_max R_com of the centre of the halo's
+    nearest bin (circular, no shear). The paint is read from the halo's
+    remap row at the log of the canvas value at that pixel, and only
+    inside the row's canvas range (its last two nodes). ``live_h`` marks
+    the halos whose rows exist (masses on the remap's grid)."""
+
+    def __init__(self, B, n_hi, N, dense, counts, counts_host, packed,
+                 live_h, q0, dq, eps_max, res):
+        super().__init__("paint", 2, B, n_hi, N, 0, dense, counts,
+                         counts_host, packed, q0, dq, None, eps_max, res)
+        cols = _COLS[2]
+        self.hh = packed[:, ANIS_HALF_COL_2D].to(torch.int64)
+        self.lo = packed[:, list(cols['cen'])].to(torch.int64) \
+            - self.hh[:, None]
+        self.reach = eps_max * packed[:, cols['R']]
+        self.live_h = live_h
+        self.stride = n_hi + 2
+
+    def geometry(self, c0, c1, iv, k0, k1, census=None):
+        """The step's rows and its mask: dict(row, live), row the first
+        flat index of each slot's row ((C, G, 1, 1))."""
+        N, ax = self.N, self.ax
+        dev, dt = self.reach.device, self.reach.dtype
+        hid = self.dense2[c0:c1, k0:k1]                           # (C, G)
+        ok = ((torch.arange(k0, k1, device=dev)[None, :]
+               < self.counts[c0:c1, None]) & self.live_h[hid])
+        hh = self.hh[hid][..., None]
+        hl = self.lo[hid]
+        sq, win = 0.0, ax(ok[..., None], 0)
+        for d in range(2):
+            # the pixel's place u in the window [cen - hh, cen + hh): its
+            # offset from the nearest bin's centre is (u - hh) res
+            u = torch.remainder(iv[d][:, None, :] - hl[..., d, None], N)
+            dd = (u - hh).to(dt) * self.res
+            sq = sq + ax(dd * dd, d)
+            win = win & ax(u < 2 * hh, d)
+        live = win & (torch.sqrt(sq) < ax(self.reach[hid][..., None], 0))
+        if census is not None:
+            census['slots'] += int(ok.sum()) * self.F
+            census['inside'] += int(live.sum())
+            census['steps'] += 1
+        return dict(row=ax(hid[..., None], 0) * self.stride, live=live)
+
+    def values(self, rows_flat, st, canvas):
+        """The step's (C, F) paint from the flat rows and the chunk's
+        (C, F) block-major canvas."""
+        C, n_hi = canvas.shape[0], self.n_hi
+        v = canvas.reshape(C, 1, self.B, self.B)
+        vpos = v > 0
+        lnv = torch.log(torch.where(vpos, v, 1.0))
+        tc = torch.clamp((lnv - self.g0) / self.dg, 0.0, float(n_hi - 1))
+        i = torch.clamp(torch.floor(tc.detach()), max=n_hi - 2)
+        base = st['row'] + i.to(torch.int64)
+        val = torch.lerp(gather_rows(rows_flat, base),
+                         gather_rows(rows_flat, base + 1), tc - i)
+        # the canvas range of each slot's row: a mask, no gradient
+        lim = rows_flat.detach()
+        keep = (st['live'] & vpos & (lnv >= lim[st['row'] + n_hi])
+                & (lnv <= lim[st['row'] + n_hi + 1]))
+        paint = torch.exp(val)
+        paint = torch.where(keep & torch.isfinite(paint), paint, 0.0)
+        return [paint.sum(dim=1).reshape(C, self.F)]
+
+
+def grid_anis_paint_pass_2d(B, n_hi, N, dense, counts, counts_host, packed,
+                            rows, live_h, q0, dq, eps_max, res, canvas,
+                            census=None):
+    """One bucket of the anisotropic paint over every pixel in block-major
+    order, as a differentiable function of ``rows`` and ``canvas``:
+    returns one new block-major paint plane of N^2.
+
+    The JAX package's pass of the same name: the reference's monotone
+    Canvas -> Paint remap, painting y(delta) in place of y(r). Each pixel
+    reads its candidates' remap rows at t = (ln v - q0) / dq, v the
+    canvas value there (pixels with v <= 0 paint nothing), lerped between
+    two nodes, and paints exp of it where ln v lies in the row's canvas
+    range [lo, hi] and the pixel passes the halo's geometry (see
+    :class:`_AnisBucket`). Where an input requires grad the backward
+    recomputes the pass a step at a time; the gradient in the canvas is
+    d paint / d ln v / v, 0 outside the range and on masked slots.
+
+    dense, counts : the bucket's (ncell * K,) Morton-block candidates and
+                    (ncell,) counts (``counts_host`` a host copy)
+    packed : (H, 16) the bucket's 2D records (see :func:`grid_pass_diff`)
+             with each halo's cutout half-window in ``ANIS_HALF_COL_2D``
+    rows : (H, n_hi + 2) the halos' rows of the remap (ln Paint on the
+           uniform ln Canvas grid from ``q0`` in steps ``dq``, then lo and
+           hi), finite; ``live_h`` (H,) marks the halos that have one
+    canvas : (N^2,) the canvas in the bucket's block-major order
+    census : None, or a dict of counts (see :func:`_bucket_pass`)
+    """
+    bk = _AnisBucket(B, n_hi, N, dense, counts, counts_host, packed,
+                     live_h, q0, dq, eps_max, res)
+    return _pass_diff(bk, rows, census, (canvas,))

@@ -1,18 +1,27 @@
-"""Small tensor helpers shared by the port's modules.
+"""Small helpers shared by the port's modules, and the reference's misc
+utilities.
 
 ``safe_log`` is the counterpart of ``baryonification_tpu.utils.safe_log``;
-the rest are the numpy/jnp conveniences PyTorch lacks (``interp``,
-``geomspace``), written to follow ``jnp``'s definitions so the two
-packages agree to rounding, and ``resolve_device``, which every entry
-point that makes tensors uses for its ``device`` argument.
+``interp``, ``interp_rows`` and ``geomspace`` are the numpy/jnp
+conveniences PyTorch lacks, written to follow ``jnp``'s definitions so the
+two packages agree to rounding; ``resolve_device`` is what every entry
+point that makes tensors uses for its ``device`` argument. The
+reference's ``build_cosmodict``, ``log_time``, ``generate_operator_method``
+and ``destory_Pk`` (its spelling) keep their names, and ``trace`` records
+a ``torch.profiler`` trace.
 """
 
 import math
+import time
+from contextlib import contextmanager
+from functools import wraps
+from pathlib import Path
 
 import torch
 
 __all__ = ["safe_log", "interp", "interp_rows", "geomspace",
-           "resolve_device"]
+           "resolve_device", "build_cosmodict", "log_time",
+           "generate_operator_method", "destory_Pk", "trace"]
 
 
 def resolve_device(device):
@@ -97,3 +106,68 @@ def interp_rows(x, xp, fp):
     return _interp_from_index(x, xp_lo, xp_hi, torch.gather(fp, -1, i - 1),
                               torch.gather(fp, -1, i), xp0, xpN,
                               fp[..., :1], fp[..., -1:])
+
+
+def build_cosmodict(cosmo):
+    """The plain dict of cosmological parameters that the io objects take,
+    from a :class:`~baryonification_tpu_torch.cosmology.Cosmology`."""
+    return cosmo.cosmodict
+
+
+def log_time(fn):
+    """Decorator that prints the wall time of each call."""
+
+    @wraps(fn)
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        print(f"[log_time] {fn.__qualname__}: "
+              f"{time.perf_counter() - t0:.3f}s")
+        return out
+
+    return wrapper
+
+
+def generate_operator_method(op, reflected=False):
+    """A profile-algebra dunder method for the ``operator`` function
+    ``op``: it returns a
+    :class:`~baryonification_tpu_torch.profiles.base.CombinedProfile` of
+    the operands (``reflected``: the other operand first). Unary ``abs``,
+    ``neg`` and ``pos`` take no other operand."""
+    import operator as _operator
+    from .profiles.base import CombinedProfile
+    name = getattr(op, '__name__', 'op')
+    if op in (_operator.abs, _operator.neg, _operator.pos):
+        def method(self):
+            return CombinedProfile(lambda a, b: op(a), self, None, name)
+    elif reflected:
+        def method(self, other):
+            return CombinedProfile(lambda a, b: op(b, a), self, other, name)
+    else:
+        def method(self, other):
+            return CombinedProfile(lambda a, b: op(a, b), self, other, name)
+    return method
+
+
+def destory_Pk(cosmo):
+    """Returns ``cosmo``. The reference strips unpicklable P(k) handles
+    from its cosmology before sending it to worker processes; the port's
+    Cosmology holds tensors and pickles as it is. The name keeps the
+    reference's spelling."""
+    return cosmo
+
+
+@contextmanager
+def trace(log_dir):
+    """Record the block with ``torch.profiler`` (the host, and the card
+    where there is one) and write its Chrome trace into ``log_dir``
+    (created if missing) as ``trace.json``."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(str(log_dir / "trace.json"))

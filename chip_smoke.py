@@ -25,7 +25,10 @@ and fails on any fault:
      stages, under method "auto" (the cell-major method on the card: its
      kernel launched, no scatter) and with method="scatter" (the scatter
      kernel launched); asserts mass conservation and that the map
-     changed, and compares the two maps;
+     changed, and compares the two maps; then writes the input map to a
+     FITS file, loads it through LightconeShell(path=...), holds the
+     process() of the loaded shell to the in-memory run's bit for bit,
+     and ud_grades the result to NSIDE 256 on the card against the CPU;
   5. grad: the differentiable shell path at the shell path's width
      (bench.py's NSIDE-1024, 1e6-halo shell and table grid): chi^2 of
      the map in ln M_c through build_table_device and process_device,
@@ -111,6 +114,19 @@ and fails on any fault:
      process() (float64 bit for bit);
   13. ex15: examples/15_gradient_fit_dPk.py on the card at its sizes, in
      float64, the full tier (20 Adam steps), its three asserts;
+  13b. anis: bench_runners.py's bench_anis (2048^2, 2e5 halos, the tSZ
+     table painted on a DarkMatter canvas): PaintProfilesAnisGrid's remap
+     (host build against build_remap_device), cold and warm process()
+     with stages under "auto" (the cell-major pass, plain PyTorch ops),
+     the census with its operations bound, launches, idle share and peak
+     memory of a warm call, float32 against float64, warm value_and_grad
+     in a canvas and a remap scale (the row reads through scatter_add_vjp,
+     their backward the scatter kernel), and the loop (method "scatter",
+     a scatter launch a halo) against the cell-major pass on 2000 halos in
+     float64; then examples/17_anis_paint_composition.py on the card at
+     its size in float64: the composed baryonify -> anisotropic paint
+     chain, the gradient against central differences, 25 Adam steps and
+     the example's three asserts;
   14. dP(k) path: examples/10_delta_pk_snapshot.py and
      examples/12_arico_delta_pk_snapshot.py on the card: the halo-model
      suppression against the 15 scraped Schneider+19 Fig. 2 curves at the
@@ -1394,7 +1410,60 @@ def main_path(T, torch, device, n_halo, nside):
     rel = np.abs(cm_map - sc_map).max() / np.abs(sc_map - shell.map).max()
     log(f"main: cell-major vs scatter map (float32 both): rms/mean = "
         f"{rms:.3e}, max|diff| / max|change| = {rel:.3e}")
+    fits_shell(T, torch, device, model, cat, shell)
     return cm_launches, sc_launches
+
+
+def fits_shell(T, torch, device, model, cat, shell):
+    """The shell path from a FITS file: the input map written with
+    write_healpix_fits (into the git-ignored .scratch/, removed after),
+    loaded through LightconeShell(path=...) (the map read back exactly),
+    and BaryonifyShell.process() (auto) from it equal to the run from the
+    map in memory bit for bit, both under deterministic algorithms (the
+    regrid's index_add_ otherwise sums in no fixed order on the card);
+    then ud_grade of that map to NSIDE 256 with power -2 (the sum kept)
+    on the card against the CPU's."""
+    path = ROOT / ".scratch" / "chip_smoke_shell.fits"
+    path.parent.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    T.io.write_healpix_fits(path, shell.map)
+    t_write = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        loaded = T.LightconeShell(path=str(path), cosmo=COSMO)
+        t_read = time.perf_counter() - t0
+    finally:
+        path.unlink()
+    check(np.array_equal(loaded.map, shell.map), "FITS: the shell map did "
+          "not read back exactly")
+    maps = []
+    with deterministic(torch):
+        for src in (shell, loaded):
+            maps.append(T.BaryonifyShell(cat, src, epsilon_max=EPS_MAX,
+                                         model=model, verbose=False,
+                                         device=device).process())
+    log(f"main: FITS shell (NSIDE {loaded.NSIDE}): written in {t_write:.2f} "
+        f"s, read through LightconeShell(path=...) in {t_read:.2f} s; "
+        f"process() from it equals the in-memory run bit for bit: "
+        f"{np.array_equal(maps[0], maps[1])}")
+    check(np.array_equal(maps[0], maps[1]), "FITS: the shell from the file "
+          "baryonifies differently")
+    hpx = T.ops.healpix
+    m = torch.as_tensor(maps[0], device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    low = hpx.ud_grade(m, 256, power=-2)
+    torch.cuda.synchronize()
+    t_ud = time.perf_counter() - t0
+    want = hpx.ud_grade(torch.as_tensor(maps[0]), 256, power=-2).numpy()
+    low = low.cpu().numpy()
+    rel = float(np.abs(low - want).max() / np.abs(want).max())
+    drift = abs(low.sum() - maps[0].sum()) / maps[0].sum()
+    log(f"main: ud_grade to NSIDE 256 (power -2) on the card {t_ud * 1e3:.2f} "
+        f"ms (the first call builds its index tables); max|card - CPU| / "
+        f"max {rel:.3e} (bar 1e-14), sum kept to {drift:.3e} (bar 1e-12)")
+    check(rel < 1e-14 and drift < 1e-12, "ud_grade on the card differs "
+          "from the CPU's")
 
 
 def reference_check(T, torch, device):
@@ -1495,14 +1564,16 @@ _GRID_MODELS = {}
 
 def grid_model(T, torch, device, dim, kind="displacement"):
     """bench_runners.py's Baryonification3D (3D) or 2D table built on the
-    card, or (``kind="gas"``) examples/17's TabulatedProfile(Gas) on the
-    same grid; cached, the build time logged once."""
+    card, or (``kind="gas"``) examples/17's TabulatedProfile(Gas), or
+    (``kind="dm"``) bench_anis's canvas TabulatedProfile(DarkMatter), on
+    the same grid; cached, the build time logged once."""
     key = (dim, kind, str(device))
     if key not in _GRID_MODELS:
         t0 = time.perf_counter()
         cosmo = T.Cosmology.from_dict(COSMO, device=device)
-        if kind == "gas":
-            model = T.TabulatedProfile(T.Gas(**PAR), cosmo)
+        if kind in ("gas", "dm"):
+            model = T.TabulatedProfile(
+                (T.Gas if kind == "gas" else T.DarkMatter)(**PAR), cosmo)
             model.setup_interpolator(**RUNNERS_GRID)
         else:
             cls = T.Baryonification3D if dim == 3 else T.Baryonification2D
@@ -1510,7 +1581,7 @@ def grid_model(T, torch, device, dim, kind="displacement"):
                         cosmo, epsilon_max=GRID_EPS)
             model.setup_interpolator(verbose=False, **RUNNERS_GRID)
         torch.cuda.synchronize()
-        tab = model._ln3D if kind == "gas" else model._table
+        tab = model._table if kind == "displacement" else model._ln3D
         log(f"grid: {type(model).__name__} ({dim}D) table "
             f"{tuple(tab.shape)} built on {device} in float64: "
             f"{time.perf_counter() - t0:.2f} s")
@@ -4125,6 +4196,299 @@ def ex15_path(T, torch, device):
                 ("scatter_add", "scatter_add_vjp"))
 
 
+# ----- the density-dependent paint: anis, ex17 -----
+
+# anis-2048: bench_runners.py's bench_anis (L = 1000 Mpc, 2048^2 pixels,
+# 2e5 halos from grid2d-2048's catalog draw, eps_max 5, tsz_model(32)
+# painted on a TabulatedProfile(DarkMatter) canvas on RUNNERS_GRID, the
+# canvas map 10^U(12, 14.5))
+ANIS_CELL = (2048, 1000.0, 200_000)
+# the loop (method "scatter") against the cell-major method in float64 on
+# this many of the catalog's halos, at the JAX tests' blended-mass bars on
+# the pixels both paint: max and rms of |cell-major / loop - 1|
+ANIS_METHODS_HALOS = 2000
+ANIS_METHODS_BAR = (2e-2, 5e-3)
+# operations the anisotropic pass needs (a sqrt, log, exp or division
+# counted as one), from runners/grid_cellmajor.py's _AnisBucket: every
+# listed pixel-slot takes its offsets (3 an axis: the window place less
+# the halo's half, times res, squared), their sum, the sqrt and the
+# compare against eps_max R, and the window test (3); every pixel of
+# every bucket the log of its canvas value, t (2), its clamp (2), floor
+# and weight (2); every slot that passes the geometry the lerp (3), the
+# range tests (2), exp and the add
+ANIS_TEST_FLOPS = 2 * 3 + 1 + 1 + 1 + 3
+ANIS_PIXEL_FLOPS = 1 + 2 + 2 + 2
+ANIS_READ_FLOPS = 3 + 2 + 1 + 1
+
+
+def anis_catalog(T):
+    """anis-2048's catalog (grid2d-2048's draw) and canvas map."""
+    N, L, n_halo = ANIS_CELL
+    cat, _ = nd_catalog(T, 2, N, L, n_halo)
+    rng = np.random.default_rng(4)
+    gm = T.GriddedMap(map=10 ** rng.uniform(12.0, 14.5, (N, N)),
+                      redshift=0.25, bins=(np.arange(N) + 0.5) * (L / N),
+                      cosmo=COSMO)
+    return cat, gm
+
+
+def anis_census(torch, runner, label):
+    """One more warm process() with the pass's census and the peak device
+    memory, one under torch.profiler; logs the counts, the operations
+    bound, the launches and the idle share. Returns (operations bound ms,
+    census totals)."""
+    census, peak, n_launch, dev_ms, idle = census_run(torch, runner)
+    N = runner.GriddedMap.Npix
+    slots = sum(c["slots"] for c in census)
+    inside = sum(c["inside"] for c in census)
+    flops = (slots * ANIS_TEST_FLOPS + inside * ANIS_READ_FLOPS
+             + len(census) * N * N * ANIS_PIXEL_FLOPS)
+    bound = flops / PEAK_FLOPS["float32"] * 1e3
+    for c in census:
+        log(f"anis: {label} census bucket {c['bucket']}: H={c['H']}, "
+            f"B={c['B']}->{c['B_eff']}, K={c['K']}, F={c['F']}: pixel-slots "
+            f"{c['slots']:.4e}, inside {c['inside']:.4e}, {c['steps']} steps")
+    log(f"anis: {label}: the pass lists {slots:.4e} pixel-slots, "
+        f"{inside:.4e} inside; operations bound {bound:.4f} ms "
+        f"({flops:.3e} flops at {PEAK_FLOPS['float32'] / 1e12:.0f} "
+        f"TFLOP/s); one warm process() puts {n_launch} device launches on "
+        f"the card, {dev_ms if dev_ms is None else round(dev_ms, 3)} ms "
+        f"busy; device idle {idle}; peak device memory {peak:.2f} GiB")
+    return bound, dict(slots=slots, inside=inside, launches=n_launch,
+                       busy_ms=dev_ms, idle=idle, peak_gib=peak)
+
+
+def check_remap_device(T, torch, runner, label):
+    """build_remap_device() against the host build's table on the card
+    (the same sentinels, then 1e-8), each timed."""
+    cosmo = T.Cosmology.from_dict(COSMO, device=runner.device)
+    a = 1.0 / (1.0 + runner.HaloNDCatalog.redshift)
+    t0 = time.perf_counter()
+    host = runner._anis_remap_table_impl(cosmo, a)[3]
+    torch.cuda.synchronize()
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev = runner.build_remap_device()
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    host, dev = host.cpu().numpy(), dev.cpu().numpy()
+    same = (np.array_equal(host <= -1e29, dev <= -1e29)
+            and np.array_equal(host >= 1e29, dev >= 1e29))
+    ok = (host > -1e29) & (host < 1e29)
+    err = float(np.abs(host[ok] - dev[ok]).max())
+    log(f"anis: {label}: remap table {host.shape}: the host build "
+        f"{t_host:.3f} s, build_remap_device {t_dev:.3f} s; the same "
+        f"sentinels {same} ({int((~ok).sum())} entries), max|diff| "
+        f"{err:.3e} elsewhere (bar 1e-8)")
+    check(same and err < 1e-8, f"anis: {label}: build_remap_device differs "
+          f"from the host build")
+    return t_host, t_dev
+
+
+def anis_methods(T, torch, device, cat, gm, paint, canvas):
+    """The loop (method "scatter", one scatter launch a halo) against the
+    cell-major method on the first ANIS_METHODS_HALOS halos, float64."""
+    sub = cat[:ANIS_METHODS_HALOS]
+    maps = {}
+    for method in ("scatter", "cellmajor"):
+        r = T.PaintProfilesAnisGrid(sub, gm, epsilon_max=GRID_PAINT_EPS,
+                                    Painting_model=paint,
+                                    Canvas_model=canvas, verbose=False,
+                                    device=device, method=method,
+                                    precision="float64")
+        reset_counts()
+        t0 = time.perf_counter()
+        maps[method] = r.process()
+        t = time.perf_counter() - t0
+        read_counts(f"anis {method} ({len(sub)} halos, float64)",
+                    SCATTER if method == "scatter" else ())
+        log(f"anis: {method} float64 on {len(sub)} halos: process() "
+            f"{t:.2f} s ({t / len(sub) * 1e3:.2f} ms a halo)")
+    host, cm = maps["scatter"], maps["cellmajor"]
+    b_h, b_c = host != 0, cm != 0
+    both = b_h & b_c
+    rel = np.abs(cm[both] / host[both] - 1)
+    mx, rms = float(rel.max()), float(np.sqrt((rel ** 2).mean()))
+    only = int((b_h ^ b_c).sum())
+    log(f"anis: cell-major against the loop (float64, {len(sub)} halos): "
+        f"{int(b_h.sum())} pixels painted by the loop, {int(b_c.sum())} by "
+        f"the cell-major pass, {only} by one only; on the {int(both.sum())} "
+        f"both paint |cm/loop - 1| max {mx:.3e}, rms {rms:.3e} (bars "
+        f"{ANIS_METHODS_BAR[0]:g}, {ANIS_METHODS_BAR[1]:g})")
+    check(b_h.sum() > 0 and mx < ANIS_METHODS_BAR[0]
+          and rms < ANIS_METHODS_BAR[1], "anis: the two methods differ")
+    return dict(max=mx, rms=rms, only=only, painted=int(b_h.sum()))
+
+
+def anis_path(T, torch, device):
+    """bench_runners.py's bench_anis at full width (anis-2048): the remap
+    built on the card (host build and build_remap_device, held
+    together), PaintProfilesAnisGrid cold and warm with stages under
+    ``auto`` (the cell-major pass: plain PyTorch ops, no kernel), the
+    census with its operations bound, launches, idle share and peak memory
+    of a warm call; a cold and a warm float32 value_and_grad of
+    sum(process_device(...)) in a canvas scale and in a remap scale (its
+    row reads through scatter_add_vjp, their backward the scatter kernel);
+    the float32 map against a float64 paint; the loop against the
+    cell-major method on the first ANIS_METHODS_HALOS halos in float64.
+    Returns a dict of the numbers."""
+    from baryonification_tpu_torch.runners import grid_cellmajor as tgcm
+    cat, gm = anis_catalog(T)
+    paint = tsz_model(T, torch, device, 32)
+    canvas = grid_model(T, torch, device, 2, "dm")
+    mk = lambda **kw: T.PaintProfilesAnisGrid(
+        cat, gm, epsilon_max=GRID_PAINT_EPS, Painting_model=paint,
+        Canvas_model=canvas, verbose=False, device=device, **kw)
+    runner = mk()
+    check(runner.method == "cellmajor" and runner.dtype == torch.float32,
+          f"anis: auto is {runner.method} in {runner.dtype}")
+    label = "anis (auto = cellmajor)"
+    y, _, t_warm = run_process(torch, runner, label, (),
+                               CELLMAJOR + SCATTER, paint=True)
+    out = dict(warm_s=t_warm, pass_s=sum(
+        v for k, v in runner.stage_times if k.startswith("pass[")))
+    out["remap_host_s"], out["remap_device_s"] = check_remap_device(
+        T, torch, runner, label)
+    out["bound_ms"], out["census"] = anis_census(torch, runner, label)
+    t0 = time.perf_counter()
+    y64 = mk(precision="float64").process()
+    rms, rel = map_diff(y, y64)
+    log(f"anis: float64 (cell-major) {time.perf_counter() - t0:.2f} s; "
+        f"float32 vs float64: rms/mean {rms:.3e}, max|diff|/max {rel:.3e} "
+        f"(bar rms/mean {GRID_PAINT_F32_BAR:g}); {int((y > 0).sum())} of "
+        f"{y.size} pixels painted")
+    check(rms < GRID_PAINT_F32_BAR, f"anis float32 vs float64: rms/mean "
+          f"{rms:.3e}")
+    out["f32_rms"] = rms
+    c0 = torch.as_tensor(gm.map, dtype=torch.float32, device=device)
+    remap0 = runner.build_remap_device()
+    nq = remap0.shape[1] - 2
+    losses = {
+        "canvas": (lambda s: runner.process_device(canvas=c0 * s)
+                   .double().sum(), ()),
+        "remap": (lambda s: runner.process_device(remap=torch.cat(
+            [remap0[:, :nq] * s, remap0[:, nq:]], dim=1)).double().sum(),
+            ("scatter_add", "scatter_add_vjp"))}
+    for name, (loss, expected) in losses.items():
+        reset_counts()
+        cold, warm, peak = warm_value_and_grad(
+            torch, f"anis value_and_grad in a {name} scale", loss, 1.0,
+            device, tgcm, "register_halos_grid_2d", tgcm)
+        read_counts(f"anis (value_and_grad in a {name} scale, float32)",
+                    expected)
+        out[f"grad_{name}"] = dict(forward_s=warm[2], backward_s=warm[3],
+                                   peak_gib=peak)
+    del runner
+    torch.cuda.empty_cache()
+    out["methods"] = anis_methods(T, torch, device, cat, gm, paint, canvas)
+    return out
+
+
+def ex17_chain(T, torch, device, precision="float64"):
+    """examples/17_anis_paint_composition.py's chain through the port on
+    ``device`` (float64 by default): the scene (10 halos on 48^2, seed 17,
+    a TabulatedProfile(DarkMatter) painted by PaintProfilesGrid), then
+    ``y_map(lnMc)`` = PaintProfilesAnisGrid.process_device (cell-major, a
+    TabulatedProfile(Gas) painted on the DarkMatter canvas, its remap from
+    build_remap_device held fixed) of the canvas
+    BaryonifyGrid.process_device(build_table_device of Schneider19 at M_c
+    = exp(lnMc)), every table on the example's 3 x 6 x 48 grid
+    (EX14_GRID). The other runners take method "auto". Returns (y_map,
+    the scene map)."""
+    cosmo = T.Cosmology.from_dict(COSMO, device=device)
+    N, L = 48, 60.0
+    bins = (np.arange(N) + 0.5) * (L / N)
+    rng = np.random.default_rng(17)
+    cat = T.HaloNDCatalog(x=rng.uniform(6, 54, 10), y=rng.uniform(6, 54, 10),
+                          M=10 ** rng.uniform(13.8, 14.7, 10),
+                          redshift=0.25, cosmo=COSMO)
+    kw = dict(verbose=False, device=device, precision=precision)
+    models = {}
+    for name in ("DarkMatter", "Gas"):
+        models[name] = T.TabulatedProfile(getattr(T, name)(**PAR), cosmo)
+        models[name].setup_interpolator(verbose=False, **EX14_GRID)
+    gm0 = T.GriddedMap(map=np.zeros((N, N)), redshift=0.25, bins=bins,
+                       cosmo=COSMO)
+    base = T.PaintProfilesGrid(cat, gm0, epsilon_max=5,
+                               model=models["DarkMatter"], **kw).process()
+    gm = T.GriddedMap(map=base, redshift=0.25, bins=bins, cosmo=COSMO)
+    model0 = T.Baryonification2D(T.DarkMatterOnly(**PAR),
+                                 T.DarkMatterBaryon(**PAR), cosmo,
+                                 epsilon_max=10)
+    model0.setup_interpolator(verbose=False, **EX14_GRID)
+    bary = T.BaryonifyGrid(cat, gm, epsilon_max=10, model=model0, **kw)
+    anis = T.PaintProfilesAnisGrid(cat, gm, epsilon_max=5,
+                                   Painting_model=models["Gas"],
+                                   Canvas_model=models["DarkMatter"],
+                                   method="cellmajor", **kw)
+    remap = anis.build_remap_device().detach()
+
+    def y_map(lnMc):
+        table = table_of(T, cosmo, EX14_GRID, dict(PAR, M_c=torch.exp(lnMc)),
+                         2, 10)
+        return anis.process_device(remap=remap,
+                                   canvas=bary.process_device(table=table))
+
+    return y_map, base
+
+
+def example17(T, torch, device):
+    """examples/17_anis_paint_composition.py through the port on the card
+    at its size, float64, with its three asserts and the gradient at the
+    start against central differences. Returns seconds an Adam step."""
+    f64 = dict(dtype=torch.float64, device=device)
+    t0 = time.perf_counter()
+    y_map, base = ex17_chain(T, torch, device)
+    check(int((base > 0).sum()) > 100, "ex17: scene painting failed")
+    with torch.no_grad():
+        data = y_map(torch.tensor(LN_MC_TRUE, **f64))
+    check(bool(torch.isfinite(data).all()) and int((data > 0).sum()) > 50,
+          "ex17: mock observable empty")
+    log(f"ex17: staging and the truth's chain "
+        f"{time.perf_counter() - t0:.2f} s; {int((data > 0).sum())} pixels "
+        f"painted")
+    scale = 1.0 / float(data.max()) ** 2
+    chi2 = lambda x: ((y_map(x) - data) ** 2).sum() * scale * 1e6
+    _, g_true = value_and_grad(torch, chi2, LN_MC_TRUE, device)[:2]
+    c0, g_start = value_and_grad(torch, chi2, LN_MC_START, device)[:2]
+    log(f"ex17: grad at truth {g_true:+.3e}, at start {g_start:+.3e}, chi2 "
+        f"start {c0:.4e}")
+    check(abs(g_true) < 0.05 * abs(g_start),
+          "ex17: the gradient at the truth is not ~0")
+    check(g_start * (LN_MC_START - LN_MC_TRUE) > 0,
+          "ex17: the gradient at the start does not point to the truth")
+    check_fd(torch, "ex17", chi2, LN_MC_START, g_start, device)
+
+    def progress(step, params, loss, grad):
+        if step % 5 == 0 or step == 24:
+            log(f"ex17: step {step:2d}: ln M_c = {float(params):.4f} (truth "
+                f"{LN_MC_TRUE:.4f}), chi2 = {loss:.4e}")
+
+    t0 = time.perf_counter()
+    res = T.fit(chi2, torch.tensor(LN_MC_START, **f64), steps=25,
+                learning_rate=0.15, callback=progress)
+    per_step = (time.perf_counter() - t0) / 25
+    err = abs(float(res.params) - LN_MC_TRUE)
+    off0 = abs(LN_MC_START - LN_MC_TRUE)
+    log(f"ex17: recovered ln M_c = {float(res.params):.4f} (truth "
+        f"{LN_MC_TRUE:.4f}; residual {err / off0:.1%} of the offset), chi2 "
+        f"{c0:.4e} -> {res.loss:.4e} ({c0 / max(res.loss, 1e-300):.1f}x); "
+        f"{per_step:.3f} s an Adam step")
+    check(err < 0.10 * off0, "ex17: M_c not recovered through the "
+          "composition")
+    check(res.loss < c0 / 30, "ex17: chi2 did not drop 30x")
+    return per_step
+
+
+def ex17_path(T, torch, device):
+    """Example 17 on the card; the scatter kernel and its backward must
+    have been launched (the CIC of BaryonifyGrid)."""
+    reset_counts()
+    per_step = example17(T, torch, device)
+    read_counts("ex17 (example 17)", ("scatter_add", "scatter_add_vjp"))
+    return per_step
+
+
 def ptxas_summary(build_log):
     """[(kernel<type, rings per thread>, registers, spill bytes)] from the
     output of ``ptxas -v``."""
@@ -4192,8 +4556,8 @@ def build_all(torch, sc, lc, cmc):
 
 
 PHASES = ("kernels", "shell", "grad", "fit", "grid", "grid2d", "tsz",
-          "families", "snap", "gradgrid", "gradsnap", "ex15", "pk", "cl",
-          "synth", "reference")
+          "families", "snap", "gradgrid", "gradsnap", "ex15", "anis", "pk",
+          "cl", "synth", "reference")
 
 
 def main(argv=None):
@@ -4275,6 +4639,10 @@ def main(argv=None):
         gradsnap_path(T, torch, device)
     if "ex15" in phases:
         ex15_path(T, torch, device)
+    if "anis" in phases:
+        anis = anis_path(T, torch, device)
+        anis["ex17_step_s"] = ex17_path(T, torch, device)
+        log("anis: " + json.dumps(anis, default=str))
     if "pk" in phases:
         pk_path(T, torch, device)
     if "cl" in phases:

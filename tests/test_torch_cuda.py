@@ -31,7 +31,9 @@ launches (the chunk length lowered) against one launch, forward and
 backward, the autograd of the scatter-add by ``gradcheck`` and
 ``gradgradcheck``, and the grid and snapshot runners' ``process_device``
 on the card in float64 against ``process()`` and against the CPU, values
-and gradients.
+and gradients. ``PaintProfilesAnisGrid`` runs on the card in float64
+against the CPU, both methods, with the cell-major pass's derivatives in
+its canvas and its remap; ``ud_grade`` on the card against the CPU.
 """
 
 import numpy as np
@@ -1368,3 +1370,97 @@ def test_snapshot_process_device_on_card_matches_cpu(cuda_device):
         for r in (cpu, card))
     for g_card, g_cpu in zip(got, want):
         assert g_cpu != 0 and abs(g_card - g_cpu) / abs(g_cpu) < 1e-8
+
+
+def _anis_inputs(T):
+    """CPU-built Gas paint and DarkMatter canvas tables (12 mass nodes), a
+    32^2 canvas map and 10 halos."""
+    cd = dict(Omega_m=0.3, Omega_b=0.05, h=0.7, sigma8=0.8, n_s=0.96,
+              w0=-1.0)
+    par = T.default_params()
+    cosmo = T.Cosmology.from_dict(cd, device="cpu")
+    grid = dict(z_min=0.05, z_max=0.6, N_samples_z=3, M_min=1e13,
+                M_max=1e15, N_samples_Mass=12, R_min=1e-3, R_max=70,
+                N_samples_R=40)
+    models = []
+    for cls in (T.Gas, T.DarkMatter):
+        m = T.TabulatedProfile(cls(**par), cosmo)
+        m.setup_interpolator(**grid)
+        models.append(m)
+    rng = np.random.default_rng(7)
+    N, L = 32, 60.0
+    cat = T.HaloNDCatalog(x=rng.uniform(5, 55, 10), y=rng.uniform(5, 55, 10),
+                          M=10 ** rng.uniform(13.5, 14.8, 10), redshift=0.25,
+                          cosmo=cd)
+    gm = T.GriddedMap(map=10 ** rng.uniform(12.0, 14.0, (N, N)),
+                      redshift=0.25, bins=(np.arange(N) + 0.5) * (L / N),
+                      cosmo=cd)
+    return cat, gm, models
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cellmajor", "scatter"])
+def test_anis_on_card_matches_cpu(method, cuda_device):
+    """PaintProfilesAnisGrid on the card in float64 (CPU-built tables)
+    against the CPU: process() of each method to rms/max < 1e-10 (the
+    loop through the scatter kernel), and for the cell-major pass
+    process_device() equal to process() on the card, the derivatives of
+    the painted sum in a canvas scale (first and second) and in a remap
+    scale against the CPU's to 1e-8, the remap scale's row reads through
+    the scatter_add_vjp kernel."""
+    import baryonification_tpu_torch as T
+    cat, gm, (paint, canvas) = _anis_inputs(T)
+    kw = dict(epsilon_max=3, Painting_model=paint, Canvas_model=canvas,
+              verbose=False, method=method)
+    cpu = T.PaintProfilesAnisGrid(cat, gm, device="cpu", **kw)
+    card = T.PaintProfilesAnisGrid(cat, gm, device=cuda_device,
+                                   precision="float64", **kw)
+    want = cpu.process()
+    before = sc.LAUNCHES["scatter_add"]
+    got = card.process()
+    assert (sc.LAUNCHES["scatter_add"] > before) == (method == "scatter")
+    assert (want != 0).sum() > 20
+    assert np.sqrt(np.mean((got - want) ** 2)) / np.abs(want).max() < 1e-10
+    if method == "scatter":
+        return
+    np.testing.assert_array_equal(card.process_device().cpu().numpy(), got)
+
+    def derivs(r, which):
+        s = torch.tensor(1.0, dtype=torch.float64, device=r.device,
+                         requires_grad=True)
+        if which == "canvas":
+            out = r.process_device(canvas=torch.as_tensor(
+                gm.map, device=r.device) * s)
+        else:
+            rm = r.build_remap_device()
+            nq = rm.shape[1] - 2
+            out = r.process_device(remap=torch.cat(
+                [rm[:, :nq] * s, rm[:, nq:]], dim=1))
+        (g,) = torch.autograd.grad(out.sum(), s, create_graph=True)
+        (h,) = torch.autograd.grad(g, s)
+        return float(g.detach()), float(h)
+
+    for which in ("canvas", "remap"):
+        before = sc.LAUNCHES["scatter_add_vjp"]
+        got_d = derivs(card, which)
+        assert (sc.LAUNCHES["scatter_add_vjp"] > before) == \
+            (which == "remap")
+        for g_card, g_cpu in zip(got_d, derivs(cpu, which)):
+            assert g_cpu != 0 and abs(g_card - g_cpu) / abs(g_cpu) < 1e-8, \
+                (which, got_d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nside_in,nside_out", [(64, 16), (16, 64)])
+def test_ud_grade_on_card_matches_cpu(nside_in, nside_out, cuda_device):
+    """ud_grade on the card against the CPU, power -2: upgrading copies
+    (exact), degrading sums 16 children in a scan whose order may round
+    apart on the card (1e-14 relative); the sum is kept."""
+    m = torch.as_tensor(np.random.default_rng(3).uniform(
+        0.5, 1.5, hpx.npix(nside_in)))
+    want = hpx.ud_grade(m, nside_out, power=-2)
+    got = hpx.ud_grade(m.to(cuda_device), nside_out, power=-2)
+    assert got.is_cuda and got.shape == want.shape
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-14,
+                               atol=0)
+    assert abs(float(got.sum()) - float(m.sum())) < 1e-12 * float(m.sum())

@@ -88,8 +88,10 @@ def test_morton_and_block_perm_match_jax(dim):
     assert sorted(ids) == list(range(8 ** dim))
     jp = jgcm.block_perm_2d if dim == 2 else jgcm.block_perm
     tp = tgcm.block_perm_2d if dim == 2 else tgcm.block_perm
+    with pytest.raises(TypeError):
+        tp(16, 4)                       # the device is a required keyword
     for N, B in ((16, 4), (32, 8)):
-        perm = tp(N, B)
+        perm = tp(N, B, device="cpu")
         np.testing.assert_array_equal(perm.numpy(), np.asarray(jp(N, B)))
         assert sorted(perm.tolist()) == list(range(N ** dim))
 
