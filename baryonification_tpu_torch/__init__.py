@@ -38,7 +38,11 @@ Ported so far:
   ``process_device`` differentiable in the remap and the canvas map;
 - FITS HEALPix maps (``io.read_healpix_fits``, ``write_healpix_fits``,
   ``LightconeShell(path=...)``), the rest of ``ops.healpix`` and
-  ``ops.interp``, and the reference's misc utilities.
+  ``ops.interp``, and the reference's misc utilities;
+- ``parallel``: ``SimpleParallel`` and ``SplitJoinParallel`` (runners
+  round-robin over the cards), and ``mesh=`` on every runner: the
+  cell-major method sharded over the ranks of a ``torch.distributed``
+  ``DeviceMesh``, its partial maps joined by ``all_reduce``.
 Every runner has two methods: ``cellmajor`` (what ``"auto"`` takes on the
 card: candidate lists per coarse cell or block and one pass a bucket; the
 shell's pass is the kernel ``csrc/cellmajor_pass.cu``, the grid's and the
@@ -92,5 +96,7 @@ from . import inference
 from .inference import (FitResult, fit, laplace_covariance, HMCResult,
                         hmc_sample)
 from .default_params import DEFAULT_PARAMS, default_params
+from . import parallel
+from .parallel import SimpleParallel, SplitJoinParallel
 
 __version__ = "0.1.0"

@@ -45,7 +45,14 @@ node in one block-major pass a bucket
 (``grid_cellmajor.grid_anis_paint_pass_2d``); its ``process_device`` is
 differentiable in the remap and in the canvas map.
 
-Not ported yet: ``mesh=``.
+``mesh=`` (a ``torch.distributed`` ``DeviceMesh``; cell-major only)
+shards every runner's passes over the ranks of one mesh dimension: each
+bucket's Morton blocks split into contiguous ranges
+(``parallel.pad_cells_for_mesh``), each rank adds its blocks' output into
+a full-size partial map, and sums over the mesh join them: for
+``BaryonifyGrid`` the offsets (before the CIC, which each rank then
+deposits for its own row-major range of cells) and the CIC's partial
+maps, for the paints the painted maps. Every rank returns the whole map.
 """
 
 from itertools import product
@@ -57,10 +64,13 @@ from ..cosmology import Cosmology, MassDef
 from ..ops.interp import blend_table_radial, ndlinear_interp, radial_readout
 from ..ops.scatter import cic_deposit_2d, cic_deposit_3d
 from ..ops.scatter_cuda import scatter_add_accum
+from ..parallel import (mesh_grad_sum, mesh_grid_anis_paint_bucket,
+                        mesh_grid_cic, mesh_grid_offsets_bucket,
+                        mesh_grid_paint_bucket, mesh_sum)
 from ..utils import interp, interp_rows, resolve_device
 from . import grid_cellmajor as gcm
 from ._method import resolve_method
-from .shell import DefaultRunner
+from .shell import DefaultRunner, _mesh_args
 from .shell_cellmajor import dense_cell_candidates
 
 __all__ = ['build_Rmat', 'DefaultRunnerGrid', 'BaryonifyGrid',
@@ -92,16 +102,21 @@ class DefaultRunnerGrid:
     :func:`runners._method.resolve_method` ("auto" is "cellmajor" on CUDA
     and "scatter" on the CPU; "scatter" with a warning for 3D
     ellipticity or a model with more extra table axes than the packed
-    records hold).
+    records hold). ``mesh`` and ``mesh_axis`` shard the cell-major
+    method over one mesh dimension's ranks, as the shell runners' do.
     """
 
     _stage = DefaultRunner._stage
     _stage_t0 = DefaultRunner._stage_t0
+    #: the caches built from the halo catalog (dropped when it changes)
+    _CATALOG_CACHES = ('_gpacked_cache', '_gdense_cache',
+                       '_anis_remap_cache', '_gcache_cat')
 
     def __init__(self, HaloNDCatalog, GriddedMap, epsilon_max, model,
                  use_ellipticity=False, mass_def=None, verbose=True,
                  halo_chunk=64, n_buckets=8, precision="auto",
-                 method="auto", *, device="cuda"):
+                 method="auto", mesh=None, mesh_axis=None, *,
+                 device="cuda"):
         self.HaloNDCatalog = HaloNDCatalog
         self.GriddedMap = GriddedMap
         self.cosmo = HaloNDCatalog.cosmology
@@ -118,6 +133,8 @@ class DefaultRunnerGrid:
                          else "float32")
         self.dtype = getattr(torch, precision) if isinstance(precision, str) \
             else precision
+        self.mesh, self.mesh_axis, method = _mesh_args(mesh, mesh_axis,
+                                                       method)
         p_keys = getattr(model, 'p_keys', []) or []
         max_props = gcm.MAX_PROPS_2D if GriddedMap.is2D else gcm.MAX_PROPS_3D
         why_not = None
@@ -176,8 +193,7 @@ class DefaultRunnerGrid:
     def _check_gcaches(self):
         """Drop the per-catalog caches if the catalog object was swapped."""
         if getattr(self, '_gcache_cat', None) is not self.HaloNDCatalog:
-            for attr in ('_gpacked_cache', '_gdense_cache',
-                         '_anis_remap_cache'):
+            for attr in self._CATALOG_CACHES:
                 self.__dict__.pop(attr, None)
             self._gcache_cat = self.HaloNDCatalog
 
@@ -341,7 +357,8 @@ class DefaultRunnerGrid:
         finite nodes only. Stages: packed_records, then reg[...] and
         pass[...] a bucket. A list in ``self.census`` gets each bucket's
         counts (see ``grid_cellmajor._bucket_pass``; for measurement only:
-        it synchronises once a step)."""
+        it synchronises once a step). With a mesh each rank adds its own
+        blocks' output only."""
         dt = self.dtype
         dim = 2 if gm.is2D else 3
         N, res = gm.Npix, gm.res
@@ -369,13 +386,23 @@ class DefaultRunnerGrid:
             # the bucket's block-major planes: the plain pass, or, where
             # the rows carry a graph, its Function with the step-wise
             # adjoint
-            out_bm = gcm.grid_pass_diff(
-                mode, dim, B_eff, n_hi, N, half, dense, counts, counts_host,
-                pk, rows, g0, dg, float(g_hot[n_hi - 1]), eps, res,
-                census=census)
-            inv = self._grid_inv_perm(N, B_eff)
-            for p, o in zip(planes, out_bm):
-                _permute_add(p, o, inv)
+            args = (dim, B_eff, n_hi, N, half, dense, counts, counts_host,
+                    pk, rows, g0, dg, float(g_hot[n_hi - 1]), eps, res)
+            if self.mesh is None:
+                out_bm = gcm.grid_pass_diff(mode, *args, census=census)
+                inv = self._grid_inv_perm(N, B_eff)
+                for p, o in zip(planes, out_bm):
+                    _permute_add(p, o, inv)
+            else:
+                if mode == "paint":
+                    start, out_bm = mesh_grid_paint_bucket(
+                        self.mesh, self.mesh_axis, *args, census=census)
+                else:
+                    start, out_bm = mesh_grid_offsets_bucket(
+                        self.mesh, self.mesh_axis, mode == "offsets_rdelta",
+                        *args, census=census)
+                perm = self._grid_perms(N, B_eff)[0]
+                _place_add(planes, out_bm, perm, start)
             self._stage(f"pass[b{bi} B{B_eff} K{K} n_hi{n_hi}]", t0,
                         planes[0])
         return planes
@@ -522,6 +549,15 @@ def _permute_add(acc_rm, plane_bm, inv):
     return acc_rm.add_(plane_bm[inv])
 
 
+def _place_add(planes_rm, share_bm, perm, start):
+    """Add a rank's block-major share (its elements from block-major
+    position ``start`` on) into the row-major accumulators (in place;
+    ``perm`` maps block-major positions to row-major ids, so each target
+    is hit once)."""
+    for p, o in zip(planes_rm, share_bm):
+        p.index_add_(0, perm[start:start + o.shape[0]], o)
+
+
 class BaryonifyGrid(DefaultRunnerGrid):
     """Baryonify a 2D/3D mass grid. The input grid must be a MASS grid
     (empty cells = 0)."""
@@ -547,6 +583,8 @@ class BaryonifyGrid(DefaultRunnerGrid):
         R_com = arrs['R'] / a                   # table masking radius
         offsets = tuple(torch.zeros(gm.Npix ** dim, dtype=dt, device=dev)
                         for _ in range(dim))
+        if self.mesh is not None:
+            table = mesh_grad_sum(self.mesh, self.mesh_axis, table)
         if self.method == "cellmajor":
             self._check_gcaches()
             table_z, inb_z = gcm.blend_table_z(
@@ -557,6 +595,13 @@ class BaryonifyGrid(DefaultRunnerGrid):
                     torch.where(torch.isfinite(table_z), table_z, 0.0),
                     "offsets_rdelta" if use_rdelta else "offsets", offsets,
                     "Baryonifying matter")
+            if self.mesh is not None:
+                # each rank deposits its own range of cells in the CIC, at
+                # offsets from every rank's blocks
+                t0 = self._stage_t0()
+                offsets = tuple(mesh_sum(self.mesh, self.mesh_axis, o,
+                                         replicated=False) for o in offsets)
+                self._stage("join", t0, offsets[0])
         else:
             t0 = self._stage_t0()
             self._windowed(gm, a, arrs, R_com, Nsize, idx_all, grids, table,
@@ -567,7 +612,11 @@ class BaryonifyGrid(DefaultRunnerGrid):
                         for o in offsets)
         orig = self._tensor(np.asarray(gm.map, dtype=np.float64).reshape(-1),
                             dt)
-        new_map = self._cic_offsets(gm, offsets, orig, dt)
+        if self.mesh is None:
+            new_map = self._cic_offsets(gm, offsets, orig, dt)
+        else:
+            new_map = mesh_grid_cic(self.mesh, self.mesh_axis, gm.Npix, orig,
+                                    offsets).reshape((gm.Npix,) * dim)
         self._stage("cic", t0, new_map)
         return new_map
 
@@ -659,6 +708,8 @@ class PaintProfilesGrid(DefaultRunnerGrid):
         Nsize = np.clip(Nsize // 2 * 2, 2, len(gm.bins) // 2)
         idx_all = np.arange(len(R_com))
         new_map = torch.zeros(gm.Npix ** dim, dtype=dt, device=dev)
+        if self.mesh is not None:
+            table = mesh_grad_sum(self.mesh, self.mesh_axis, table)
         if self.method == "cellmajor":
             self._check_gcaches()
             table_z, inb_z = gcm.blend_table_z(
@@ -671,6 +722,8 @@ class PaintProfilesGrid(DefaultRunnerGrid):
                     gm, arrs, R_com, Nsize, idx_all, grids,
                     torch.where(torch.isfinite(table_z), table_z, -1e30),
                     "paint", (new_map,), "Painting Profile")
+            if self.mesh is not None:
+                new_map = mesh_sum(self.mesh, self.mesh_axis, new_map)
         else:
             t0 = self._stage_t0()
             self._windowed(gm, a, arrs, R_com, Nsize, idx_all, grids, table,
@@ -770,12 +823,13 @@ class PaintProfilesAnisGrid(DefaultRunnerGrid):
     def __init__(self, HaloNDCatalog, GriddedMap, epsilon_max,
                  Painting_model=None, Canvas_model=None, Nbin_interp=1000,
                  Nq_interp=96, mass_def=None, verbose=True, halo_chunk=64,
-                 n_buckets=8, precision="auto", method="auto", *,
-                 device="cuda"):
+                 n_buckets=8, precision="auto", method="auto", mesh=None,
+                 mesh_axis=None, *, device="cuda"):
         super().__init__(HaloNDCatalog, GriddedMap, epsilon_max,
                          Painting_model, mass_def=mass_def, verbose=verbose,
                          halo_chunk=halo_chunk, n_buckets=n_buckets,
-                         precision=precision, method=method, device=device)
+                         precision=precision, method=method, mesh=mesh,
+                         mesh_axis=mesh_axis, device=device)
         self.Canvas_model = Canvas_model
         self.Nbin_interp = Nbin_interp
         self.Nq_interp = Nq_interp
@@ -968,6 +1022,7 @@ class PaintProfilesAnisGrid(DefaultRunnerGrid):
         table_q = (remap_host if remap is None else remap).to(device=dev,
                                                               dtype=dt)
         table_q = torch.where(torch.isfinite(table_q), table_q, -1e30)
+        mesh = self.mesh
         gM_t = self._tensor(gM, dt)
         gprops_t = tuple(self._tensor(g, dt) for g in gprops)
         p0 = gcm.PROP_COL0_2D
@@ -977,6 +1032,9 @@ class PaintProfilesAnisGrid(DefaultRunnerGrid):
         canvas_rm = (self._tensor(np.asarray(gm.map, dtype=np.float64)
                                   .reshape(-1), dt) if canvas is None
                      else canvas.reshape(-1).to(device=dev, dtype=dt))
+        if mesh is not None:
+            table_q, canvas_rm = (mesh_grad_sum(mesh, self.mesh_axis, x)
+                                  for x in (table_q, canvas_rm))
         new_map = torch.zeros(N * N, dtype=dt, device=dev)
         Nsize = np.clip(Nsize, 0, N)
         for bi, sel, _, (B, dense, counts, counts_host, K, B_eff) in \
@@ -996,11 +1054,18 @@ class PaintProfilesAnisGrid(DefaultRunnerGrid):
             live_h = torch.isfinite(rows).all(dim=1)
             rows = torch.where(live_h[:, None], rows, 0.0)
             perm, inv = self._grid_perms(N, B_eff)
-            (out_bm,) = gcm.grid_anis_paint_pass_2d(
-                B_eff, n_hi, N, dense, counts, counts_host, pk, rows, live_h,
-                q0, dq, eps, res, canvas_rm[perm], census=census)
-            _permute_add(new_map, out_bm, inv)
+            args = (B_eff, n_hi, N, dense, counts, counts_host, pk, rows,
+                    live_h, q0, dq, eps, res, canvas_rm[perm])
+            if mesh is None:
+                (out_bm,) = gcm.grid_anis_paint_pass_2d(*args, census=census)
+                _permute_add(new_map, out_bm, inv)
+            else:
+                start, out_bm = mesh_grid_anis_paint_bucket(
+                    mesh, self.mesh_axis, *args, census=census)
+                _place_add((new_map,), out_bm, perm, start)
             self._stage(f"pass[b{bi} B{B_eff} K{K} n_hi{n_hi}]", t0, new_map)
+        if mesh is not None:
+            new_map = mesh_sum(mesh, self.mesh_axis, new_map)
         return new_map.reshape(N, N)
 
     def _paint_anis_loop(self, cosmo, a, arrs, Nsize):

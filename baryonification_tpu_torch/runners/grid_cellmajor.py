@@ -375,14 +375,17 @@ class _GridBucket:
     or 'paint'."""
 
     def __init__(self, mode, dim, B, n_hi, N, half, dense, counts,
-                 counts_host, packed, g0, dg, rad_hi, eps_max, res):
+                 counts_host, packed, g0, dg, rad_hi, eps_max, res,
+                 block0=0):
         dev = packed.device
         cols = _COLS[dim]
         self.dim, self.B, self.n_hi, self.N, self.half = dim, B, n_hi, N, half
         self.F = self.unit = B ** dim
         self.n_planes = 1 if mode == "paint" else dim
-        self.ncell = counts.shape[0]
-        self.K = dense.shape[0] // self.ncell
+        # the blocks are ids block0 .. block0 + ncell - 1 (a rank's range
+        # on the mesh path; possibly none)
+        self.ncell, self.block0 = counts.shape[0], block0
+        self.K = dense.shape[0] // max(self.ncell, 1)
         self.dense2 = dense.reshape(self.ncell, self.K).to(torch.int64)
         self.counts = counts.to(torch.int64)
         self.counts_host = counts_host
@@ -423,8 +426,8 @@ class _GridBucket:
             k_max = int(self.counts_host[c0:c1].max())
             if k_max == 0:
                 continue
-            bc = _demorton(torch.arange(c0, c1, device=self.o.device),
-                           self.dim)
+            bc = _demorton(torch.arange(c0, c1, device=self.o.device)
+                           + self.block0, self.dim)
             iv = [b[:, None] * self.B + self.o[None, :] for b in bc]
             G = max(1, min(k_max, PASS_BUDGET // ((c1 - c0) * F)))
             yield c0, c1, iv, [(k0, min(k0 + G, k_max))
@@ -653,9 +656,10 @@ class _AnisBucket(_GridBucket):
     the halos whose rows exist (masses on the remap's grid)."""
 
     def __init__(self, B, n_hi, N, dense, counts, counts_host, packed,
-                 live_h, q0, dq, eps_max, res):
+                 live_h, q0, dq, eps_max, res, block0=0):
         super().__init__("paint", 2, B, n_hi, N, 0, dense, counts,
-                         counts_host, packed, q0, dq, None, eps_max, res)
+                         counts_host, packed, q0, dq, None, eps_max, res,
+                         block0)
         cols = _COLS[2]
         self.hh = packed[:, ANIS_HALF_COL_2D].to(torch.int64)
         self.lo = packed[:, list(cols['cen'])].to(torch.int64) \

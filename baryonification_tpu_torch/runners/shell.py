@@ -25,6 +25,14 @@ cell-major method as a differentiable function of the table: the map
 stays on the device and carries a graph through the pass's adjoint
 (``ops.cellmajor_cuda.cellmajor_pass_diff``) and the regrid.
 
+``mesh=`` (a ``torch.distributed`` ``DeviceMesh``; cell-major only) runs
+``process()`` and ``process_device()`` over the ranks of one mesh
+dimension: each rank owns the NESTED pixels [r npix / n, (r + 1) npix / n)
+in every bucket (the coarse levels are floored at
+``parallel.min_coarse_nside(n)``), keeps its offsets or paint local until
+the end, and one sum over the mesh joins the ranks' partial maps
+(``parallel.py``). Every rank returns the whole map.
+
 Precision: ``precision="auto"`` is float64 on the CPU and float32 on
 CUDA, as in the JAX package. The per-halo preprocessing runs in float64
 on the runner's device (the JAX package keeps it on the host CPU to avoid
@@ -41,6 +49,9 @@ from ..ops import healpix as hpx
 from ..ops.cellmajor_cuda import cellmajor_pass, cellmajor_pass_diff
 from ..ops.interp import blend_table_radial, radial_readout
 from ..ops.scatter_cuda import scatter_add_accum
+from ..parallel import (mesh_grad_sum, mesh_offsets_bucket,
+                        mesh_paint_bucket, mesh_place, mesh_rank,
+                        mesh_regrid_shell, mesh_share, min_coarse_nside)
 from ..utils import resolve_device
 from . import shell_cellmajor as cm
 from ._method import resolve_method
@@ -149,13 +160,22 @@ class DefaultRunner:
     raises). ``precision`` is its hot-path dtype ("auto": float64 on the
     CPU, float32 on CUDA). ``method``: see
     :func:`runners._method.resolve_method` ("auto" is "cellmajor" on
-    CUDA and "scatter" on the CPU).
+    CUDA and "scatter" on the CPU). ``mesh`` (a ``DeviceMesh``) and
+    ``mesh_axis`` (one of its dimensions, default the first) shard the
+    cell-major method over that dimension's ranks (module docstring);
+    with a mesh ``method="auto"`` is "cellmajor" and any other method
+    raises.
     """
+
+    #: the caches built from the halo catalog (dropped when it changes)
+    _CATALOG_CACHES = ('_halo_arrays_cache', '_packed_cache', '_dense_cache',
+                       '_groups_cache', '_cache_cat')
 
     def __init__(self, HaloLightConeCatalog, LightconeShell, epsilon_max,
                  model, use_ellipticity=False, mass_def=None, verbose=True,
                  halo_chunk=256, n_buckets=8, precision="auto",
-                 method="auto", *, device="cuda"):
+                 method="auto", mesh=None, mesh_axis=None, *,
+                 device="cuda"):
         self.HaloLightConeCatalog = HaloLightConeCatalog
         self.LightconeShell = LightconeShell
         self.cosmo = HaloLightConeCatalog.cosmology
@@ -175,6 +195,8 @@ class DefaultRunner:
                          else "float32")
         self.dtype = getattr(torch, precision) if isinstance(precision, str) \
             else precision
+        self.mesh, self.mesh_axis, method = _mesh_args(mesh, mesh_axis,
+                                                       method)
         n_props = len(getattr(model, 'p_keys', []) or [])
         why_not = None
         if n_props > cm.MAX_PROPS:
@@ -223,12 +245,23 @@ class DefaultRunner:
     def _check_catalog_caches(self):
         """Drop catalog-derived caches if the catalog object was swapped."""
         if getattr(self, '_cache_cat', None) is not self.HaloLightConeCatalog:
-            for attr in ('_halo_arrays_cache', '_packed_cache',
-                         '_dense_cache', '_groups_cache'):
+            for attr in self._CATALOG_CACHES:
                 self.__dict__.pop(attr, None)
             self._cache_cat = self.HaloLightConeCatalog
 
     # ----- cell-major helpers -----
+    def _mesh_floor(self, nside):
+        """The coarsest level whose cells split evenly over the mesh's
+        ranks (1 without a mesh)."""
+        if self.mesh is None:
+            return 1
+        n = mesh_rank(self.mesh, self.mesh_axis)[2]
+        nsc_min = min_coarse_nside(n)
+        if nsc_min > nside:
+            raise ValueError(f"nside={nside} is too small to shard over {n} "
+                             f"ranks (needs nside >= {nsc_min})")
+        return nsc_min
+
     def _cm_groups(self, arrs, nside):
         """Cell-major bucket grouping, cached per catalog: [(nside_c, (H,)
         halo ids on the device, max disc radius, max R_com)].
@@ -236,19 +269,30 @@ class DefaultRunner:
         The pass level is floored at ``min_f_pixels`` pixels per cell
         (default 4, i.e. nside_c <= nside / 2): with one pixel a cell the
         per-slot work is amortised over one pixel only, so that level
-        merges into its parent."""
+        merges into its parent. With a mesh the levels are floored at
+        :meth:`_mesh_floor`."""
         cache = self.__dict__.setdefault('_groups_cache', {})
-        if nside not in cache:
+        nsc_min = self._mesh_floor(nside)
+        key = (nside, nsc_min)
+        if key not in cache:
             f_min = int(getattr(self, 'min_f_pixels', 4))
-            nsc_cap = max(1, nside // max(1, int(f_min ** 0.5)))
+            nsc_cap = max(nsc_min, nside // max(1, int(f_min ** 0.5)))
             radius = arrs['radius'].cpu().numpy()
             r_com = arrs['R_com'].cpu().numpy()
             dev = arrs['theta'].device
-            cache[nside] = [
+            cache[key] = [
                 (nsc, torch.as_tensor(idx, device=dev),
                  float(radius[idx].max()), float(r_com[idx].max()))
-                for nsc, idx in _buckets_by_nsidec(radius, nsc_cap)]
-        return cache[nside]
+                for nsc, idx in _buckets_by_nsidec(radius, nsc_cap,
+                                                   nsc_min)]
+        return cache[key]
+
+    def _npix_local(self, nside):
+        """Pixels of this rank's share (all of them without a mesh)."""
+        if self.mesh is None:
+            return hpx.npix(nside)
+        lo, hi = mesh_share(self.mesh, self.mesh_axis, hpx.npix(nside))
+        return hi - lo
 
     def _dense_candidates(self, bi, nside_c, sub, r_b):
         """Dense NESTED-cell candidate matrix of bucket ``bi``, cached
@@ -383,7 +427,8 @@ class DefaultRunner:
         pixels_nested, then reg[...] and pass[...] per bucket. With
         ``diff`` each bucket's pass is the differentiable one
         (``cellmajor_pass_diff``: new planes, gradients to ``table``
-        through the rows); returns the planes."""
+        through the rows); returns the planes. With a mesh ``planes`` are
+        this rank's share and each pass runs on its cells only."""
         dt, eps = self.dtype, float(self.epsilon_max)
         t0 = self._stage_t0()
         packed_all = self._packed_records(arrs, dt)
@@ -412,11 +457,20 @@ class DefaultRunner:
                       f"n_hi={n_hi})")
             t0 = self._stage_t0()
             packed = packed_all[jidx]
-            planes = (cellmajor_pass_diff if diff else cellmajor_pass)(
-                mode, planes, pix, dense, counts, F,
-                cm.slot_records(packed, eps),
-                cm.halo_rows(grids, table, packed, n_hi),
-                g0, dg, float(g_host[n_hi - 1]))
+            args = (planes, pix, dense, counts, F,
+                    cm.slot_records(packed, eps),
+                    cm.halo_rows(grids, table, packed, n_hi),
+                    g0, dg, float(g_host[n_hi - 1]))
+            if self.mesh is None:
+                planes = (cellmajor_pass_diff if diff else cellmajor_pass)(
+                    mode, *args)
+            elif mode == "paint":
+                planes = mesh_paint_bucket(self.mesh, self.mesh_axis, F,
+                                           *args[:4], *args[5:], diff=diff)
+            else:
+                planes = mesh_offsets_bucket(
+                    self.mesh, self.mesh_axis, mode == "offsets_rdelta", F,
+                    *args[:4], *args[5:], diff=diff)
             self._stage(f"pass[b{bi} nc{nsc_eff} K{K} n_hi{n_hi}]", t0,
                         planes[0])
         return planes
@@ -633,8 +687,10 @@ class BaryonifyShell(DefaultRunner):
         dt, dev = self.dtype, table.device
         use_rdelta = bool(getattr(self.model, 'Rdelta_sampling', False))
         grids = tuple(g.to(device=dev, dtype=dt) for g in self.model._grids)
-        offsets = tuple(torch.zeros(hpx.npix(nside), dtype=dt, device=dev)
-                        for _ in range(3))
+        if self.mesh is not None:
+            table = mesh_grad_sum(self.mesh, self.mesh_axis, table)
+        offsets = tuple(torch.zeros(self._npix_local(nside), dtype=dt,
+                                    device=dev) for _ in range(3))
         # non-finite table nodes become 0 before the blend (a 0-weight
         # corner would otherwise turn the halo's whole row into NaN)
         offsets = self._cellmajor_buckets(
@@ -647,9 +703,13 @@ class BaryonifyShell(DefaultRunner):
         # mass) triples: it runs in NESTED order and deposits into RING ids
         t0 = self._stage_t0()
         n2r, _ = self._nested_maps(nside)
-        new_map = _regrid_shell(nside, *self._pixels_nested(nside, dt),
-                                self._orig_map_nested(orig_map, n2r, dt),
-                                offsets)
+        pix = self._pixels_nested(nside, dt)
+        omap = self._orig_map_nested(orig_map, n2r, dt)
+        if self.mesh is None:
+            new_map = _regrid_shell(nside, *pix, omap, offsets)
+        else:
+            new_map = mesh_regrid_shell(self.mesh, self.mesh_axis, nside,
+                                        pix, omap, offsets)
         self._stage("regrid", t0, new_map)
         return new_map
 
@@ -758,7 +818,9 @@ class PaintProfilesShell(DefaultRunner):
         hot-path dtype; with ``diff`` the map carries a graph to it."""
         dt, dev = self.dtype, table.device
         grids = tuple(g.to(device=dev, dtype=dt) for g in self.model._grids)
-        new_map = torch.zeros(hpx.npix(nside), dtype=dt, device=dev)
+        if self.mesh is not None:
+            table = mesh_grad_sum(self.mesh, self.mesh_axis, table)
+        new_map = torch.zeros(self._npix_local(nside), dtype=dt, device=dev)
         # log-profile tables carry -inf where the profile is 0: a large
         # negative finite stand-in keeps the blend NaN-free and still
         # paints exp(...) = 0 wherever such a node is touched
@@ -768,6 +830,11 @@ class PaintProfilesShell(DefaultRunner):
             self.model._grids[2].cpu().numpy(), "paint", (new_map,),
             "Painting Profile", "h", diff=diff)
         t0 = self._stage_t0()
+        if self.mesh is not None:
+            npix = hpx.npix(nside)
+            new_map = mesh_place(self.mesh, self.mesh_axis, new_map,
+                                 mesh_share(self.mesh, self.mesh_axis,
+                                            npix)[0], npix)
         _, r2n = self._nested_maps(nside)
         new_map = new_map[r2n]
         self._stage("n2r", t0, new_map)
@@ -853,3 +920,20 @@ class PaintProfilesShell(DefaultRunner):
 
 class PaintProfilesAnisShell(PaintProfilesShell):
     """Alias of PaintProfilesShell, as in the JAX package."""
+
+
+def _mesh_args(mesh, mesh_axis, method):
+    """(mesh, its dimension's name or index, method) of a runner: with a
+    mesh, ``mesh_axis`` defaults to the mesh's first dimension and
+    ``method="auto"`` is "cellmajor"; another method raises."""
+    if mesh is None:
+        return None, None, method
+    if mesh_axis is None:
+        mesh_axis = mesh.mesh_dim_names[0] if mesh.mesh_dim_names else 0
+    if method == "auto":
+        method = "cellmajor"
+    if method != "cellmajor":
+        raise ValueError(f"mesh= is only supported with the cell-major "
+                         f"method (the cell axis is what shards); got "
+                         f"method={method!r}")
+    return mesh, mesh_axis, method

@@ -30,7 +30,11 @@ gradients into the table through the passes' step-wise adjoint.
 Precision: ``precision="auto"`` is float64 on the CPU and float32 on
 CUDA, as in the JAX package.
 
-Not ported yet: ``mesh=``.
+``mesh=`` (a ``torch.distributed`` ``DeviceMesh``; cell-major only)
+shards the passes over the ranks of one mesh dimension: each rank runs
+every bucket on its own contiguous range of cell-list cells
+(``parallel.mesh_snap_cells``), and one sum over the mesh gathers the
+ranks' offsets. Every rank returns the whole catalog.
 """
 
 import numpy as np
@@ -39,12 +43,14 @@ import torch
 from ..cosmology import Cosmology, MassDef
 from ..ops.interp import blend_table_radial, radial_readout
 from ..ops.scatter_cuda import scatter_add_accum
+from ..parallel import (mesh_grad_sum, mesh_place, mesh_snap_cells,
+                        mesh_snap_offsets_bucket)
 from ..utils import resolve_device
 from . import grid_cellmajor as gcm
 from . import snapshot_cellmajor as scm
 from ._method import resolve_method
 from .grid import DefaultRunnerGrid
-from .shell import DefaultRunner
+from .shell import DefaultRunner, _mesh_args
 from .shell_cellmajor import dense_cell_candidates
 
 __all__ = ['CellList', 'DefaultRunnerSnapshot', 'BaryonifySnapshot']
@@ -87,7 +93,9 @@ class DefaultRunnerSnapshot:
     and "gather" on the CPU; "gather" with a warning for a 2D snapshot or
     a model with more extra table axes than the packed records hold).
     ``n_cells`` (cells per axis of the cell list) defaults to about half
-    the cube root of the particle count, in [4, 512].
+    the cube root of the particle count, in [4, 512]. ``mesh`` and
+    ``mesh_axis`` shard the cell-major method over one mesh dimension's
+    ranks, as the shell runners' do.
     """
 
     _stage = DefaultRunner._stage
@@ -96,8 +104,8 @@ class DefaultRunnerSnapshot:
 
     def __init__(self, HaloNDCatalog, ParticleSnapshot, epsilon_max, model,
                  mass_def=None, verbose=True, halo_chunk=32, n_buckets=4,
-                 n_cells=None, precision="auto", method="auto", *,
-                 device="cuda"):
+                 n_cells=None, precision="auto", method="auto", mesh=None,
+                 mesh_axis=None, *, device="cuda"):
         self.HaloNDCatalog = HaloNDCatalog
         self.ParticleSnapshot = ParticleSnapshot
         self.epsilon_max = epsilon_max
@@ -113,6 +121,8 @@ class DefaultRunnerSnapshot:
                          else "float32")
         self.dtype = getattr(torch, precision) if isinstance(precision, str) \
             else precision
+        self.mesh, self.mesh_axis, method = _mesh_args(mesh, mesh_axis,
+                                                       method)
         p_keys = getattr(model, 'p_keys', []) or []
         why_not = None
         if ParticleSnapshot.is2D:
@@ -401,13 +411,17 @@ class BaryonifySnapshot(DefaultRunnerSnapshot):
         passes are then recorded with their step-wise adjoint. A list in
         ``self.census`` gets each bucket's counts (see
         ``snapshot_cellmajor.snapshot_offsets_pass``; for measurement
-        only: it synchronises once a step)."""
+        only: it synchronises once a step). With a mesh each rank runs its
+        own cells, and the planes are gathered over the mesh."""
         dt = self.dtype
         tree = self.tree
         nb = tree.n_cells
         L = float(self.ParticleSnapshot.L)
         eps = float(self.epsilon_max)
         grids, table = self._prepare(table)
+        mesh = self.mesh
+        if mesh is not None:
+            table = mesh_grad_sum(mesh, self.mesh_axis, table)
         t0 = self._stage_t0()
         table_z, inb_z = gcm.blend_table_z(
             table, grids[0], float(np.log(1.0 + self.HaloNDCatalog.redshift)))
@@ -421,8 +435,10 @@ class BaryonifySnapshot(DefaultRunnerSnapshot):
         g0, dg = float(g_hot[0]), float(g_hot[1] - g_hot[0])
         n_props = len(grids) - 3
         p0 = gcm.PROP_COL0_SNAP
-        out = tuple(torch.zeros(nb ** 3 * P_pad, dtype=dt, device=self.device)
-                    for _ in range(3))
+        lo, hi = ((0, nb ** 3) if mesh is None else
+                  mesh_snap_cells(mesh, self.mesh_axis, nb ** 3, P_pad))
+        out = tuple(torch.zeros((hi - lo) * P_pad, dtype=dt,
+                                device=self.device) for _ in range(3))
         # a catalog redshift outside the table moves nothing
         for bi, idx in enumerate(self._buckets(R_q) if inb_z else []):
             reach = float(R_q[idx].max())
@@ -446,13 +462,18 @@ class BaryonifySnapshot(DefaultRunnerSnapshot):
                 census = dict(bucket=bi, H=len(idx), K=K, P=P_pad,
                               n_hi=n_hi, pairs=0, inside=0, steps=0)
                 self.census.append(census)
-            bucket = scm.snapshot_pass_diff(
-                use_rdelta, P_pad, n_hi, dense, counts, counts_host, planes,
-                counts_p, pk, rows, g0, dg, float(g_hot[n_hi - 1]), eps, a,
-                L, census=census)
+            args = (use_rdelta, P_pad, n_hi, dense, counts, counts_host,
+                    planes, counts_p, pk, rows, g0, dg,
+                    float(g_hot[n_hi - 1]), eps, a, L)
+            bucket = (scm.snapshot_pass_diff(*args, census=census)
+                      if mesh is None else mesh_snap_offsets_bucket(
+                          mesh, self.mesh_axis, *args, census=census))
             for o, b in zip(out, bucket):
                 o += b
             self._stage(f"pass[b{bi} K{K} n_hi{n_hi}]", t0, out[0])
+        if mesh is not None:
+            out = tuple(mesh_place(mesh, self.mesh_axis, o, lo * P_pad,
+                                   nb ** 3 * P_pad) for o in out)
         return out, slot_of
 
     def _positions(self, dt):

@@ -34,6 +34,7 @@ the pass costs a few dozen launches a step, not a dozen a candidate.
 import numpy as np
 import torch
 
+from ..parallel import cell_chunk
 from .grid_cellmajor import PASS_BUDGET, _bucket_pass, _pass_diff, \
     gather_rows
 
@@ -88,15 +89,6 @@ def pad_particles_by_cell(tree, coords, P_pad):
     return planes, counts, pad_idx
 
 
-def _cell_chunk(ncell, F, target):
-    """Cells a step: the largest power of two C with C * F <= target that
-    divides ncell (the JAX package's ``parallel.cell_chunk``)."""
-    c = 1
-    while c * 2 * F <= target and ncell % (c * 2) == 0:
-        c *= 2
-    return c
-
-
 class _SnapBucket:
     """One bucket of the snapshot pass: its constant inputs, its chunks
     of cells and groups of candidate slots, the geometry of a step
@@ -108,7 +100,7 @@ class _SnapBucket:
                  planes, counts_p, packed, g0, dg, rad_hi, eps_max, a_scale,
                  L):
         self.ncell = counts_h.shape[0]
-        self.K = dense.shape[0] // self.ncell
+        self.K = dense.shape[0] // max(self.ncell, 1)
         self.P = self.unit = P
         self.n_planes = 3
         self.n_hi, self.rdelta = n_hi, use_rdelta
@@ -133,7 +125,7 @@ class _SnapBucket:
         pos its (C, 1, P) position planes; a step is one (cells, slots,
         particles) tensor of at most PASS_BUDGET elements."""
         P = self.P
-        C = _cell_chunk(self.ncell, P * max(1, min(self.K, 16)), PASS_BUDGET)
+        C = cell_chunk(self.ncell, P * max(1, min(self.K, 16)), PASS_BUDGET)
         for c0 in range(0, self.ncell, C):
             c1 = c0 + C
             k_max = int(self.counts_host[c0:c1].max())

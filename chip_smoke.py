@@ -152,7 +152,18 @@ and fails on any fault:
      other_params axis, 2D ellipticity) and a ParamTabulatedProfile shell
      paint against the CPU; a small NSIDE-64 tSZ table and its paint
      (both methods, both precisions), and small Arico20 and Mead20
-     Baryonification3D tables, on the card against the CPU.
+     Baryonification3D tables, on the card against the CPU;
+  18. examples: the asserts of examples 01, 03, 07, 08, 11 and 13 (the
+     model layer's mass closures, the pixel windows against brute-force
+     Hankel quadrature on the card, the shock contract, Schneider+19
+     Fig. 1 against its scraped points) at the scripts' own bars;
+  19. mesh: shell-1e6 through mesh= on a 1-rank NCCL mesh (bit for bit
+     as process() under deterministic algorithms, and a float32 gradient
+     step), then on 2 gloo ranks spawned on the one card, each running
+     shell-1e6 (and its gradient step), grid-256, a grid2d gradient step,
+     snap-5e6, tsz-1024's paint and anis-2048, held against the 1-rank
+     or one device's run, each rank's launches counted; a failing rank
+     fails the run.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel's launches in the JSON record are those of the run
@@ -2986,15 +2997,21 @@ def on_card(x):
 
 
 @contextlib.contextmanager
-def plain_on_card(cmc):
-    """Names of the cell-major plain versions called on CUDA tensors in
-    the block (a path on the card must call none)."""
+def plain_on_card(cmc, sc=None):
+    """Names of the cell-major plain versions (and with ``sc`` the
+    scatter's) called on CUDA tensors in the block (a path on the card
+    must call none)."""
     calls = []
+    spies = [(cmc, name) for name in ("cellmajor_pass_reference",
+                                      "cellmajor_vjp_reference",
+                                      "cellmajor_vjp2_reference")]
+    if sc is not None:
+        spies += [(sc, "scatter_add_accum_reference"),
+                  (sc, "scatter_add_vjp_reference")]
     with contextlib.ExitStack() as stack:
-        for name in ("cellmajor_pass_reference", "cellmajor_vjp_reference",
-                     "cellmajor_vjp2_reference"):
+        for module, name in spies:
             stack.enter_context(spied(
-                cmc, name,
+                module, name,
                 lambda args, name=name: calls.append(name)
                 if on_card(args) else None))
         yield calls
@@ -4489,6 +4506,873 @@ def ex17_path(T, torch, device):
     return per_step
 
 
+# ----- the asserted examples of the model layer (01, 03, 07, 08, 11, 13) -----
+
+EX_COSMO = dict(Omega_m=0.3, Omega_b=0.05, h=0.7, sigma8=0.8, n_s=0.96,
+                w0=-1.0)
+EX_A20 = dict(alpha_g=2, epsilon_h=0.015, M1_0=2.2e11 / 0.7, alpha_sat=1,
+              M_c=1.2e14 / 0.7, eta=0.6, mu=0.31, beta=0.6,
+              epsilon_hydro=np.sqrt(5), M_inn=3.3e13 / 0.7, M_r=1e30,
+              beta_r=2, theta_inn=0.1, theta_out=1, theta_rg=0.3,
+              sigma_rg=0.1, a=0.3, n=2, p=0.3, q=0.707)
+EX_MASSES = np.array([1e13, 1e14, 1e15])
+FIG1_CSV = ROOT / "examples" / "data" / "S19_Fig1_Scrapped.csv"
+# examples/08_schneider19_profiles.py: curve -> (model key, RMS bar, dex)
+FIG1_CURVES = {'STAR': ('star', 0.105), 'GAS1': ('gas_b3', 0.055),
+               'GAS2': ('gas_b15', 0.055), 'GAS3': ('gas_b0', 0.055),
+               '2HALO': ('twohalo', 0.032), 'DMO': ('dmo', 0.012),
+               'DMB1': ('dmb_b3', 0.012), 'DMB2': ('dmb_b15', 0.012),
+               'DMB3': ('dmb_b0', 0.012)}
+FIG1_PANELS = {'components': ['STAR', 'GAS1', 'GAS2', 'GAS3', '2HALO'],
+               'dm': ['DMO', 'DMB1', 'DMB2', 'DMB3']}
+
+
+def host(x):
+    """A tensor's values as float64 numpy (numpy input unchanged)."""
+    return (x.detach().double().cpu().numpy() if hasattr(x, "detach")
+            else np.asarray(x, dtype=np.float64))
+
+
+def enclosed(cosmo, prof, r_max, masses, a, n=6000):
+    """M(< r_max[i]) of ``prof`` at each mass: the trapezoid of 4 pi r^2
+    rho on geomspace(1e-6, r_max, n), as examples 11 and 13 take it."""
+    out = np.empty(len(masses))
+    for i, (Mi, Ri) in enumerate(zip(masses, r_max)):
+        rr = np.geomspace(1e-6, Ri, n)
+        out[i] = np.trapezoid(4 * np.pi * rr ** 2
+                              * host(prof.real(cosmo, rr, Mi, a)), rr)
+    return out
+
+
+def example01(T, device):
+    """examples/01_profiles.py: the truncated NFW's M(<R_200c) = M, the
+    baryon budget gas + stars = f_bar M_tot, and the one-halo DMB mass =
+    the DMO's, each to 2%. Returns (values, failures)."""
+    cosmo = T.Cosmology(Omega_m=0.3, Omega_b=0.05, h=0.7, sigma8=0.8,
+                        n_s=0.96, device=device)
+    S19 = T.profiles.Schneider19
+    par = T.default_params()
+    a = 1 / (1 + 0.25)
+    m = EX_MASSES
+    r_wide = np.geomspace(1e-6, 1000, 4000)
+    fails, out = [], {}
+    dm = S19.DarkMatter(**par)
+    R200 = host(dm.mass_def.get_radius(cosmo, m, a)) / a
+    rho_dm = host(dm.real(cosmo, r_wide, m, a))
+    out["nfw"] = []
+    for i, Mi in enumerate(m):
+        sel = r_wide < R200[i]
+        menc = np.trapezoid(4 * np.pi * r_wide[sel] ** 2 * rho_dm[i][sel],
+                            r_wide[sel]) / Mi
+        out["nfw"].append(menc)
+        if abs(menc - 1) > 0.02:
+            fails.append(f"NFW closure off at M={Mi:.1e}: {menc:.4f}")
+
+    def sph_mass(prof, r_int):
+        rho = host(prof.real(cosmo, r_int, m, a))
+        return np.trapezoid(4 * np.pi * r_int ** 2 * rho, r_int, axis=-1)
+
+    M_tot = sph_mass(dm, r_wide)
+    M_gas = sph_mass(S19.Gas(**par), r_wide)
+    M_str = sph_mass(S19.Stars(**par), np.geomspace(1e-6, 10, 4000))
+    A_, M1_, tau_, eta_ = par["A"], par["M1"], par["tau"], par["eta"]
+    f_star = 2 * A_ / ((m / M1_) ** tau_ + (m / M1_) ** eta_)
+    f_cga = 2 * A_ / ((m / M1_) ** (tau_ + par["tau_delta"])
+                      + (m / M1_) ** (eta_ + par["eta_delta"]))
+    f_bar = cosmo.Omega_b / cosmo.Omega_m
+    budget = ((M_gas + M_str) / M_tot + (f_star - f_cga)) / f_bar
+    out["budget"] = budget.tolist()
+    if np.any(np.abs(budget - 1) > 0.02):
+        fails.append(f"baryon budget violated: {budget}")
+    r_m = np.geomspace(1e-6, 100, 4000)
+    th = host(S19.TwoHalo(**par).real(cosmo, r_m, m, a))
+    rho_dmb = host(S19.DarkMatterBaryon(**par).real(cosmo, r_m, m, a)) - th
+    rho_dmo = host(S19.DarkMatterOnly(**par).real(cosmo, r_m, m, a)) - th
+    closure = (np.trapezoid(4 * np.pi * r_m ** 2 * rho_dmb, r_m, axis=-1)
+               / np.trapezoid(4 * np.pi * r_m ** 2 * rho_dmo, r_m, axis=-1))
+    out["closure"] = closure.tolist()
+    if np.any(np.abs(closure - 1) > 0.02):
+        fails.append(f"DMB/DMO one-halo mass closure violated: {closure}")
+    return out, fails
+
+
+class GaussianProfile:
+    """examples/03's smooth compact test profile exp(-r^2 / 2 s^2), in
+    torch (the example's own is in jax.numpy)."""
+
+    def __init__(self, s, proto):
+        self.s = s
+        self.precision_fftlog = proto.precision_fftlog
+
+    def projected(self, cosmo, r, M, a):
+        import torch
+        return torch.exp(-cosmo.tensor(r) ** 2 / (2.0 * self.s ** 2))
+
+
+def hankel_convolve(torch, theta_src, sigma_src, beam_of_ell, ell,
+                    theta_query, device, chunk=256):
+    """examples/03's brute-force flat-sky convolution by direct quadrature
+    (forward J0 Hankel of the profile, times the beam, J0 back), with the
+    example's trapezoid weights and ell chunks, on ``device`` in float64
+    (``torch.special.bessel_j0`` in place of scipy's j0)."""
+    f64 = dict(dtype=torch.float64, device=device)
+    w = torch.as_tensor(np.gradient(theta_src) * theta_src * sigma_src, **f64)
+    th = torch.as_tensor(theta_src, **f64)
+    ell_t = torch.as_tensor(ell, **f64)
+    g = torch.empty_like(ell_t)
+    for i0 in range(0, len(ell), chunk):
+        g[i0:i0 + chunk] = torch.special.bessel_j0(
+            torch.outer(ell_t[i0:i0 + chunk], th)) @ w
+    integ = ell_t * torch.as_tensor(beam_of_ell(ell), **f64) * g
+    back = torch.special.bessel_j0(torch.outer(
+        torch.as_tensor(theta_query, **f64), ell_t))
+    return host(torch.trapezoid(back * integ, ell_t, dim=1))
+
+
+def example03(T, torch, device, anchors=(1, 2, 3)):
+    """examples/03_pixel_smoothing.py: the pixel-window pipeline
+    (ConvolvedProfile) against brute-force Hankel quadrature (anchors 1-3:
+    harmonic and tophat machinery on Gaussian sources, < 5e-4 and < 2e-4,
+    and the S19 Gas profile through HealPixel(128), < 2e-2), the tophat's
+    2D-integral conservation (< 5e-3), and the shape of the suppression.
+    ``anchors`` names the quadratures to run. Returns (values,
+    failures)."""
+    cosmo = T.Cosmology.from_dict(EX_COSMO, device=device)
+    gas = T.Gas(**T.default_params())
+    M, a = 1e14, 0.8
+    r = np.geomspace(0.05, 5, 10)
+    raw = host(gas.projected(cosmo, r, M, a))
+    grid = host(T.ConvolvedProfile(gas, T.GridPixelApprox(0.3))
+                .projected(cosmo, r, M, a))
+    px_hp = T.HealPixel(NSIDE=128)
+    beam = host(T.ConvolvedProfile(gas, px_hp).projected(cosmo, r, M, a))
+    fails, out = [], {}
+    D_A = float(host(cosmo.comoving_angular_distance(a)))
+    sig_beam = px_hp.size / np.sqrt(8 * np.log(2)) / np.sqrt(2)
+    hp_beam = lambda ell: np.exp(-ell * (1 + ell) / 2 * sig_beam ** 2)
+    if 1 in anchors:
+        gsrc = GaussianProfile(3.0, gas)
+        r_q1 = np.geomspace(2.2, 11.0, 10)
+        got1 = host(T.ConvolvedProfile(gsrc, px_hp)
+                    .projected(cosmo, r_q1, M, a))
+        th = np.geomspace(1e-6, 0.2, 40000)
+        want1 = hankel_convolve(
+            torch, th, np.exp(-(th * D_A) ** 2 / (2 * gsrc.s ** 2)),
+            hp_beam, np.arange(0.25, 4000.0, 0.5), r_q1 / D_A, device)
+        out["anchor1"] = float(np.max(np.abs(got1 / want1 - 1)))
+        if not out["anchor1"] < 5e-4:
+            fails.append(f"harmonic-branch machinery: {out['anchor1']:.3e}")
+    if 2 in anchors:
+        gsrc2 = GaussianProfile(0.5, gas)
+        px_g = T.GridPixelApprox(0.3)
+        r_q2 = np.geomspace(0.1, 1.2, 10)
+        got2 = host(T.ConvolvedProfile(gsrc2, px_g)
+                    .projected(cosmo, r_q2, M, a))
+        th2 = np.geomspace(1e-5, 20.0, 40000)
+        want2 = hankel_convolve(
+            torch, th2, np.exp(-th2 ** 2 / (2 * gsrc2.s ** 2)),
+            lambda k: host(px_g.projected(torch.as_tensor(k))),
+            np.arange(0.005, 80.0, 0.01), r_q2, device)
+        out["anchor2"] = float(np.max(np.abs(got2 / want2 - 1)))
+        if not out["anchor2"] < 2e-4:
+            fails.append(f"tophat-branch machinery: {out['anchor2']:.3e}")
+    if 3 in anchors:
+        r_src = np.geomspace(1e-4, 1000.0, 80000)
+        sig_src = host(gas.projected(cosmo, r_src, M, a))
+        r_q3 = np.geomspace(2.2, 20.0, 12)
+        got3 = host(T.ConvolvedProfile(gas, px_hp)
+                    .projected(cosmo, r_q3, M, a))
+        want3 = hankel_convolve(torch, r_src / D_A, sig_src, hp_beam,
+                                np.arange(0.25, 6000.0, 0.5), r_q3 / D_A,
+                                device)
+        out["anchor3"] = float(np.max(np.abs(got3 / want3 - 1)))
+        if not out["anchor3"] < 2e-2:
+            fails.append(f"Gas harmonic-pipeline parity: "
+                         f"{out['anchor3']:.3e}")
+    r_wide = np.geomspace(0.45, 60.0, 400)
+    m_raw = np.trapezoid(2 * np.pi * r_wide
+                         * host(gas.projected(cosmo, r_wide, M, a)), r_wide)
+    m_s = np.trapezoid(2 * np.pi * r_wide
+                       * host(T.ConvolvedProfile(gas, T.GridPixelApprox(0.3))
+                              .projected(cosmo, r_wide, M, a)), r_wide)
+    out["conservation"] = float(m_s / m_raw - 1)
+    if not abs(out["conservation"]) < 5e-3:
+        fails.append("tophat conservation broken")
+    ratio = beam / raw
+    out["ratio_hp"] = ratio.tolist()
+    for ok, what in ((ratio[0] < 0.15, "no deep small-scale suppression at "
+                      "NSIDE=128"),
+                     (grid[0] / raw[0] < 0.95, "no small-scale suppression "
+                      "at size=0.3"),
+                     (np.all(np.diff(ratio) > 0), "beam suppression not "
+                      "monotone in r"),
+                     (ratio[7] < 0.8 and ratio[9] > 1.3,
+                      "beam crossover moved")):
+        if not ok:
+            fails.append(what)
+    return out, fails
+
+
+def example07(T, device):
+    """examples/07_shocks.py: ShockedGas over Gas has the Rankine-Hugoniot
+    0.25 floor and an unshocked core (1e-3), the 0.625 midpoint at
+    epsilon_shock R_200c (1e-6), the analytic logistic slope (2%), and a
+    half-drop radius that scales with epsilon_shock (2%). Returns (values,
+    failures)."""
+    cosmo = T.Cosmology.from_dict(EX_COSMO, device=device)
+    par = T.default_params()
+    M, a, width = 1e14, 0.8, 0.1
+    gas = T.Gas(**par)
+    R = float(host(gas.mass_def.get_radius(cosmo, M, a))) / a
+    fails, out = [], {}
+    for eps in (2.0, 4.0, 6.0):
+        sg = T.ShockedGas(epsilon_shock=eps, width_shock=width, **par)
+        r_sh = eps * R
+
+        def ratio(rq):
+            rq = np.atleast_1d(np.asarray(rq, dtype=float))
+            return float((host(sg.real(cosmo, rq, M, a))
+                          / host(gas.real(cosmo, rq, M, a)))[0])
+
+        far = ratio(r_sh * np.exp(10 * width))
+        inner = ratio(r_sh * np.exp(-10 * width))
+        mid = ratio(r_sh)
+        h = 0.02 * width
+        slope = (ratio(r_sh * np.exp(h)) - ratio(r_sh * np.exp(-h))) / (2 * h)
+        slope_want = -(1 - 0.25) / (4 * width)
+        out[f"eps{eps:g}"] = dict(floor=far, core=inner, mid=mid,
+                                  slope=slope)
+        if abs(far - 0.25) > 1e-3:
+            fails.append(f"eps={eps}: floor {far} != 0.25")
+        if abs(inner - 1.0) > 1e-3:
+            fails.append(f"eps={eps}: core {inner} != 1")
+        if abs(mid - 0.625) > 1e-6:
+            fails.append(f"eps={eps}: midpoint {mid} != 0.625")
+        if abs(slope - slope_want) > 0.02 * abs(slope_want):
+            fails.append(f"eps={eps}: slope {slope} != {slope_want}")
+    r_scan = np.geomspace(0.05 * R, 40 * R, 4000)
+    g_scan = host(gas.real(cosmo, r_scan, M, a))
+    for e1, e2 in ((2.0, 4.0), (4.0, 6.0)):
+        mids = []
+        for e in (e1, e2):
+            sg = T.ShockedGas(epsilon_shock=e, width_shock=width, **par)
+            rat = host(sg.real(cosmo, r_scan, M, a)) / g_scan
+            mids.append(r_scan[np.argmin(np.abs(rat - 0.625))])
+        got = mids[1] / mids[0]
+        out[f"scaling{e1:g}-{e2:g}"] = float(got)
+        if abs(got - e2 / e1) > 0.02 * (e2 / e1):
+            fails.append(f"shock radius ratio {got} != {e2 / e1}")
+    return out, fails
+
+
+def load_scraped_fig1(path=FIG1_CSV):
+    """examples/08's scraped S19 Fig. 1 curves as {name: (X, Y)}, NaN rows
+    dropped (X in Mpc/h)."""
+    names = ['STAR', 'GAS1', 'GAS2', 'GAS3', '2HALO', 'TOTAL', 'R200',
+             'DMO', 'DMB1', 'DMB2', 'DMB3']
+    raw = np.genfromtxt(path, delimiter=',', skip_header=2)
+    out = {}
+    for i, nm in enumerate(names):
+        X, Y = raw[:, 2 * i], raw[:, 2 * i + 1]
+        ok = np.isfinite(X) & np.isfinite(Y)
+        out[nm] = (X[ok], Y[ok])
+    return out
+
+
+def fig1_curves(T, device, r):
+    """examples/08's nine Fig. 1 model curves rho(r) at M = 1e14/h, z = 0
+    (its notebook cosmology and parameters), on ``device``."""
+    h = 0.67
+    cosmo = T.Cosmology(Omega_m=0.32, Omega_b=0.048, h=h, sigma8=0.83,
+                        n_s=0.96, device=device)
+    bpar = dict(theta_ej=4, theta_co=0.1, mu_beta=1, eta=0.3, eta_delta=0.3,
+                tau=0, tau_delta=0, A=0.09 / 2, M1=2.5e11 / h,
+                epsilon_h=0.015, a=0.3, n=2, epsilon=4, p=0.3, q=0.707,
+                cdelta=6.71, gamma=2, delta=7)
+    models = {
+        'gas_b0': T.Gas(M_c=np.inf, **bpar),
+        'gas_b15': T.Gas(M_c=1e14 / h, **bpar),
+        'gas_b3': T.Gas(M_c=1e-10, **bpar),
+        'star': T.Stars(**bpar),
+        'twohalo': T.TwoHalo(**bpar),
+        'dmo': T.DarkMatterOnly(**bpar),
+        'dmb_b0': T.DarkMatterBaryon(M_c=np.inf, **bpar),
+        'dmb_b15': T.DarkMatterBaryon(M_c=1e14 / h, **bpar),
+        'dmb_b3': T.DarkMatterBaryon(M_c=1e-10, **bpar)}
+    return {k: host(v.real(cosmo, r, 1e14 / h, 1.0))
+            for k, v in models.items()}, h
+
+
+def fig1_points(scraped, r, curves, h):
+    """Per Fig. 1 curve: (the model curve's log-slope, log10 model /
+    scraped) at the scraped points (examples/08's _curve_points)."""
+    pts = {}
+    for nm, (key, _) in FIG1_CURVES.items():
+        X, Y = scraped[nm]
+        if nm == '2HALO':
+            keep = X > 0.01
+            X, Y = X[keep], Y[keep]
+        r_mpc = X / h
+        mfull = r ** 2 * curves[key] if nm.startswith('DM') \
+            else curves[key] / h ** 2
+        res = np.log10(np.interp(np.log(r_mpc), np.log(r), mfull) / Y)
+        lnr, lnm = np.log(r), np.log(np.maximum(mfull, 1e-300))
+        slope = np.interp(np.log(r_mpc), 0.5 * (lnr[1:] + lnr[:-1]),
+                          np.diff(lnm) / np.diff(lnr))
+        pts[nm] = (slope, res)
+    return pts
+
+
+def example08(T, device):
+    """examples/08_schneider19_profiles.py: each Fig. 1 curve's RMS log10
+    deviation from the scraped points within its bar, and the
+    scrape-jitter fit's normalised residual std in [0.8, 1.2] on both
+    panels (scipy's Nelder-Mead, as the example). Returns (values,
+    failures)."""
+    from scipy.optimize import minimize
+    r = np.geomspace(1e-3, 50, 1000)
+    curves, h = fig1_curves(T, device, r)
+    pts = fig1_points(load_scraped_fig1(), r, curves, h)
+    fails, out = [], {"rms": {}, "jitter": {}}
+    for nm, (key, tol) in FIG1_CURVES.items():
+        rms = float(np.sqrt(np.mean(pts[nm][1] ** 2)))
+        out["rms"][nm] = rms
+        if not rms < tol:
+            fails.append(f"Fig. 1 {nm}: RMS {rms:.4f} dex >= {tol}")
+    for panel, names in FIG1_PANELS.items():
+        s = np.concatenate([pts[n][0] for n in names])
+        q = np.concatenate([pts[n][1] for n in names])
+
+        def nll(p):
+            sx, sy = np.abs(p)
+            var = sy ** 2 + (s * sx) ** 2
+            return np.sum(0.5 * np.log(var) + 0.5 * q ** 2 / var)
+
+        sx, sy = np.abs(minimize(nll, [0.01, 0.01],
+                                 method='Nelder-Mead').x)
+        z_std = float(np.std(q / np.sqrt(sy ** 2 + (s * sx) ** 2)))
+        out["jitter"][panel] = (float(sx), float(sy), z_std)
+        if not 0.8 < z_std < 1.2:
+            fails.append(f"jitter:{panel} std {z_std:.3f}")
+    return out, fails
+
+
+def example11(T, device):
+    """examples/11_arico_profiles.py: each Arico20 gas and stellar
+    component integrates to its bookkeeping fraction, and the budget
+    closes at f_bar, each to 2%. Returns (values, failures)."""
+    cosmo = T.Cosmology.from_dict(EX_COSMO, device=device)
+    A20 = T.profiles.Arico20
+    apar = dict(EX_A20, A_nt=0.495, alpha_nt=0.1,
+                mean_molecular_weight=0.59)
+    a = 0.8
+    z = 1 / a - 1
+    m = EX_MASSES
+    bg = A20.BoundGas(**apar)
+    mt = cosmo.tensor(m)
+    fr = {k: host(v) for k, v in bg._gas_fractions(cosmo, mt, z).items()}
+    f_cg = host(bg._get_star_frac(mt, z))
+    f_sg = host(bg._get_star_frac(mt, z, satellite=True))
+    R200 = host(bg.mass_def.get_radius(cosmo, m, a)) / a
+    checks = [("BoundGas(<R) = f_bg M", bg, R200, fr["f_bg"]),
+              ("ReaccretedGas(<R) = f_rg M", A20.ReaccretedGas(**apar), R200,
+               fr["f_rg"]),
+              ("EjectedGas(tot) = f_eg M", A20.EjectedGas(**apar),
+               60 * R200, fr["f_eg"]),
+              ("Stars(tot) = f_cg M", A20.Stars(**apar), 20 * R200, f_cg)]
+    fails, out = [], {}
+    tot = np.zeros(len(m))
+    for name, prof, r_max, want in checks:
+        got = enclosed(cosmo, prof, r_max, m, a)
+        ratio = got / (want * m)
+        tot += got / m
+        out[name] = ratio.tolist()
+        if np.any(np.abs(ratio - 1) > 0.02):
+            fails.append(f"{name}: {ratio}")
+    budget = (tot + f_sg) / fr["f_bar"]
+    out["budget"] = budget.tolist()
+    if np.any(np.abs(budget - 1) > 0.02):
+        fails.append(f"baryon budget: {budget}")
+    return out, fails
+
+
+def example13(T, device):
+    """examples/13_mead_profiles.py: for both TAGN calibrations, each
+    Mead20 component integrates to its bookkeeping fraction and the
+    components close at M, each to 2%. Returns (values, failures)."""
+    cosmo = T.Cosmology.from_dict(EX_COSMO, device=device)
+    M20 = T.profiles.Mead20
+    a = 0.8
+    m = EX_MASSES
+    mt = cosmo.tensor(m)
+    fails, out = [], {}
+    for name in ("Params_TAGN_7p6", "Params_TAGN_8p0"):
+        par = dict(getattr(M20, name))
+        dm = M20.DarkMatter(**par)
+        R200 = host(dm.mass_def.get_radius(cosmo, m, a)) / a
+        f_str, f_cen, f_sat = (host(x) for x in dm._get_fstar(mt, a))
+        f_bar = cosmo.Omega_b / cosmo.Omega_m
+        f_bnd = host(dm._f_bnd(cosmo, mt, a))
+        checks = [
+            ("DM M_enc(R) = M", dm, R200, np.ones(3)),
+            ("BoundGas(<R) = f_bnd M", M20.BoundGas(**par), R200, f_bnd),
+            ("EjectedGas(tot) = f_ej M", M20.EjectedGas(**par), 400 * R200,
+             f_bar - f_str - f_bnd),
+            ("Stars(tot) = f_cen M", M20.Stars(**par), 20 * R200, f_cen),
+            ("CLM(<R) = (1 - f_bar + f_sat) M",
+             M20.CollisionlessMatter(**par), R200, 1 - f_bar + f_sat)]
+        tot = np.zeros(len(m))
+        for label, prof, r_max, want in checks:
+            got = enclosed(cosmo, prof, r_max, m, a)
+            ratio = got / (want * m)
+            if label != "DM M_enc(R) = M":
+                tot += got / m
+            out[f"{name} {label}"] = ratio.tolist()
+            if np.any(np.abs(ratio - 1) > 0.02):
+                fails.append(f"{name} {label}: {ratio}")
+        out[f"{name} total"] = tot.tolist()
+        if np.any(np.abs(tot - 1) > 0.02):
+            fails.append(f"{name} total closure: {tot}")
+    return out, fails
+
+
+def examples_path(T, torch, device):
+    """The asserts of examples 01, 03, 07, 08, 11 and 13 through the port
+    on the card, at the scripts' own bars (examples 03's three Hankel
+    quadratures on the card in float64). Fails if any assert misses.
+    Returns {example: seconds}."""
+    seconds = {}
+    for name, fn in (("01", lambda: example01(T, device)),
+                     ("03", lambda: example03(T, torch, device)),
+                     ("07", lambda: example07(T, device)),
+                     ("08", lambda: example08(T, device)),
+                     ("11", lambda: example11(T, device)),
+                     ("13", lambda: example13(T, device))):
+        t0 = time.perf_counter()
+        values, fails = fn()
+        sync(torch)
+        seconds[name] = time.perf_counter() - t0
+        log(f"examples: {name} in {seconds[name]:.2f} s: "
+            + json.dumps(values, default=float))
+        check(not fails, f"example {name}: " + "; ".join(fails))
+    return seconds
+
+
+# ----- the mesh path: mesh= on the runners (parallel.py) -----
+
+# a 2-rank float32 result against the same inputs' 1-rank or single-device
+# run, rms/mean of the map (rms over rms of the offsets, for the
+# snapshot): every rank's passes take the same values as one device's,
+# but the joins add the partial maps in another grouping and the grid
+# and snapshot passes group their slot sums by the rank's chunks, so
+# float32 rounds apart by a few ulps a value (~1e-7 relative)
+MESH_F32_BAR = 1e-5
+# the gradient (in ln M_c, or a table scale) of a 2-rank float32 step
+# against the 1-rank or single-device step, relative
+MESH_GRAD_BAR = 1e-5
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 300
+
+
+def sync(torch):
+    """Wait for the card (nothing to wait for on the CPU)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+class TableModel:
+    """A displacement model that is its table (what the runners read of
+    one), rebuilt from arrays that another process made."""
+
+    p_keys = []
+    Rdelta_sampling = False
+
+    def __init__(self, torch, device, grids, table):
+        self._grids = tuple(torch.as_tensor(g, device=device) for g in grids)
+        self._table = torch.as_tensor(table, device=device)
+
+
+def mesh_inputs(T, torch, device, path):
+    """Build the tables of the mesh runs on the card once (shell-1e6's,
+    grid-256's and snap-5e6's, grid2d's, the tSZ tables at NSIDE 1024 and
+    32 and anis-2048's canvas) and save their arrays to ``path`` for the
+    ranks. Returns the shell's model."""
+    arrs = {}
+
+    def put(name, grids, *tabs):
+        for i, g in enumerate(grids):
+            arrs[f"{name}_g{i}"] = host(g)
+        for i, t in enumerate(tabs):
+            arrs[f"{name}_t{i}"] = host(t)
+
+    shell = model_for(T, device, BENCH_GRID)
+    put("shell", shell._grids, shell._table)
+    for dim in (3, 2):
+        m = grid_model(T, torch, device, dim)
+        put(f"grid{dim}d", m._grids, m._table)
+    for name, m in (("tsz1024", tsz_model(T, torch, device, 1024)),
+                    ("tsz32", tsz_model(T, torch, device, 32)),
+                    ("dm", grid_model(T, torch, device, 2, "dm"))):
+        put(name, m._grids, m._ln3D, m._ln2D)
+    np.savez(path, **arrs)
+    return shell
+
+
+def mesh_models(T, torch, device, path):
+    """The models of :func:`mesh_inputs` from its arrays, on ``device``."""
+    z = np.load(path)
+    cosmo = T.Cosmology.from_dict(COSMO, device=device)
+
+    def grids(name):
+        return [z[f"{name}_g{i}"] for i in range(3)]
+
+    out = {n: TableModel(torch, device, grids(n), z[f"{n}_t0"])
+           for n in ("shell", "grid3d", "grid2d")}
+    for n in ("tsz1024", "tsz32", "dm"):
+        out[n] = T.TabulatedProfile(T.Gas(), cosmo).from_arrays(
+            grids(n), z[f"{n}_t0"], z[f"{n}_t1"])
+    return out
+
+
+def shell_value_and_grad(T, torch, runner, device):
+    """The grad phase's float32 step on a shell runner: chi^2 of the map
+    in ln M_c (build_table_device -> process_device) at example 14's
+    start against its truth's map. Returns (chi^2, d chi^2 / d ln M_c,
+    seconds of the step)."""
+    cosmo = T.Cosmology.from_dict(COSMO, device=device)
+    f64 = dict(dtype=torch.float64, device=device)
+    tab = lambda x: table_of(T, cosmo, BENCH_GRID, dict(PAR, M_c=torch.exp(x)))
+    with torch.no_grad():
+        target = runner.process_device(
+            tab(torch.tensor(LN_MC_TRUE, **f64))).double()
+    x = torch.tensor(LN_MC_START, **f64, requires_grad=True)
+    sync(torch)
+    t0 = time.perf_counter()
+    loss = ((runner.process_device(tab(x)).double() - target) ** 2).sum()
+    (g,) = torch.autograd.grad(loss, x)
+    sync(torch)
+    return float(loss.detach()), float(g), time.perf_counter() - t0
+
+
+def scale_value_and_grad(torch, runner, device, seed=0):
+    """value_and_grad of sum(w * map(table * s)) at s = 1, w a fixed
+    random weighting (float32 process_device of a grid runner). Returns
+    (value, gradient, seconds)."""
+    shape = runner.GriddedMap.map.shape
+    w = torch.as_tensor(np.random.default_rng(seed).normal(size=shape),
+                        dtype=torch.float64, device=device)
+    s = torch.tensor(1.0, dtype=torch.float64, device=device,
+                     requires_grad=True)
+    sync(torch)
+    t0 = time.perf_counter()
+    loss = (w * runner.process_device(
+        table=runner.model._table * s).double()).sum()
+    (g,) = torch.autograd.grad(loss, s)
+    sync(torch)
+    return float(loss.detach()), float(g), time.perf_counter() - t0
+
+
+def digest(a):
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def warm_stages(runner):
+    """One more process() with the runner's stages: (seconds, stages)."""
+    runner.profile, runner.stage_times = True, []
+    t0 = time.perf_counter()
+    runner.process()
+    t = time.perf_counter() - t0
+    runner.profile = False
+    return t, [(k, round(v, 4)) for k, v in runner.stage_times]
+
+
+def mesh_rank_runs(T, torch, cmc, sc, mesh, device, rank, world, work,
+                   n_halo, nside):
+    """One rank's share of the mesh phase: each run through ``mesh=`` with
+    this rank's launch counts read after it, held against the 1-rank run
+    (the shell, from ``work``) or rank 0's single-device run of the same
+    inputs (the others). Returns a dict for the phase's record."""
+    from baryonification_tpu_torch import parallel as tp
+    models = mesh_models(T, torch, device, work / "inputs.npz")
+    ref = json.loads((work / "parent.json").read_text())
+    tag = f"({world} gloo ranks on one card, rank {rank})"
+    out = {"launches": PATH_LAUNCHES, "digests": {}}
+
+    def timed_run(label, runner, expected):
+        reset_counts()
+        with plain_on_card(cmc, sc) as plain:
+            t0 = time.perf_counter()
+            res = runner.process()
+            cold = time.perf_counter() - t0
+        read_counts(f"mesh {label} {tag}", expected)
+        check(not plain, f"mesh {label}: plain versions ran on the card: "
+              f"{plain}")
+        return res, cold
+
+    def against_single(label, res, mk, diff):
+        """Rank 0: the single-device run of the same inputs, and the
+        2-rank result's distance from it (bar MESH_F32_BAR)."""
+        if rank != 0:
+            return None
+        single = mk(None).process()
+        d = diff(res, single)
+        log(f"mesh: {label}: {world} ranks against one device: {d:.3e} "
+            f"(bar {MESH_F32_BAR:g})")
+        check(d < MESH_F32_BAR, f"mesh {label}: {world} ranks differ from "
+              f"one device by {d:.3e}")
+        return d
+
+    # shell-1e6, held against the 1-rank run's map
+    cat, shell = catalog(T, n_halo, nside)
+    runner = T.BaryonifyShell(cat, shell, epsilon_max=EPS_MAX,
+                              model=models["shell"], verbose=False,
+                              device=device, mesh=mesh)
+    check(runner.method == "cellmajor", "mesh: auto is not cellmajor")
+    with deterministic(torch):
+        m, cold = timed_run("shell-1e6", runner, CELLMAJOR)
+        warm, stages = warm_stages(runner)
+    one = np.load(work / "shell_1rank.npy").astype(np.float64)
+    rms, rel = map_diff(m, one)
+    check(rms < MESH_F32_BAR, f"mesh shell-1e6: {world} ranks against 1: "
+          f"rms/mean {rms:.3e}")
+    out["digests"]["shell"] = digest(m)
+    out["shell"] = dict(cold_s=cold, warm_s=warm, stages=stages,
+                        passes_s=sum(v for k, v in stages
+                                     if k.startswith("pass[")),
+                        rms_vs_1rank=rms, max_vs_1rank=rel,
+                        bitwise_vs_1rank=bool(np.array_equal(m, one)))
+    # the join alone: one sum of a full-size float32 map over the group
+    x = torch.ones(12 * nside ** 2, dtype=torch.float32, device=device)
+    tp.mesh_sum(mesh, "cells", x)
+    sync(torch)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        tp.mesh_sum(mesh, "cells", x)
+    sync(torch)
+    out["shell"]["join_s"] = (time.perf_counter() - t0) / 5
+    reset_counts()
+    with plain_on_card(cmc, sc) as plain:
+        loss, g, secs = shell_value_and_grad(T, torch, runner, device)
+    read_counts(f"mesh grad shell-1e6 {tag}",
+                ("cellmajor_pass", "cellmajor_vjp"))
+    check(not plain, f"mesh grad: plain versions ran on the card: {plain}")
+    dg = abs(g - ref["grad"]) / abs(ref["grad"])
+    check(dg < MESH_GRAD_BAR, f"mesh grad shell-1e6: {world} ranks "
+          f"against 1: {dg:.3e}")
+    out["grad_shell"] = dict(loss=loss, grad=g, step_s=secs, rel_vs_1rank=dg)
+    del runner, x
+    torch.cuda.empty_cache()
+
+    # grid-256 (the CIC's scatter launches on every rank)
+    dim, N, L, H = GRID_CELLS["grid"]
+    cat, gm = nd_catalog(T, dim, N, L, H)
+    mk = lambda mesh_: T.BaryonifyGrid(
+        cat, gm, epsilon_max=GRID_EPS, model=models["grid3d"],
+        verbose=False, device=device, mesh=mesh_, method="cellmajor")
+    r = mk(mesh)
+    g_map, cold = timed_run("grid-256", r, SCATTER)
+    warm, stages = warm_stages(r)
+    out["digests"]["grid"] = digest(g_map)
+    out["grid"] = dict(cold_s=cold, warm_s=warm, stages=stages,
+                       rms_vs_single=against_single(
+                           "grid-256", g_map, mk,
+                           lambda a, b: map_diff(a, b)[0]))
+    del r, g_map
+    torch.cuda.empty_cache()
+
+    # a gradient step of grid2d at GRAD_SMALL's size (the CIC's backward
+    # and the pass's row reads: scatter_add_vjp)
+    dim, N, L, H = GRAD_SMALL["grid2d"]
+    cat, gm = nd_catalog(T, dim, N, L, H)
+    mk = lambda mesh_: T.BaryonifyGrid(
+        cat, gm, epsilon_max=GRID_EPS, model=models["grid2d"],
+        verbose=False, device=device, mesh=mesh_, method="cellmajor")
+    reset_counts()
+    with plain_on_card(cmc, sc) as plain:
+        val, g, secs = scale_value_and_grad(torch, mk(mesh), device)
+    read_counts(f"mesh grad grid2d-{N} {tag}", ("scatter_add",
+                                                 "scatter_add_vjp"))
+    check(not plain, f"mesh grad grid2d: plain versions ran on the card: "
+          f"{plain}")
+    out["grad_grid2d"] = dict(value=val, grad=g, step_s=secs)
+    if rank == 0:
+        _, g1, _ = scale_value_and_grad(torch, mk(None), device)
+        dg = abs(g - g1) / abs(g1)
+        check(dg < MESH_GRAD_BAR, f"mesh grad grid2d: {world} ranks "
+              f"against one device: {dg:.3e}")
+        out["grad_grid2d"]["rel_vs_single"] = dg
+
+    # snap-5e6
+    L, n_part, n_h = SNAP_CELL
+    cat, snap = snap_inputs(T, L, n_part, n_h, seed=3)
+    mk = lambda mesh_: T.BaryonifySnapshot(
+        cat, snap, epsilon_max=SNAP_EPS, model=models["grid3d"],
+        verbose=False, device=device, mesh=mesh_, method="cellmajor")
+    new, cold = timed_run("snap-5e6", mk(mesh), ())
+    off = snap_offsets(snap, new)
+    out["digests"]["snap"] = digest(off)
+    out["snap"] = dict(cold_s=cold, rms_vs_single=against_single(
+        "snap-5e6", off, mk,
+        lambda a, b: offsets_diff(a, snap_offsets(snap, b))))
+    del new, off
+    torch.cuda.empty_cache()
+
+    # tsz-1024's paint
+    halos = tsz_catalog(n_halo)
+    zero = T.LightconeShell(map=np.zeros(12 * nside ** 2), cosmo=COSMO)
+    mk = lambda mesh_: T.PaintProfilesShell(
+        T.HaloLightConeCatalog(cosmo=COSMO, **halos), zero,
+        epsilon_max=GRID_PAINT_EPS, model=models["tsz1024"], verbose=False,
+        device=device, mesh=mesh_, method="cellmajor")
+    y, cold = timed_run("tsz-1024", mk(mesh), CELLMAJOR)
+    check(y.sum() > 0 and y.min() >= 0, "mesh tsz: empty or negative")
+    out["digests"]["tsz"] = digest(y)
+    out["tsz"] = dict(cold_s=cold, rms_vs_single=against_single(
+        "tsz-1024", y, mk, lambda a, b: map_diff(a, b)[0]))
+    del y
+
+    # anis-2048
+    cat, gm = anis_catalog(T)
+    mk = lambda mesh_: T.PaintProfilesAnisGrid(
+        cat, gm, epsilon_max=GRID_PAINT_EPS, Painting_model=models["tsz32"],
+        Canvas_model=models["dm"], verbose=False, device=device, mesh=mesh_,
+        method="cellmajor")
+    y, cold = timed_run("anis-2048", mk(mesh), ())
+    check(y.sum() > 0 and y.min() >= 0, "mesh anis: empty or negative")
+    out["digests"]["anis"] = digest(y)
+    out["anis"] = dict(cold_s=cold, rms_vs_single=against_single(
+        "anis-2048", y, mk, lambda a, b: map_diff(a, b)[0]))
+    return out
+
+
+def mesh_rank_main(rank, world, init_file, root, work, n_halo, nside,
+                   device_type="cuda"):
+    """One gloo rank of the mesh phase, on cuda:0 (the card's machine has
+    one card, and NCCL takes one rank a card; ``device_type`` "cpu" for a
+    rehearsal): joins the group from a ``file://`` store, builds the 1-D
+    mesh "cells", runs :func:`mesh_rank_runs` and writes its record to
+    ``work/rank{rank}.json``. An exception ends the rank, and the
+    phase."""
+    sys.modules["jax"] = None
+    sys.path.insert(0, root)
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import baryonification_tpu_torch as T
+    from baryonification_tpu_torch.ops import cellmajor_cuda as cmc
+    from baryonification_tpu_torch.ops import scatter_cuda as sc
+
+    COUNTERS.extend([sc.LAUNCHES, cmc.LAUNCHES])
+    SCATTER.append("scatter_add")
+    CELLMAJOR.append("cellmajor_pass")
+    device = torch.device(device_type, 0)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        torch.zeros(1, device=device)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{init_file}", rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh(device.type, (world,),
+                                mesh_dim_names=("cells",))
+        out = mesh_rank_runs(T, torch, cmc, sc, mesh, device, rank, world,
+                             Path(work), n_halo, nside)
+        (Path(work) / f"rank{rank}.json").write_text(
+            json.dumps(out, default=float))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_path(T, torch, cmc, sc, device, root, n_halo, nside):
+    """shell-1e6 (bench.py's table and catalog) through ``mesh=``: on a
+    1-rank NCCL mesh in this process, held to process() bit for bit under
+    deterministic algorithms, with a float32 gradient step; then on
+    MESH_RANKS gloo ranks spawned on cuda:0, each also running grid-256, a
+    grid2d gradient step, snap-5e6, tsz-1024's paint and anis-2048 once
+    (see :func:`mesh_rank_runs`). Fails if a rank fails or the ranks'
+    outputs differ. Returns the phase's record."""
+    import shutil
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from torch.distributed.device_mesh import init_device_mesh
+
+    work = ROOT / ".scratch" / "mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t_start = time.perf_counter()
+    model = mesh_inputs(T, torch, device, work / "inputs.npz")
+    cat, shell = catalog(T, n_halo, nside)
+    mk = lambda mesh_: T.BaryonifyShell(cat, shell, epsilon_max=EPS_MAX,
+                                        model=model, verbose=False,
+                                        device=device, mesh=mesh_,
+                                        method="cellmajor")
+    out = {}
+    single = mk(None)
+    with deterministic(torch):
+        ref = single.process()
+        out["process_warm_s"], _ = warm_stages(single)
+    del single
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{work}/store1",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(device.type, (1,), mesh_dim_names=("cells",))
+        runner = mk(mesh)
+        reset_counts()
+        with plain_on_card(cmc, sc) as plain, deterministic(torch):
+            m1 = runner.process()
+            warm, stages = warm_stages(runner)
+        read_counts(f"mesh shell-1e6 (1 {backend} rank)", CELLMAJOR)
+        check(not plain, f"mesh: plain versions ran on the card: {plain}")
+        check(np.array_equal(m1, ref), "mesh shell-1e6: the 1-rank mesh "
+              "differs from process() (deterministic algorithms)")
+        out["1rank"] = dict(warm_s=warm, stages=stages)
+        reset_counts()
+        with plain_on_card(cmc, sc) as plain:
+            loss, g, secs = shell_value_and_grad(T, torch, runner, device)
+        read_counts(f"mesh grad shell-1e6 (1 {backend} rank)",
+                    ("cellmajor_pass", "cellmajor_vjp"))
+        check(not plain, f"mesh grad: plain versions ran on the card: "
+              f"{plain}")
+        out["1rank"].update(loss=loss, grad=g, step_s=secs)
+    finally:
+        dist.destroy_process_group()
+    np.save(work / "shell_1rank.npy", m1.astype(np.float32))
+    (work / "parent.json").write_text(json.dumps(dict(loss=loss, grad=g)))
+    del runner, m1, ref
+    torch.cuda.empty_cache()
+    log(f"mesh: 1 {backend} rank: process() warm {out['process_warm_s']:.3f} s, "
+        f"through mesh= {out['1rank']['warm_s']:.3f} s, bit for bit; "
+        f"value_and_grad {secs:.3f} s, chi^2 {loss:.6e}, grad {g:+.6e}")
+
+    t0 = time.perf_counter()
+    mp.start_processes(mesh_rank_main,
+                       args=(MESH_RANKS, str(work / "store2"), str(root),
+                             str(work), n_halo, nside, device.type),
+                       nprocs=MESH_RANKS, join=True, start_method="spawn")
+    out["ranks_s"] = time.perf_counter() - t0
+    recs = [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(MESH_RANKS)]
+    digests = [rec.pop("digests") for rec in recs]
+    for r, rec in enumerate(recs):
+        check(digests[r] == digests[0],
+              f"mesh: rank {r}'s outputs differ from rank 0's")
+        for path, counts in rec.pop("launches").items():
+            check(path not in PATH_LAUNCHES, f"path {path!r} read twice")
+            PATH_LAUNCHES[path] = counts
+        out[f"rank{r}"] = rec
+    shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_start
+    log("mesh: " + json.dumps(out, default=float))
+    return out
+
+
 def ptxas_summary(build_log):
     """[(kernel<type, rings per thread>, registers, spill bytes)] from the
     output of ``ptxas -v``."""
@@ -4557,7 +5441,7 @@ def build_all(torch, sc, lc, cmc):
 
 PHASES = ("kernels", "shell", "grad", "fit", "grid", "grid2d", "tsz",
           "families", "snap", "gradgrid", "gradsnap", "ex15", "anis", "pk",
-          "cl", "synth", "reference")
+          "cl", "synth", "reference", "examples", "mesh")
 
 
 def main(argv=None):
@@ -4654,6 +5538,12 @@ def main(argv=None):
         reference_spectra(T, torch, sp, device)
         reference_grid(T, torch, device)
         reference_models(T, torch, device)
+    if "examples" in phases:
+        secs = examples_path(T, torch, device)
+        log("examples: seconds " + json.dumps(secs))
+    if "mesh" in phases:
+        mesh_path(T, torch, cmc, sc, device, args.root.resolve(),
+                  args.halos, args.nside)
 
     # each kernel's launches on every path that was driven, each path run
     # with the counts set to 0 just before it and read just after; the

@@ -1,11 +1,16 @@
 """Parity of the port's spectra module with ``baryonification_tpu.ops.spectra``.
 
 - The plain versions of the two Legendre kernels (``legendre_alm_reference``,
-  ``legendre_synth_reference``) in float32 against the Pallas kernels in
-  interpret mode on the same inputs, to the tolerances of
-  tests/test_spectra.py (test_pallas_legendre_kernel_parity and
-  test_pallas_synth_kernel_parity): both are float32 with sums taken in
-  another order.
+  ``legendre_synth_reference``) in float32 and the Pallas kernels in
+  interpret mode, on the same inputs, each held against the float64
+  recurrence: the port's largest error off float64 (over a_lm, or over
+  the map the folds synthesise) within ``F32_ERR_FACTOR`` of the Pallas
+  kernel's. The two float32 results are not held to each other: in
+  interpret mode on the CPU, XLA computes the recurrence's square roots
+  and divisions other than correctly rounded (20-40% of the factors
+  differ from torch's in the last bit), so their errors fall on other
+  elements; at (32, 95) they meet the old direct bar of
+  tests/test_spectra.py on all but 2 of 9216 elements.
 - The facts that the CUDA synthesis kernel's control flow relies on, shown
   on the plain recurrence.
 - The SHT and the power spectra in float64 on the CPU against the JAX
@@ -52,49 +57,71 @@ def _f32_consts(nside, lmax):
     return TS._seed_consts(nside, lmax, torch.float32, CPU)
 
 
+#: the port's float32 error off float64 may be at most this factor of the
+#: Pallas kernel's (measured: at most 1.98, the synthesis at (32, 95))
+F32_ERR_FACTOR = 2.5
+
+
+def _err_off(got, ref):
+    """Largest |got - ref| over max|ref| (float64)."""
+    ref = np.asarray(ref, dtype=np.float64)
+    return float(np.abs(np.asarray(got, dtype=np.float64) - ref).max()
+                 / np.abs(ref).max())
+
+
 # ----- the two kernels' plain versions against the Pallas kernels -----
 
 @pytest.mark.parametrize("nside,lmax", [(16, 47), (32, 95)])
 def test_legendre_alm_reference_matches_pallas(nside, lmax):
     """Folds of a random map (float64 stage 1, rounded to float32) through
-    both; (32, 95) has sc0 > 0, so the scale counters are engaged."""
+    both and through the float64 recurrence; (32, 95) has sc0 > 0, so the
+    scale counters are engaged. Each float32 a_lm's error off float64,
+    the port's within F32_ERR_FACTOR of the Pallas kernel's, and so the
+    C_ell."""
     c = _f32_consts(nside, lmax)
     if nside == 32:
         assert int(c["sc0"].max()) > 0
     rng = np.random.default_rng(nside)
     hmap = _t(rng.normal(size=12 * nside**2))
     c64 = TS._seed_consts(nside, lmax, torch.float64, CPU)
-    folds = [f.to(torch.float32) for f in TS._analysis_folds(
-        hmap, nside, lmax, TS._bluestein_len(nside), c64)]
-    want = JS._legendre_alm_pallas(
+    folds64 = TS._analysis_folds(hmap, nside, lmax, TS._bluestein_len(nside),
+                                 c64)
+    folds = [f.to(torch.float32) for f in folds64]
+    pallas = JS._legendre_alm_pallas(
         *(jnp.asarray(f.numpy()) for f in folds),
         jnp.asarray(c["p_mm"].numpy()), jnp.asarray(c["sc0"].numpy()),
         jnp.asarray(c["x"].numpy()), interpret=True)
     got = LC.legendre_alm(*folds, c["p_mm"], c["sc0"], c["x"])
-    scale = float(np.abs(np.asarray(want[0])).max())
-    for g, w in zip(got, want):
+    ref = LC.legendre_alm(*(f.double() for f in folds), c64["p_mm"],
+                          c64["sc0"], c64["x"])
+    for g, p, r in zip(got, pallas, ref):
         assert g.dtype == torch.float32 and g.shape == (lmax + 1, lmax + 1)
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
-                                   atol=2e-6 * scale)
+        assert _err_off(g.numpy(), r.numpy()) <= \
+            F32_ERR_FACTOR * _err_off(p, r.numpy())
+    cl_ref = TS.alm2cl(*ref).numpy()
     cl_got = TS.alm2cl(*(g.double() for g in got)).numpy()
-    cl_want = TS.alm2cl(*(_t(w).double() for w in want)).numpy()
-    np.testing.assert_allclose(cl_got, cl_want, rtol=2e-5, atol=1e-12)
+    cl_pallas = TS.alm2cl(*(_t(p).double() for p in pallas)).numpy()
+    assert _err_off(cl_got, cl_ref) <= \
+        F32_ERR_FACTOR * _err_off(cl_pallas, cl_ref)
 
 
 @pytest.mark.parametrize("nside,lmax", [(16, 47), (32, 95)])
 def test_legendre_synth_reference_matches_pallas(nside, lmax):
-    """Random float32 a_lm through both; each set of folds is turned into
-    a map by the same float64 ring synthesis, and the maps compared as in
-    test_pallas_synth_kernel_parity."""
+    """Random float32 a_lm through both and through the float64
+    recurrence; each set of folds is turned into a map by the same float64
+    ring synthesis, and each float32 map's error off the float64 one held
+    as in test_legendre_alm_reference_matches_pallas."""
     c = _f32_consts(nside, lmax)
     are, aim = (a.astype(np.float32) for a in _random_alm(lmax + 1,
                                                           100 + nside))
-    want = JS._legendre_synth_pallas(
+    pallas = JS._legendre_synth_pallas(
         jnp.asarray(are), jnp.asarray(aim), jnp.asarray(c["p_mm"].numpy()),
         jnp.asarray(c["sc0"].numpy()), jnp.asarray(c["x"].numpy()),
         interpret=True)
     got = LC.legendre_synth(_t(are), _t(aim), c["p_mm"], c["sc0"], c["x"])
     c64 = TS._seed_consts(nside, lmax, torch.float64, CPU)
+    ref = LC.legendre_synth(_t(are).double(), _t(aim).double(),
+                            c64["p_mm"], c64["sc0"], c64["x"])
     M = TS._bluestein_len(nside)
 
     def to_map(folds):
@@ -102,10 +129,10 @@ def test_legendre_synth_reference_matches_pallas(nside, lmax):
                                     lmax, M, c64).numpy()
 
     assert all(g.shape == (lmax + 1, 2 * nside) for g in got)
-    f_want = to_map(np.asarray(w) for w in want)
-    f_got = to_map(g.numpy() for g in got)
-    scale = np.abs(f_want).max()
-    np.testing.assert_allclose(f_got, f_want, rtol=2e-5, atol=5e-6 * scale)
+    f_ref = to_map(r.numpy() for r in ref)
+    assert _err_off(to_map(g.numpy() for g in got), f_ref) <= \
+        F32_ERR_FACTOR * _err_off(to_map(np.asarray(p) for p in pallas),
+                                  f_ref)
 
 
 # ----- what the synthesis kernel's control flow relies on -----
