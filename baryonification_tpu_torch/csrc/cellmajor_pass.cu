@@ -403,13 +403,15 @@ extern "C" int cellmajor_pass_f64(int mode, const void* px, const void* py,
 // The adjoint (VJP) of the pass with respect to the halo rows, and its
 // second-order entry.
 //
-// In the JAX package the gradient of cellmajor_offsets_pass and
-// cellmajor_paint_pass is XLA autodiff of the same loop. Here a slot that
-// the forward adds reads v = (1 - w) row[i] + w row[i + 1] from its halo's
-// row and adds f(v) to its pixel: the three components of the unit-vector
-// delta (offsets modes) or exp(v) (paint). With g the cotangent of the
-// output planes, the adjoint adds s = sum_c g_c[p] f_c'(v) times the lerp
-// weights into the row's two nodes:
+// What they differentiate: the JAX package's cellmajor_offsets_pass and
+// cellmajor_paint_pass (baryonification_tpu/runners/shell_cellmajor.py:255
+// and :372), whose gradients are XLA autodiff of the same loop (jax.grad for
+// the adjoint, jax.hessian for the second order); there is no TPU kernel.
+// Here a slot that the forward adds reads v = (1 - w) row[i] + w row[i + 1]
+// from its halo's row and adds f(v) to its pixel: the three components of
+// the unit-vector delta (offsets modes) or exp(v) (paint). With g the
+// cotangent of the output planes, the adjoint adds s = sum_c g_c[p] f_c'(v)
+// times the lerp weights into the row's two nodes:
 //     d_rows[h, i] += s (1 - w),   d_rows[h, i + 1] += s w.
 // The second-order entry is the derivative of that VJP in the direction u
 // of the rows' cotangent: with lu = (1 - w) u[h, i] + w u[h, i + 1] it
@@ -419,24 +421,54 @@ extern "C" int cellmajor_pass_f64(int mode, const void* px, const void* py,
 // Reverse-over-reverse autograd (torch.autograd.grad with create_graph)
 // gives the exact Hessian through the pass with these two entries.
 //
-// f, f' and f'' come from one copy of the contribution's arithmetic,
-// templated on its scalar: Dual<T> carries the first derivative and
-// Dual<Dual<T>> the second. The forward kernel above keeps its own inline
-// copy, so that its SASS (and the issue bound counted from it) does not
-// change; slot_geometry repeats its tests and lerp position operation for
-// operation, so every entry takes the same slots with the same (i, w).
+// The walk is the forward's, one thread a NESTED pixel: where F is a
+// multiple of 32 a warp is a patch and tests each candidate once against
+// the same conservative cap, walking the kept slots in slot order; a culled
+// slot adds nothing to the forward, so nothing to its derivatives.
+// slot_geometry repeats the forward's tests and lerp position operation for
+// operation, so every entry takes the forward's slots with the same (i, w)
+// (the offsets value's finite test is the forward's up to rounding, see
+// offsets_vjp). Slots that the forward skips (outside the disc or the
+// radial range, a value that is not finite, the NaN rows of halos outside
+// the table's grid) add nothing here: no NaN reaches d_rows. The sums of
+// the rows are taken with atomics in no fixed order, so gradients hold to
+// tolerances, not bit for bit.
 //
-// The walk is the forward's: one thread a NESTED pixel and, where F is a
-// multiple of 32, the same conservative patch cull (a culled slot adds
-// nothing to the forward, so nothing to its derivatives). Slots that the
-// forward skips (outside the disc or the radial range, a value that is not
-// finite, the NaN rows of halos outside the table's grid) add nothing here:
-// no NaN reaches d_rows.
-//
-// What bounds it: every pixel of a halo's disc adds into the same few nodes
-// of that halo's row, so the atomics contend (two float or double atomicAdd
-// a slot inside its disc, native on sm_90). The sums of the rows are taken
-// in no fixed order, so gradients hold to tolerances, not bit for bit.
+// What bounds it on this card, measured at shell-1e6's largest bucket
+// (5.28e8 slot-pixels, 2.14e8 inside their disc; PERF.md): the inside
+// slots' arithmetic and the registers it holds, not the walk's loads. The
+// first design took 3.91 ms in float32 against the forward's 2.86 ms, and
+// 3.84 ms with its two global atomics a slot inside (4.3e8 a launch) kept
+// in registers: it carried the derivative through the contribution as a
+// dual number (twice the forward's divisions and square roots, about twice
+// its products and, in float64, 82 registers a thread against the
+// forward's 80: two blocks a multiprocessor, not three). So:
+// - The first-order offsets derivative is in closed form (offsets_vjp):
+//   four scalars, a square root and three divisions, the forward's count
+//   of operations; the float64 kernel fits the forward's 80 registers
+//   (5.26 ms against the first design's 10.15 and the forward's 6.37).
+// - Then the global atomics were a third of the float32 time (2.12 of
+//   3.3 ms). In float32 the four lanes of each 2 x 2 block of pixels
+//   first sum the terms that fall on one node, by two xor shuffles
+//   (MergeLanes): 0.62 of the atomics, 2.98 ms, at 71% of its issue bound
+//   (the shuffles run for every walked slot). Merging 8 or 32 lanes costs
+//   more than it saves; float64 merges none (its atomics take 0.2 ms, and
+//   the shuffles of doubles more).
+// - Rows summed in shared memory (a strip of n_hi nodes a warp, one global
+//   atomic a node) made 0.14 of the atomics but took 6.8 ms against the
+//   dual form's 4.1: a float or double atomicAdd into shared memory is an
+//   LDS / ATOMS.CAST.SPIN retry loop on sm_90a, serialised over the lanes
+//   that meet at a node.
+// - The walk loads the candidate ids and the records' heads inside the
+//   chunk step. The forward's look-ahead loads (ids two chunks ahead,
+//   heads one) keep seven to thirteen more registers live through the
+//   slot's arithmetic and cost a block a multiprocessor: 0.15 ms slower in
+//   float32, 1.4 ms in float64.
+// experiments/cellmajor_adjoint/ keeps the strip and the look-ahead as
+// patches, to measure them again.
+// The second-order entry keeps the dual numbers, Dual<Dual<T>> carrying
+// f, f' and f'' through one copy of the arithmetic: it runs on the small
+// buckets of the fits, where it takes microseconds.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -483,23 +515,14 @@ __device__ __forceinline__ Dual<S> dsqrt(Dual<S> a) {
   const S r = dsqrt(a.v);
   return {r, a.d / (r + r)};
 }
-__device__ __forceinline__ float dexp(float a) { return exp(a); }
-__device__ __forceinline__ double dexp(double a) { return exp(a); }
-template <typename S>
-__device__ __forceinline__ Dual<S> dexp(Dual<S> a) {
-  const S e = dexp(a.v);
-  return {e, a.d * e};
-}
 template <typename S, typename T>
 __device__ __forceinline__ S recip(S a, T one) {
   // 1 / a as the forward computes it (T(1) / nw_norm)
   return S{one} / a;
 }
 
-// a dual variable seeded at v: Dual<T> = (v, 1); Dual<Dual<T>> =
-// ((v, 1), (1, 0)), whose parts are then (f, f'), (f', f'')
-template <typename T>
-__device__ __forceinline__ Dual<T> seed1(T v) { return {v, T(1)}; }
+// a dual variable seeded at v, ((v, 1), (1, 0)), whose parts are then
+// (f, f') and (f', f'')
 template <typename T>
 __device__ __forceinline__ Dual<Dual<T>> seed2(T v) {
   return {{v, T(1)}, {T(1), T(0)}};
@@ -583,6 +606,8 @@ struct AdjointArgs {
   const T* u;                 // second order: the rows' direction (H, n_hi)
   T* d_rows;                  // (H, n_hi), added into with atomics
   T *j0, *j1, *j2;            // second order: the JVP planes, added into
+  unsigned long long* tally;  // debug: {slot-pixels that add, global
+                              // atomics made}, or null
   long long npix, F;
   int k_pad, n_hi;
   T g0, inv_dg, rad_hi;
@@ -594,24 +619,68 @@ __device__ __forceinline__ T lerp_u(const T* u, T w) {
   return (T(1) - w) * __ldg(u) + w * __ldg(u + 1);
 }
 
-// one slot of entry kOrder (1: the adjoint, 2: the second-order entry);
-// gx..gz are the pixel's cotangents, jx..jz its JVP sums
-template <typename T, bool kPaint, bool kRdelta, int kOrder>
-__device__ __forceinline__ void adjoint_slot(int h, T x, T y, T z,
+// The offsets contribution's derivative in v, contracted with the pixel's
+// cotangent g (gp = g.p, pp = p.p): s = sum_c g_c dn_c'(v), in closed form.
+// The forward's offset is of = v e with e = (ha / r_sep) (dx, dy, dz), so
+// with pe = p.e, ee = e.e and ge = g.e (and hD the distance):
+//   nw = p hD + v e,       |nw|^2 = hD^2 pp + t,  t = v (2 hD pe + v ee),
+//   sft = t / (|nw| + hD), dn = (v e - p sft) / |nw|,
+//   |nw|' = q / |nw| with q = nw.e = hD pe + v ee,
+//   sft' = (2 q - sft |nw|') / (|nw| + hD),
+//   g.dn' = (ge - gp sft' - (g.dn) |nw|') / |nw|.
+// Four scalars carry it, with three reciprocals (one a square root's) and
+// no vector held through the slot. The forward skips a slot whose delta is
+// not finite, which, v and e being finite, is where 1 / |nw| or sft is
+// not; the same test here (|nw| = 0 would put the pixel at the observer).
+// Returns false where the forward skips the slot.
+template <typename T>
+__device__ __forceinline__ bool offsets_vjp(T v, T x, T y, T z,
+                                            const SlotGeom<T>& g, T gx,
+                                            T gy, T gz, T gp, T pp, T& s) {
+  const T k = g.ha / fmax(g.r_sep, static_cast<T>(1e-30));
+  const T ex = k * g.dx;
+  const T ey = k * g.dy;
+  const T ez = k * g.dz;
+  const T pe = x * ex + y * ey + z * ez;
+  const T ee = ex * ex + ey * ey + ez * ez;
+  const T ge = gx * ex + gy * ey + gz * ez;
+  const T q = g.hD * pe + v * ee;
+  const T t = v * (q + g.hD * pe);
+  const T nw2 = g.hD * g.hD * pp + t;
+  const T nw = sqrt(nw2);
+  const T inv_nw = T(1) / nw;
+  const T rden = T(1) / (nw + g.hD);
+  const T sft = t * rden;
+  if (!(finite(inv_nw) && finite(sft))) return false;
+  const T nn = q * inv_nw;
+  const T sft_d = (T(2) * q - sft * nn) * rden;
+  const T gdn = (v * ge - gp * sft) * inv_nw;
+  s = inv_nw * ((ge - gp * sft_d) - gdn * nn);
+  return true;
+}
+
+// one slot of entry kOrder (1: the adjoint, 2: the second-order entry):
+// gx..gz are the pixel's cotangents (gp = g.p, pp = p.p), jx..jz its JVP
+// sums. Returns whether the slot adds; then it adds its two terms to the
+// rows (d_rows or d2_rows) or, with kDefer, leaves them to the caller: the
+// node i and the terms a, b for nodes i and i + 1.
+template <typename T, bool kPaint, bool kRdelta, int kOrder, bool kDefer>
+__device__ __forceinline__ bool adjoint_slot(int h, T x, T y, T z,
                                              const AdjointArgs<T>& A, T gx,
-                                             T gy, T gz, T& jx, T& jy,
-                                             T& jz) {
+                                             T gy, T gz, T gp, T pp, T& jx,
+                                             T& jy, T& jz, int& i, T& a,
+                                             T& b) {
   SlotGeom<T> g;
   if (!slot_geometry<T, kPaint, kRdelta>(h, x, y, z, A.recs, A.n_hi, A.g0,
                                          A.inv_dg, A.rad_hi, g))
-    return;
+    return false;
   const long long base = static_cast<long long>(h) * A.n_hi + g.i;
   const T* row = A.rows + base;
   const T v = (T(1) - g.w) * __ldg(row) + g.w * __ldg(row + 1);
   T s;
   if (kPaint) {
     const T p = exp(v);
-    if (!finite(p)) return;
+    if (!finite(p)) return false;
     if (kOrder == 1) {
       s = gx * p;
     } else {
@@ -620,17 +689,14 @@ __device__ __forceinline__ void adjoint_slot(int h, T x, T y, T z,
       s = gx * p * lu;
     }
   } else {
-    if (!finite(v)) return;
+    if (!finite(v)) return false;
     if (kOrder == 1) {
-      Dual<T> dn[3];
-      offsets_of(seed1(v), x, y, z, g, dn);
-      if (!(finite(dn[0].v) && finite(dn[1].v) && finite(dn[2].v))) return;
-      s = gx * dn[0].d + gy * dn[1].d + gz * dn[2].d;
+      if (!offsets_vjp(v, x, y, z, g, gx, gy, gz, gp, pp, s)) return false;
     } else {
       Dual<Dual<T>> dn[3];
       offsets_of(seed2(v), x, y, z, g, dn);
       if (!(finite(dn[0].v.v) && finite(dn[1].v.v) && finite(dn[2].v.v)))
-        return;
+        return false;
       const T lu = lerp_u(A.u + base, g.w);
       jx = jx + dn[0].v.d * lu;
       jy = jy + dn[1].v.d * lu;
@@ -638,9 +704,30 @@ __device__ __forceinline__ void adjoint_slot(int h, T x, T y, T z,
       s = (gx * dn[0].d.d + gy * dn[1].d.d + gz * dn[2].d.d) * lu;
     }
   }
-  atomicAdd(A.d_rows + base, s * (T(1) - g.w));
-  atomicAdd(A.d_rows + base + 1, s * g.w);
+  if (A.tally != nullptr) atomicAdd(A.tally, 1ULL);
+  i = g.i;
+  a = s * (T(1) - g.w);
+  b = s * g.w;
+  if (!kDefer) {
+    atomicAdd(A.d_rows + base, a);
+    atomicAdd(A.d_rows + base + 1, b);
+    if (A.tally != nullptr) atomicAdd(A.tally + 1, 2ULL);
+  }
+  return true;
 }
+
+// Lanes of a group (aligned, 2 x 2 pixels for 4 in NESTED order) whose
+// adds to one node a warp sums in registers before its global atomics:
+// four in float32, where the atomics are a third of the kernel's time
+// (2.1 of 3.3 ms without them) and two xor shuffles save more than they
+// cost; none in float64, where the atomics take 0.2 of 5.2 ms and the
+// shuffles of doubles cost more (PERF.md).
+template <typename T>
+struct MergeLanes;
+template <>
+struct MergeLanes<float> { static constexpr int v = 4; };
+template <>
+struct MergeLanes<double> { static constexpr int v = 1; };
 
 // the forward's walk (and patch cull) over a pixel's candidates, calling
 // adjoint_slot for each slot that the forward would walk
@@ -657,15 +744,22 @@ adjoint_kernel(const AdjointArgs<T> A) {
   const T gx = A.g0p[p];
   const T gy = kPaint ? T(0) : A.g1p[p];
   const T gz = kPaint ? T(0) : A.g2p[p];
+  const T gp = gx * x + gy * y + gz * z;
+  const T pp = x * x + y * y + z * z;
   const int32_t* hids = A.dense + c * A.k_pad;
   T jx = 0, jy = 0, jz = 0;
   if (!kPatch) {
+    // cells smaller than a warp: every lane walks its cell's slots
+    int i;
+    T a, b;
     for (int k = 0; k < cnt; ++k)
-      adjoint_slot<T, kPaint, kRdelta, kOrder>(__ldg(hids + k), x, y, z, A,
-                                               gx, gy, gz, jx, jy, jz);
+      adjoint_slot<T, kPaint, kRdelta, kOrder, false>(
+          __ldg(hids + k), x, y, z, A, gx, gy, gz, gp, pp, jx, jy, jz, i, a,
+          b);
   } else {
     // the forward's patch cull (see cellmajor_kernel): the same cap and
-    // test, without the look-ahead loads
+    // test; the warp is a patch of 32 pixels of one cell, which takes these
+    // exits and branches as one
     const int lane = threadIdx.x & 31;
     const unsigned all = 0xffffffffu;
     const T eps = Eps<T>::v;
@@ -693,12 +787,37 @@ adjoint_kernel(const AdjointArgs<T> A) {
         }
       }
       unsigned todo = __ballot_sync(all, keep);
-      while (todo) {
+      while (todo) {                    // the kept slots, in slot order
         const int src = __ffs(todo) - 1;
         todo &= todo - 1;
         const int h = __shfl_sync(all, hk, src);
-        adjoint_slot<T, kPaint, kRdelta, kOrder>(h, x, y, z, A, gx, gy, gz,
-                                                 jx, jy, jz);
+        constexpr int kMerge = MergeLanes<T>::v;
+        int i = 0;
+        T a = T(0), b = T(0);
+        bool lead = adjoint_slot<T, kPaint, kRdelta, kOrder, (kMerge > 1)>(
+            h, x, y, z, A, gx, gy, gz, gp, pp, jx, jy, jz, i, a, b);
+        if (kMerge > 1) {
+          // a lane that adds to its partner's node hands its terms on
+#pragma unroll
+          for (int off = 1; off < kMerge; off <<= 1) {
+            const int pi = __shfl_xor_sync(all, i, off);
+            const T pa = __shfl_xor_sync(all, a, off);
+            const T pb = __shfl_xor_sync(all, b, off);
+            const bool pl =
+                __shfl_xor_sync(all, static_cast<int>(lead), off) != 0;
+            const bool same = lead && pl && pi == i;
+            const bool low = (lane & off) == 0;
+            a = same && low ? a + pa : a;
+            b = same && low ? b + pb : b;
+            lead = lead && !(same && !low);
+          }
+          if (lead) {
+            T* d = A.d_rows + static_cast<long long>(h) * A.n_hi + i;
+            atomicAdd(d, a);
+            atomicAdd(d + 1, b);
+            if (A.tally != nullptr) atomicAdd(A.tally + 1, 2ULL);
+          }
+        }
       }
     }
   }
@@ -729,7 +848,7 @@ int launch_adjoint(int mode, const void* px, const void* py, const void* pz,
                    const void* g2p, const void* u, void* d_rows, void* j0,
                    void* j1, void* j2, long long npix, long long F,
                    int k_pad, int n_hi, double g0, double dg, double rad_hi,
-                   void* stream) {
+                   void* tally, void* stream) {
   if (npix <= 0) return static_cast<int>(cudaSuccess);
   if (F <= 0 || k_pad <= 0 || n_hi < 2 || npix % F != 0 ||
       reinterpret_cast<uintptr_t>(recs) % 16 != 0 || mode < 0 || mode > 2)
@@ -750,6 +869,7 @@ int launch_adjoint(int mode, const void* px, const void* py, const void* pz,
   A.j0 = static_cast<T*>(j0);
   A.j1 = static_cast<T*>(j1);
   A.j2 = static_cast<T*>(j2);
+  A.tally = static_cast<unsigned long long*>(tally);
   A.npix = npix;
   A.F = F;
   A.k_pad = k_pad;
@@ -774,19 +894,22 @@ int launch_adjoint(int mode, const void* px, const void* py, const void* pz,
 }  // namespace
 
 // The adjoint: d_rows (H x n_hi, zeroed by the caller) += the VJP of the
-// pass with cotangent planes g0p..g2p (g1p, g2p null in paint mode).
-// Returns cudaGetLastError() of the launch; asynchronous on `stream`.
+// pass with cotangent planes g0p..g2p (g1p, g2p null in paint mode); tally:
+// null, or two uint64 to which the launch adds the number of slot-pixels
+// that add to the rows and the number of global atomics it makes. Returns
+// cudaGetLastError() of the launch; asynchronous on `stream`.
 #define CELLMAJOR_VJP(NAME, T)                                              \
   extern "C" int NAME(int mode, const void* px, const void* py,            \
                       const void* pz, const void* dense, const void* counts, \
                       const void* recs, const void* rows, const void* g0p,  \
                       const void* g1p, const void* g2p, void* d_rows,       \
                       long long npix, long long F, int k_pad, int n_hi,     \
-                      double g0, double dg, double rad_hi, void* stream) {  \
+                      double g0, double dg, double rad_hi, void* tally,     \
+                      void* stream) {                                       \
     return launch_adjoint<T, 1>(mode, px, py, pz, dense, counts, recs,      \
                                 rows, g0p, g1p, g2p, nullptr, d_rows,       \
                                 nullptr, nullptr, nullptr, npix, F, k_pad,  \
-                                n_hi, g0, dg, rad_hi, stream);              \
+                                n_hi, g0, dg, rad_hi, tally, stream);       \
   }
 CELLMAJOR_VJP(cellmajor_vjp_f32, float)
 CELLMAJOR_VJP(cellmajor_vjp_f64, double)
@@ -794,7 +917,7 @@ CELLMAJOR_VJP(cellmajor_vjp_f64, double)
 // The second-order entry: with u (H x n_hi) the direction of the rows'
 // cotangent, j0p..j2p (zeroed by the caller; j1p, j2p null in paint mode)
 // += sum_slots f'(v) lerp(u), and d2_rows (zeroed) += the lerp weights
-// times sum_c g_c f_c''(v) lerp(u).
+// times sum_c g_c f_c''(v) lerp(u); tally as above.
 #define CELLMAJOR_VJP2(NAME, T)                                             \
   extern "C" int NAME(int mode, const void* px, const void* py,            \
                       const void* pz, const void* dense, const void* counts, \
@@ -802,11 +925,12 @@ CELLMAJOR_VJP(cellmajor_vjp_f64, double)
                       const void* g1p, const void* g2p, const void* u,      \
                       void* d2_rows, void* j0p, void* j1p, void* j2p,       \
                       long long npix, long long F, int k_pad, int n_hi,     \
-                      double g0, double dg, double rad_hi, void* stream) {  \
+                      double g0, double dg, double rad_hi, void* tally,     \
+                      void* stream) {                                       \
     return launch_adjoint<T, 2>(mode, px, py, pz, dense, counts, recs,      \
                                 rows, g0p, g1p, g2p, u, d2_rows, j0p, j1p,  \
                                 j2p, npix, F, k_pad, n_hi, g0, dg, rad_hi,  \
-                                stream);                                    \
+                                tally, stream);                             \
   }
 CELLMAJOR_VJP2(cellmajor_vjp2_f32, float)
 CELLMAJOR_VJP2(cellmajor_vjp2_f64, double)

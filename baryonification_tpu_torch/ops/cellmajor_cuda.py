@@ -47,6 +47,8 @@ kernels of ``csrc/cellmajor_pass.cu``; their plain versions
 (``cellmajor_vjp_reference``, ``cellmajor_vjp2_reference``) are the
 autograd of ``cellmajor_pass_reference`` and its double backward. In the
 JAX package the gradient of the pass is XLA autodiff of the same loop.
+``_launch_adjoint`` takes a measurement argument, ``tally``, that counts
+the slot-pixels that add to the rows and the global atomics made.
 """
 
 import ctypes
@@ -75,6 +77,8 @@ _CHUNK_PIXELS = 1 << 20
 # pixels a range of the plain adjoint versions (whole cells): bounds the
 # graph they hold at once
 _GRAD_CHUNK_PIXELS = 1 << 18
+#: the counts of the adjoint kernels' ``tally`` (``_launch_adjoint``)
+TALLY = ("adds", "atomics")
 
 
 def _kernel(dtype, entry="cellmajor_pass"):
@@ -92,8 +96,8 @@ def _kernel(dtype, entry="cellmajor_pass"):
         tail = [L, L, I, I, D, D, D]
         fn.argtypes = {
             "cellmajor_pass": head + [P, P, P] + tail + [I, P, P],
-            "cellmajor_vjp": head + [P, P, P, P] + tail + [P],
-            "cellmajor_vjp2": head + [P] * 8 + tail + [P],
+            "cellmajor_vjp": head + [P, P, P, P] + tail + [P, P],
+            "cellmajor_vjp2": head + [P] * 8 + tail + [P, P],
         }[entry]
         fn.restype = I
         _FUNCS[key] = fn
@@ -360,9 +364,12 @@ def cellmajor_vjp2_reference(mode, grads, u, pix, dense, counts, F, recs,
 
 
 def _launch_adjoint(entry, mode, grads, u, pix, dense, counts, F, recs, rows,
-                    g0, dg, rad_hi):
+                    g0, dg, rad_hi, tally=None):
     """One launch of the adjoint (``u`` None) or second-order entry on
-    CUDA tensors; returns d_rows, or (JVP planes, d2_rows)."""
+    CUDA tensors; returns d_rows, or (JVP planes, d2_rows). ``tally`` (a
+    (2,) int64 CUDA tensor, for the tests and ``chip_smoke.py``) gets the
+    launch's counts of :data:`TALLY` added to it: the slot-pixels that add
+    to the rows and the global atomics made."""
     npix, ncell = pix[0].shape[0], counts.shape[0]
     d_rows = torch.zeros_like(rows)
     jvp = _zero_planes(mode, pix[0]) if u is not None else ()
@@ -376,6 +383,11 @@ def _launch_adjoint(entry, mode, grads, u, pix, dense, counts, F, recs, rows,
     recs, rows = recs.contiguous(), rows.contiguous()
     if recs.data_ptr() % 16:           # the kernel reads 16-byte records
         recs = recs.clone()
+    if tally is not None and (tally.dtype != torch.int64
+                              or tally.device != rows.device
+                              or tally.shape != (len(TALLY),)):
+        raise ValueError(f"tally must be {len(TALLY)} int64 on "
+                         f"{rows.device}")
     gp = [g.data_ptr() for g in grads] + [None] * (3 - len(grads))
     extra = ([] if u is None else
              [u.contiguous().data_ptr(), d_rows.data_ptr()]
@@ -385,7 +397,8 @@ def _launch_adjoint(entry, mode, grads, u, pix, dense, counts, F, recs, rows,
         counts.data_ptr(), recs.data_ptr(), rows.data_ptr(), *gp,
         *([d_rows.data_ptr()] if u is None else extra), npix, F,
         dense.shape[0] // ncell, rows.shape[1], float(g0), float(dg),
-        float(rad_hi), torch.cuda.current_stream(rows.device).cuda_stream)
+        float(rad_hi), None if tally is None else tally.data_ptr(),
+        torch.cuda.current_stream(rows.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     LAUNCHES[entry] += 1

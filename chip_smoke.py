@@ -40,7 +40,10 @@ and fails on any fault:
      algorithms), the adjoint kernel against its plain version at the
      largest bucket and the second-order kernel on 2^20 pixels of the
      smallest, both precisions, with the adjoint's bound beside the
-     forward's time;
+     forward's time, its census, its own counts of the slot-pixels that
+     add (held to the census) and of its global atomics, and its issue
+     bound from the SASS of this build (the adjoint, the forward and
+     the second-order kernel timed alike, on the device: queued_ms);
   6. fit: examples 14, 16 and 18 through the port on the card (float64,
      their own sizes), every assert of theirs: Adam fits, Laplace
      covariances (the second-order kernel), sigma8 through
@@ -646,10 +649,12 @@ def cellmajor_blocks(ins):
     """(all, FP64, MUFU) instructions of each of CM_BLOCKS on its fast
     path in one cellmajor_kernel instance's SASS ``ins``. The candidate
     loop is found by its shapes: the walk loop holds the SHFL.IDX and ends
-    in a backward branch after the BSYNC that closes a slot; the chunk
+    in a backward branch; a slot closes where the angular test's exit (the
+    first conditional branch after the shuffle) jumps, and what follows
+    up to the backward branch runs for every walked slot; the chunk
     loop's backward branch follows it. A conditional forward branch is
     taken where it skips at most 24 instructions holding a CALL (a slow
-    path) or the launch count's REDG. Returns the counts and, for each
+    path) or a debug count's REDG. Returns the counts and, for each
     block, the SASS address ranges it was read from (to check against
     ``cuobjdump -sass``); raises where a block lacks the instruction that
     marks it (the ballot of the chunk step, the walk's shuffle, the MUFU
@@ -666,8 +671,11 @@ def cellmajor_blocks(ins):
     back, walk_head = next((i, target(t)) for i, (_, t) in enumerate(ins)
                            if i > shfl and target(t) is not None
                            and target(t) <= ins[shfl][0])
-    join = next(ins[j][0] for j in range(back, 0, -1)
-                if ins[j][1].startswith("BSYNC"))
+    # the slot's close: where the angular test's exit, the first
+    # conditional branch after the shuffle, jumps
+    join = next(target(t) for _, t in ins[shfl + 1:back]
+                if t.startswith("@") and target(t) is not None
+                and target(t) > ins[shfl][0])
     cback, chunk_head = next((i, target(t)) for i, (_, t) in enumerate(ins)
                              if i > back and target(t) is not None
                              and target(t) < walk_head)
@@ -704,7 +712,8 @@ def cellmajor_blocks(ins):
                     until=lambda i: ins[i][0] == walk_head)
     chunk += ins[back + 1:cback + 1]
     walk, i = path(idx[walk_head], join, last=lambda t: target(t) == join)
-    walk += ins[idx[join]:back + 1]
+    walk += path(idx[join], ins[back][0] + 16,
+                 until=lambda i: i == back + 1)[0]
     radial, i = path(i, join, last=lambda t: target(t) == join)
     inside, _ = path(i, join, until=lambda i: ins[i][0] == join)
     blocks = (setup, chunk, walk, radial, inside)
@@ -729,11 +738,9 @@ def cellmajor_blocks(ins):
             tuple(ranges(b) for b in blocks))
 
 
-def cellmajor_sass():
-    """{(mode, dtype): CM_BLOCKS counts} of this checkout's built
-    cell-major library, by cuobjdump -sass, with each block's address
-    ranges logged; fails the run if an instance of CM_INSTANCES cannot be
-    read or parsed."""
+def cellmajor_library_sass():
+    """sass_functions of this checkout's built cell-major library, by
+    cuobjdump -sass."""
     import shutil
     from baryonification_tpu_torch import _cuda_build as cb
     lib = cb._LIBS.get("cellmajor_pass")
@@ -744,8 +751,15 @@ def cellmajor_sass():
     out = subprocess.run([tool, "-sass", lib._name], capture_output=True,
                          text=True, timeout=120)
     check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr[-300:]}")
+    return sass_functions(out.stdout)
+
+
+def cellmajor_sass():
+    """{(mode, dtype): CM_BLOCKS counts} of this checkout's built
+    cell-major library, with each block's address ranges logged; fails
+    the run if an instance of CM_INSTANCES cannot be read or parsed."""
     counts = {}
-    for name, ins in sass_functions(out.stdout).items():
+    for name, ins in cellmajor_library_sass().items():
         for key, md in CM_INSTANCES.items():
             if "cellmajor_kernel" + key in name:
                 try:
@@ -759,6 +773,37 @@ def cellmajor_sass():
     check(set(counts) == set(CM_INSTANCES.values()),
           f"cellmajor_kernel instances not found in the SASS: "
           f"{sorted(set(CM_INSTANCES.values()) - set(counts))}")
+    return counts
+
+
+def adjoint_sass():
+    """{dtype: CM_BLOCKS counts} of the adjoint kernel's offsets instances
+    (F a multiple of 32, the first-order entry) in this checkout's build,
+    read by cellmajor_blocks: the adjoint walks as the forward does, and
+    its slot (the forward's tests, the value and its derivative, in
+    float64 the two adds) closes where the forward's does; in float32 the
+    lanes' merge and their adds follow the close, and count with the
+    walked slot, which every lane runs. Fails the run where an instance
+    cannot be read."""
+    counts = {}
+    for name, ins in cellmajor_library_sass().items():
+        for key, dname in (("IfLb0ELb0ELb1ELi1E", "float32"),
+                           ("IdLb0ELb0ELb1ELi1E", "float64")):
+            if "adjoint_kernel" + key in name:
+                try:
+                    counts[dname], where = cellmajor_blocks(ins)
+                except (StopIteration, RuntimeError, KeyError) as e:
+                    check(False, f"the SASS of adjoint_kernel offsets "
+                                 f"{dname} has not the expected loop shape "
+                                 f"({e!r})")
+                log(f"grad: cellmajor_vjp offsets {dname} SASS address "
+                    f"ranges by block ({name}): " + "; ".join(
+                        f"{b}: {r}" for b, r in zip(CM_BLOCKS, where)))
+                log(f"grad: cellmajor_vjp offsets {dname} SASS instructions "
+                    f"a lane by block (" + ", ".join(CM_BLOCKS)
+                    + f"; all, FP64, MUFU): {counts[dname]}")
+    check(set(counts) == {"float32", "float64"},
+          f"adjoint_kernel instances not found in the SASS: {counts}")
     return counts
 
 
@@ -1033,10 +1078,11 @@ def check_cellmajor(T, torch, cmc, device, n_halo, nside, issue_bound):
     return rec
 
 
-def cellmajor_issue_bound(torch, mode, dname, n, sass, k_fn, ms_k):
-    """Log the issue bound of one kernel call from the census ``n`` of
-    its inputs and the SASS counts ``sass`` of its blocks (CM_BLOCKS), at
-    the SM clock read while it runs."""
+def cellmajor_issue_bound(torch, mode, dname, n, sass, k_fn, ms_k,
+                          name="cellmajor_pass", label="kernels"):
+    """Log the issue bound of one call of kernel ``name`` from the census
+    ``n`` of its inputs and the SASS counts ``sass`` of its blocks
+    (CM_BLOCKS), at the SM clock read while it runs."""
     runs = (n["pixels"], n["chunks"], n["slots"] - n["culled"],
             n["angular"], n["inside"])
     mhz = sm_clock_under(torch, k_fn, 300)
@@ -1044,7 +1090,7 @@ def cellmajor_issue_bound(torch, mode, dname, n, sass, k_fn, ms_k):
     mufu = sum(r * m for r, (_, _, m) in zip(runs, sass))
     issue_ms = issue / (N_SM * LANES_PER_SM * mhz * 1e6) * 1e3
     mufu_ms = mufu / (N_SM * MUFU_LANES_PER_SM * mhz * 1e6) * 1e3
-    log(f"kernels: cellmajor_pass {mode} {dname}: lane runs of the "
+    log(f"{label}: {name} {mode} {dname}: lane runs of the "
         f"kernel's blocks (pixel set-up, chunk step, walked slot, past the "
         f"angular test, inside) "
         + ", ".join(f"{r:.4e}" for r in runs) + " at "
@@ -2956,13 +3002,16 @@ GRAD_FD_STEPS = (1e-2, 3e-3, 1e-3)
 # rows with atomics in no fixed order, as the plain version sums them in
 # another
 ADJ_BAR = {"float64": 1e-10, "float32": 1e-4}
-# operations of a slot inside its disc in the adjoint and second-order
-# entries (csrc/cellmajor_pass.cu adjoint_slot), each dual-number
-# operation counted by its float operations (a Dual<T> product 3, a
-# quotient 4, a square root 3; Dual<Dual<T>> about three times Dual<T>),
-# with the row lerp, the cotangent sums, the two lerp weights and the two
-# atomic adds (one operation each); the tests before it are the forward's
-CM_ADJ_FLOPS = {"offsets": 115, "paint": 18}
+# operations of a slot inside its disc in the adjoint (counted as
+# CM_READ_FLOPS is: a sqrt, exp or division one) from
+# csrc/cellmajor_pass.cu adjoint_slot: the row lerp (4), the offsets
+# derivative in closed form (offsets_vjp, 48) or exp and the cotangent's
+# product (paint, 2), the two lerp weights and the two adds; and in the
+# second-order entry, which carries Dual<Dual<T>> through the forward's
+# arithmetic, each dual operation by its float operations (a Dual<T>
+# product 3, a quotient 4, a square root 3; Dual<Dual<T>> about three
+# times Dual<T>) with the lerp of u. The tests before it are the forward's
+CM_ADJ_FLOPS = {"offsets": 56, "paint": 10}
 CM_ADJ2_FLOPS = {"offsets": 330, "paint": 24}
 ADJOINT = ("cellmajor_vjp", "cellmajor_vjp2")
 # no TPU kernel: the JAX package differentiates cellmajor_offsets_pass
@@ -3097,23 +3146,61 @@ def rel_err(got, want):
         max(scale, 1e-300), scale
 
 
+def adjoint_inputs(torch, c, seed=0):
+    """Seeded random cotangent planes (offsets mode) and row direction u
+    for the adjoint entries on the bucket inputs ``c``."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    rows = c["rows"]
+    rnd = lambda shape: torch.randn(shape, generator=gen,
+                                    dtype=torch.float64).to(rows)
+    g = tuple(rnd(c["pix"][0].shape) for _ in range(3))
+    return g, rnd(rows.shape)
+
+
+def queued_ms(torch, fn, n_iter):
+    """Mean milliseconds of fn() over n_iter launches by CUDA events, the
+    launches queued behind a wait on the card (torch.cuda._sleep), so that
+    the host's time between them does not count: the device's time, also
+    where a launch takes less than its host call."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)       # ~20 ms at the card's clock
+    start.record()
+    for _ in range(n_iter):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n_iter
+
+
+def adjoint_tally(torch, cmc, c):
+    """The adjoint kernel's own counts (cmc.TALLY: the slot-pixels that
+    add to the rows, the global atomics made) of one offsets launch on
+    the bucket inputs ``c``, or None for a package whose kernel does not
+    count."""
+    if not hasattr(cmc, "TALLY"):
+        return None
+    g, _ = adjoint_inputs(torch, c)
+    tally = torch.zeros(len(cmc.TALLY), dtype=torch.int64,
+                        device=c["rows"].device)
+    cmc._launch_adjoint("cellmajor_vjp", "offsets", g, None, *pass_args(c),
+                        tally=tally)
+    return dict(zip(cmc.TALLY, (int(v) for v in tally.cpu())))
+
+
 def check_adjoint(torch, cmc, c, dname, entry, label="grad", seed=0):
     """Kernel ``entry`` (cellmajor_vjp or cellmajor_vjp2) against its
     plain version on the bucket inputs ``c`` (offsets mode) with seeded
     random cotangents (and row direction), every output to ADJ_BAR of
     its largest plain value and finite. Returns (max absolute error,
-    kernel ms, plain ms)."""
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    rows, pix = c["rows"], c["pix"]
-    rnd = lambda shape: torch.randn(shape, generator=gen,
-                                    dtype=torch.float64).to(rows)
-    g = tuple(rnd(pix[0].shape) for _ in range(3))
+    kernel ms on the device (queued_ms), plain ms)."""
+    g, u = adjoint_inputs(torch, c, seed)
     args = pass_args(c)
     if entry == "cellmajor_vjp":
         k_fn = lambda: cmc.cellmajor_vjp("offsets", g, *args)
         p_fn = lambda: cmc.cellmajor_vjp_reference("offsets", g, *args)
     else:
-        u = rnd(rows.shape)
         k_fn = lambda: cmc.cellmajor_vjp2("offsets", g, u, *args)
         p_fn = lambda: cmc.cellmajor_vjp2_reference("offsets", g, u, *args)
     got = k_fn()
@@ -3128,7 +3215,7 @@ def check_adjoint(torch, cmc, c, dname, entry, label="grad", seed=0):
         f"{ADJ_BAR[dname]:g})")
     check(finite and err <= ADJ_BAR[dname],
           f"{entry} {dname} disagrees with its plain version: {err:.3e}")
-    ms_k = cuda_ms(torch, k_fn, 5)
+    ms_k = queued_ms(torch, k_fn, 5)
     return err * scale, ms_k, ms_p
 
 
@@ -3153,7 +3240,7 @@ def adjoint_bound(c, census, dname, flops_inside):
             else (t_bytes, "bytes")), flops, n_bytes
 
 
-def grad_path(T, torch, cmc, device, n_halo, nside):
+def grad_path(T, torch, cmc, device, n_halo, nside, issue_bound=False):
     """bench.py's shell (NSIDE 1024, 1e6 halos, seed 7, eps_max 20) and
     BENCH_GRID table: chi^2 = sum (map(ln M_c) - map(ln M_c,true))^2
     through build_table_device -> process_device, with example 14's truth
@@ -3164,7 +3251,11 @@ def grad_path(T, torch, cmc, device, n_halo, nside):
     process_device == process() bit for bit in both precisions; the
     adjoint kernel against its plain version at the largest bucket, and
     the second-order kernel on 2^20 pixels of the smallest, in both
-    precisions. Returns the kernels-line record of cellmajor_vjp."""
+    precisions. At the largest bucket also the adjoint's census and its
+    own counts of the slot-pixels that add and of its global atomics
+    (adjoint_tally), the forward kernel's time on the same inputs, and
+    with ``issue_bound`` its issue bound from the SASS of this build
+    (adjoint_sass). Returns the kernels-line record of cellmajor_vjp."""
     from baryonification_tpu_torch.runners import shell_cellmajor as tcm
     cosmo = T.Cosmology.from_dict(COSMO, device=device)
     model = model_for(T, device, BENCH_GRID)
@@ -3268,6 +3359,7 @@ def grad_path(T, torch, cmc, device, n_halo, nside):
     rec = dict(name="cellmajor_vjp", route="cuda",
                source="baryonification_tpu_torch/csrc/cellmajor_pass.cu",
                replaces=ADJ_REPLACES, library_ms=None)
+    sass = adjoint_sass() if issue_bound else None
     for p in ("float32", "float64"):
         with torch.no_grad():
             table = tab(torch.tensor(LN_MC_START, **f64))
@@ -3278,7 +3370,7 @@ def grad_path(T, torch, cmc, device, n_halo, nside):
                                        for s in size]))]
         err, ms_k, ms_p = check_adjoint(torch, cmc, big, p, "cellmajor_vjp")
         planes = tuple(torch.zeros_like(big["pix"][0]) for _ in range(3))
-        ms_f = cuda_ms(torch, lambda: cmc.cellmajor_pass(
+        ms_f = queued_ms(torch, lambda: cmc.cellmajor_pass(
             "offsets", planes, *pass_args(big)), 5)
         census = slot_census(torch, cmc, big, "offsets")
         (bound, by), flops, n_bytes = adjoint_bound(
@@ -3286,11 +3378,32 @@ def grad_path(T, torch, cmc, device, n_halo, nside):
         log(f"grad: cellmajor_vjp offsets {p} at the largest bucket "
             f"(F={big['F']}, H={big['rows'].shape[0]}, "
             f"n_hi={big['rows'].shape[1]}, {census['slots']:.4e} "
-            f"slot-pixels, {census['inside']:.4e} inside their disc): "
+            f"slot-pixels, {census['angular']:.4e} passing the angular "
+            f"test, {census['inside']:.4e} inside their disc"
+            + (f", {census['culled_patches']} of {census['patches']} "
+               f"patch-slots culled" if census["P"] else "") + "): "
             f"kernel {ms_k:.4f} ms, the forward kernel {ms_f:.4f} ms on the "
             f"same inputs, plain {ms_p:.2f} ms; bound {bound:.4f} ms by {by}"
             f" ({flops:.3e} operations, {n_bytes / 1e6:.1f} MB); kernel at "
             f"{100 * bound / ms_k:.1f}% of the bound")
+        tally = adjoint_tally(torch, cmc, big)
+        if tally is not None:
+            adds = tally["adds"]
+            gap = abs(adds - census["inside"]) / census["inside"]
+            log(f"grad: cellmajor_vjp offsets {p}: the kernel's count of "
+                f"slot-pixels that add {adds} (the census's inside "
+                f"{census['inside']}, {gap:.2e} apart); global atomics a "
+                f"launch: the first design's two a slot-pixel that adds "
+                f"{2 * adds:.4e}, this kernel's {tally['atomics']:.4e} "
+                f"({tally['atomics'] / max(2 * adds, 1):.4f} of those)")
+            check(gap <= 1e-4, f"grad: the adjoint adds {adds} slot-pixels,"
+                  f" the census finds {census['inside']} inside")
+        if sass and census["P"]:
+            g_big = adjoint_inputs(torch, big)[0]
+            cellmajor_issue_bound(
+                torch, "offsets", p, census, sass[p],
+                lambda: cmc.cellmajor_vjp("offsets", g_big, *pass_args(big)),
+                ms_k, name="cellmajor_vjp", label="grad")
         if p == "float32":
             rec.update(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
                        bound_ms=bound, bound_by=by, forward_ms=ms_f)
@@ -5434,7 +5547,7 @@ def build_all(torch, sc, lc, cmc):
         log(f"build: {name}.cu registers (spill bytes): " + ", ".join(
             f"{e} {r} ({sp})" for e, r, sp in rows))
         for e, r, sp in rows:
-            if e.startswith(("scatter_add", "cellmajor")) \
+            if e.startswith(("scatter_add", "cellmajor", "adjoint")) \
                     or e.endswith(("<f,8>", "<d,8>")):
                 check(sp == 0, f"{e} spills {sp} bytes of registers")
 
@@ -5500,8 +5613,9 @@ def main(argv=None):
     if "shell" in phases:
         main_path(T, torch, device, args.halos, args.nside)
     if "grad" in phases:
-        records["cellmajor_vjp"] = grad_path(T, torch, cmc, device,
-                                             args.halos, args.nside)
+        records["cellmajor_vjp"] = grad_path(
+            T, torch, cmc, device, args.halos, args.nside,
+            issue_bound=args.root.resolve() == ROOT)
     if "fit" in phases:
         records["cellmajor_vjp2"] = fit_path(T, torch, cmc, device)
     for cell in ("grid", "grid2d"):

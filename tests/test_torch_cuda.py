@@ -13,7 +13,9 @@ hold the kernel against its plain version, with discs whose edges graze
 pixel centres and patch caps, and show that its patch cull skips only
 what adds nothing (bit for bit the result without the cull); its
 adjoint and second-order kernels against their plain versions (autograd
-of the plain pass) on the same cases, and both shell runners'
+of the plain pass) on the same cases and three more (a halo centred in a
+patch, rows of 2000 nodes, one bucket cut to F = 32 and to F = 16), and
+both shell runners'
 ``process_device`` against ``process()`` bit for bit, with gradients
 against the CPU. The
 Legendre cases hold each SHT kernel against its plain version on the
@@ -316,7 +318,7 @@ def test_cellmajor_process_on_card(cuda_device):
 CELLMAJOR_CASES = ["empty_cells", "f4", "f_big", "k_hundreds"]
 
 
-def cellmajor_case(name, mode):
+def cellmajor_case(name, mode, n_r=40, centred=False, n_hi=None):
     """One bucket on the CPU in float64, built by the port's own
     registration: (planes' base values, pixel planes, dense, counts, F,
     slot records, rows, g0, dg, rad_hi). Every case holds one halo above
@@ -326,7 +328,10 @@ def cellmajor_case(name, mode):
     empty_cells: 6 halos at NSIDE 32, cells of nside_c 8 (F = 16), most
     cells without a candidate; f4: F = 4; f_big: F = 1024, more than a
     block of threads; k_hundreds: 400 halos in one patch of sky, hundreds
-    of candidates a cell (F = 64)."""
+    of candidates a cell (F = 64). ``n_r`` radial nodes in the table;
+    ``centred`` puts halo 1 at the centre of a patch of 32 pixels, its
+    disc over the whole patch (see adjoint_case); ``n_hi`` the rows' nodes
+    in place of the runners' bound."""
     from baryonification_tpu_torch.runners import shell_cellmajor as tcm
     from baryonification_tpu_torch.runners.shell import DefaultRunner
     nside, nsc, n_halo = {"empty_cells": (32, 8, 6), "f4": (16, 8, 40),
@@ -343,9 +348,27 @@ def cellmajor_case(name, mode):
     radius = rng.uniform(0.03, 0.15, n_halo)
     a = rng.uniform(0.7, 0.9, n_halo)
     D = rng.uniform(500.0, 1500.0, n_halo)
+    rt = hpx.RingTables(nside, dtype=torch.float64, device="cpu")
+    pix = hpx.pixel_planes_device(nside, rt.z, rt.start, rt.npr, rt.shift,
+                                  p=hpx.nest2ring_all(nside, "cpu"))
+    if centred:
+        # the patch (32 NESTED pixels) nearest to the middle of the sky
+        # patch, its centre taken as the kernel takes a patch's cap
+        v = torch.stack(pix, 1)
+        mid = torch.tensor([np.sin(1.15) * np.cos(1.05),
+                            np.sin(1.15) * np.sin(1.05), np.cos(1.15)],
+                           dtype=torch.float64)
+        q = int(torch.argmax(v @ mid)) // 32
+        cen = v[32 * q:32 * q + 32].sum(0)
+        cen = (cen / cen.norm()).numpy()
+        theta[1] = np.arccos(cen[2])
+        phi[1] = np.arctan2(cen[1], cen[0])
+        radius[1], a[1], D[1] = 0.13, 0.75, 300.0
     R_com = radius * D / (eps * a)
     M = 10 ** rng.uniform(13.2, 14.8, n_halo)
     M[0] = 1e16                              # outside the mass grid
+    if centred:
+        M[1] = 10 ** 14.0
     t = lambda v: torch.tensor(v, dtype=torch.float64)
     st = np.sin(theta)
     packed = tcm.pack_halo_records(
@@ -358,7 +381,7 @@ def cellmajor_case(name, mode):
                                               cell_start)
     gz = np.log1p(np.linspace(0.1, 0.5, 3))
     gm = np.log(np.geomspace(1e13, 1e15, 4))
-    gr = np.linspace(np.log(1e-3), np.log(50.0), 40)
+    gr = np.linspace(np.log(1e-3), np.log(50.0), n_r)
     r = np.exp(gr)[None, None, :]
     if mode == "paint":
         table = 0.5 * (gm[None, :, None] - 30) - 2 * np.log1p(r / 0.3) \
@@ -375,11 +398,8 @@ def cellmajor_case(name, mode):
     table = np.where(np.isfinite(table), table, fill)
     rad_max = np.log(eps) if mode == "offsets_rdelta" \
         else np.log(eps * R_com.max())
-    n_hi = DefaultRunner._node_bound(gr, rad_max, len(gr))
+    n_hi = n_hi or DefaultRunner._node_bound(gr, rad_max, len(gr))
     rows = tcm.halo_rows((t(gz), t(gm), t(gr)), t(table), packed, n_hi)
-    rt = hpx.RingTables(nside, dtype=torch.float64, device="cpu")
-    pix = hpx.pixel_planes_device(nside, rt.z, rt.start, rt.npr, rt.shift,
-                                  p=hpx.nest2ring_all(nside, "cpu"))
     base = [t(rng.normal(size=hpx.npix(nside)))
             for _ in range(1 if mode == "paint" else 3)]
     return (base, pix, dense, counts, (nside // nsc) ** 2,
@@ -451,10 +471,94 @@ def test_cellmajor_refuses_bad_inputs(cuda_device):
         cmc.cellmajor_pass("paint", (big[::2],), pix_d, *tail)
 
 
+# the cell-major cases and three more for the adjoint kernels
+ADJOINT_CASES = CELLMAJOR_CASES + ["centred_span", "long_rows",
+                                   "f32_next_to_f16"]
+
+
+def split_cells(case, m):
+    """The bucket ``case`` with every cell cut into ``m`` cells of F / m
+    pixels, each holding its cell's candidates: the same slots of every
+    pixel, so the same sums, walked with a smaller F."""
+    (base, pix, dense, counts, F, recs, rows, g0, dg, rad_hi) = case
+    ncell = counts.shape[0]
+    dense = dense.reshape(ncell, -1).repeat_interleave(m, 0).reshape(-1)
+    return (base, pix, dense.contiguous(), counts.repeat_interleave(m),
+            F // m, recs, rows, g0, dg, rad_hi)
+
+
+def patch_spans(case, mode, h):
+    """[(lowest node i, highest node i)] of the lanes that halo ``h`` adds
+    to, for each patch of 32 pixels of the cells listing it: the plain
+    pass's tests and lerp position (its rows' NaN aside)."""
+    (_, pix, dense, counts, F, recs, rows, g0, dg, rad_hi) = case
+    n_hi = rows.shape[1]
+    px, py, pz = pix
+    hvx, hvy, hvz, cosr, hD, ha, hReps, hlnR = recs[h]
+    dx, dy, dz = (px - hvx) * hD, (py - hvy) * hD, (pz - hvz) * hD
+    r_com = torch.sqrt(dx * dx + dy * dy + dz * dz) / ha
+    rad = torch.log(torch.clamp(r_com, min=1e-30))
+    if mode == "offsets_rdelta":
+        rad = rad - hlnR
+    inside = ((rad >= g0) & (rad <= rad_hi) & (r_com < hReps)
+              & (px * hvx + py * hvy + pz * hvz >= cosr))
+    t = torch.clamp((rad - g0) * (1.0 / dg), 0.0, float(n_hi - 1))
+    i = torch.clamp(torch.floor(t).long(), 0, n_hi - 2)
+    ncell = counts.shape[0]
+    d2 = dense.reshape(ncell, -1)
+    lists = (d2 == h) & (torch.arange(d2.shape[1]) < counts[:, None])
+    out = []
+    for c in torch.nonzero(lists.any(1)).flatten().tolist():
+        for q in range(c * F, (c + 1) * F, 32):
+            m = inside[q:q + 32]
+            if m.any():
+                out.append((int(i[q:q + 32][m].min()),
+                            int(i[q:q + 32][m].max())))
+    return out
+
+
+def adjoint_case(name, mode):
+    """[bucket] for the adjoint kernels: a cell-major case, or
+    centred_span: k_hundreds (F = 64) with 300 radial nodes and halo 1 at
+      the centre of a patch, its disc over the whole patch, so that the
+      lanes of that patch add to 8 or more nodes of its row (more than
+      32), the rows cut to end there (the patch's farthest lane at node
+      n_hi - 2);
+    long_rows: k_hundreds with rows of 2000 radial nodes;
+    f32_next_to_f16: k_hundreds cut to F = 32 (a warp a cell: the patch
+      walk) and to F = 16 (the lane-by-lane walk), on the same slots."""
+    if name in CELLMAJOR_CASES:
+        return [cellmajor_case(name, mode)]
+    if name == "centred_span":
+        case = cellmajor_case("k_hundreds", mode, n_r=300, centred=True)
+        top = max(hi for _, hi in patch_spans(case, mode, 1)) + 2
+        return [cellmajor_case("k_hundreds", mode, n_r=300, centred=True,
+                               n_hi=top)]
+    if name == "long_rows":
+        return [cellmajor_case("k_hundreds", mode, n_r=2000)]
+    case = cellmajor_case("k_hundreds", mode)
+    return [split_cells(case, 2), split_cells(case, 4)]
+
+
+@pytest.mark.parametrize("mode", ["offsets", "offsets_rdelta", "paint"])
+def test_adjoint_cases_hold_their_premise(mode):
+    """The adjoint cases are what their names say (CPU, no card)."""
+    (case,) = adjoint_case("centred_span", mode)
+    n_hi = case[6].shape[1]
+    spans = patch_spans(case, mode, 1)
+    assert max(hi - lo for lo, hi in spans) + 2 > 32
+    assert any(hi - lo >= 8 and hi == n_hi - 2 for lo, hi in spans)
+    (case,) = adjoint_case("long_rows", mode)
+    assert case[4] % 32 == 0 and case[6].shape[1] > 1500
+    f32, f16 = adjoint_case("f32_next_to_f16", mode)
+    assert (f32[4], f16[4]) == (32, 16)
+    assert f32[3].shape[0] * 32 == f16[3].shape[0] * 16 == f32[1][0].shape[0]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("mode", ["offsets", "offsets_rdelta", "paint"])
-@pytest.mark.parametrize("name", CELLMAJOR_CASES)
+@pytest.mark.parametrize("name", ADJOINT_CASES)
 def test_cellmajor_adjoint_matches_plain(name, mode, dtype, cuda_device):
     """The adjoint and second-order kernels against their plain versions
     (the autograd of the plain pass and its double backward) on the same
@@ -462,35 +566,54 @@ def test_cellmajor_adjoint_matches_plain(name, mode, dtype, cuda_device):
     gradients are summed with atomics in no fixed order, so they hold to
     1e-10 (float64) and 1e-5 (float32) of their largest value, the JVP
     planes (one thread a pixel) alike; the NaN row of the halo outside
-    the grid and the cells without candidates add nothing (no NaN)."""
-    (_, pix, dense, counts, F, recs, rows, g0, dg,
-     rad_hi) = cellmajor_case(name, mode)
-    assert torch.isnan(rows[0]).all()
-    on = lambda v: v.to(cuda_device, dtype if v.is_floating_point()
-                        else v.dtype)
-    args = (tuple(on(p) for p in pix), on(dense), on(counts), F, on(recs),
-            on(rows), g0, dg, rad_hi)
-    rng = np.random.default_rng(len(name) + len(mode))
-    n_out = 1 if mode == "paint" else 3
-    g = tuple(on(torch.tensor(rng.normal(size=pix[0].shape[0])))
-              for _ in range(n_out))
-    u = on(torch.tensor(rng.normal(size=tuple(rows.shape))))
-    before = dict(cmc.LAUNCHES)
-    d = cmc.cellmajor_vjp(mode, g, *args)
-    jvp, d2 = cmc.cellmajor_vjp2(mode, g, u, *args)
-    d_want = cmc.cellmajor_vjp_reference(mode, g, *args)
-    jvp_want, d2_want = cmc.cellmajor_vjp2_reference(mode, g, u, *args)
-    torch.cuda.synchronize()
-    assert cmc.LAUNCHES["cellmajor_vjp"] == before["cellmajor_vjp"] + 1
-    assert cmc.LAUNCHES["cellmajor_vjp2"] == before["cellmajor_vjp2"] + 1
-    bar = 1e-10 if dtype == torch.float64 else 1e-5
-    for got, want in ((d, d_want), (d2, d2_want)) + tuple(zip(jvp,
-                                                              jvp_want)):
-        assert bool(torch.isfinite(got).all())
-        scale = float(want.abs().max())
-        assert scale > 0
-        assert float((got - want).abs().max()) <= bar * scale
-    assert float(d[0].abs().max()) == 0.0       # the halo outside the grid
+    the grid and the cells without candidates add nothing (no NaN). The
+    kernel's tally: two global atomics a slot-pixel that adds, or fewer
+    where float32 lanes of a patch merge their terms first. F = 32 and
+    F = 16 cuts of one bucket (the patch walk and the lane-by-lane walk)
+    add the same slots and give the same gradients."""
+    results = []
+    for case in adjoint_case(name, mode):
+        (_, pix, dense, counts, F, recs, rows, g0, dg, rad_hi) = case
+        assert torch.isnan(rows[0]).all()
+        on = lambda v: v.to(cuda_device, dtype if v.is_floating_point()
+                            else v.dtype)
+        args = (tuple(on(p) for p in pix), on(dense), on(counts), F,
+                on(recs), on(rows), g0, dg, rad_hi)
+        rng = np.random.default_rng(len(name) + len(mode))
+        n_out = 1 if mode == "paint" else 3
+        g = tuple(on(torch.tensor(rng.normal(size=pix[0].shape[0])))
+                  for _ in range(n_out))
+        u = on(torch.tensor(rng.normal(size=tuple(rows.shape))))
+        before = dict(cmc.LAUNCHES)
+        d = cmc.cellmajor_vjp(mode, g, *args)
+        jvp, d2 = cmc.cellmajor_vjp2(mode, g, u, *args)
+        d_want = cmc.cellmajor_vjp_reference(mode, g, *args)
+        jvp_want, d2_want = cmc.cellmajor_vjp2_reference(mode, g, u, *args)
+        tally = torch.zeros(len(cmc.TALLY), dtype=torch.int64,
+                            device=cuda_device)
+        cmc._launch_adjoint("cellmajor_vjp", mode, g, None, *args,
+                            tally=tally)
+        torch.cuda.synchronize()
+        assert cmc.LAUNCHES["cellmajor_vjp"] == before["cellmajor_vjp"] + 2
+        assert cmc.LAUNCHES["cellmajor_vjp2"] == before["cellmajor_vjp2"] + 1
+        bar = 1e-10 if dtype == torch.float64 else 1e-5
+        for got, want in ((d, d_want), (d2, d2_want)) + tuple(zip(jvp,
+                                                                  jvp_want)):
+            assert bool(torch.isfinite(got).all())
+            scale = float(want.abs().max())
+            assert scale > 0
+            assert float((got - want).abs().max()) <= bar * scale
+        assert float(d[0].abs().max()) == 0.0   # the halo outside the grid
+        assert float(d2[0].abs().max()) == 0.0
+        n = dict(zip(cmc.TALLY, tally.tolist()))
+        assert n["adds"] > 0 and 0 < n["atomics"] <= 2 * n["adds"]
+        if dtype == torch.float64 or F % 32:
+            assert n["atomics"] == 2 * n["adds"]
+        results.append((d, n["adds"]))
+    if len(results) == 2:
+        (d32, n32), (d16, n16) = results
+        assert n32 == n16
+        assert float((d32 - d16).abs().max()) <= bar * float(d16.abs().max())
 
 
 @pytest.mark.cuda
