@@ -1,10 +1,10 @@
 """Tensor operations: FFTLog, interpolation, HEALPix geometry, the
 spectra (power spectra and SHT), the CIC and HEALPix redeposits, and the
 hand-written kernels (scatter-add, Legendre recurrences, the cell-major
-shell pass)."""
+shell and grid passes)."""
 
-from . import (cellmajor_cuda, fftlog, healpix, interp, legendre_cuda,
-               scatter, scatter_cuda, spectra)
+from . import (cellmajor_cuda, fftlog, grid_pass_cuda, healpix, interp,
+               legendre_cuda, scatter, scatter_cuda, spectra)
 
-__all__ = ["cellmajor_cuda", "fftlog", "healpix", "interp", "legendre_cuda",
-           "scatter", "scatter_cuda", "spectra"]
+__all__ = ["cellmajor_cuda", "fftlog", "grid_pass_cuda", "healpix", "interp",
+           "legendre_cuda", "scatter", "scatter_cuda", "spectra"]

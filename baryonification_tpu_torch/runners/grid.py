@@ -9,8 +9,9 @@ half-window, ``half``, and a halo only reaches the cells of the
 
 - ``method="cellmajor"`` (what ``"auto"`` takes on the card): candidate
   lists per Morton block and one dense pass a bucket
-  (``runners/grid_cellmajor.py``; plain PyTorch ops, XLA in the JAX
-  package);
+  (``runners/grid_cellmajor.py``; on the card one launch of the
+  hand-written kernel ``grid_pass`` a bucket, on the CPU plain PyTorch
+  ops; XLA in the JAX package);
 - ``method="scatter"`` (the reference semantics, ``"auto"`` on the CPU):
   per-halo windowed cutouts, chunks of halos, one scatter-add of the
   offsets (or painted values) a chunk (``ops.scatter_cuda``, the
@@ -26,8 +27,10 @@ ellipticity (a galsim-style shear of the radius grid, :func:`build_Rmat`);
 ``process_device(table=None)`` of both runners is the differentiable
 core, both methods, 2D and 3D: the map as a device tensor in the hot
 dtype, with gradients into the table. The cell-major passes go through
-``grid_cellmajor.grid_pass_diff`` (the plain-op pass under no_grad, its
-backward recomputed a step at a time, so memory stays that of one step);
+``grid_cellmajor.grid_pass_diff`` (on the card the ``grid_pass`` kernel,
+its backward the ``grid_vjp`` kernel; on the CPU the plain-op pass under
+no_grad, its backward recomputed a step at a time, so memory stays that
+of one step);
 the windowed scatters and the CIC redeposit through the scatter-add's
 autograd (``ops.scatter_cuda``: the backward is the hand-written
 ``scatter_add_vjp`` kernel on the card). Registration, candidates,
@@ -651,9 +654,10 @@ class BaryonifyGrid(DefaultRunnerGrid):
         gradients flow from any scalar of the map through the CIC
         redeposit (the scatter-add's backward, a kernel on the card, and
         the CIC weights' derivative in the offsets), then through the
-        cell-major passes (a step-wise recomputed adjoint,
-        ``grid_cellmajor.grid_pass_diff``) or the windowed scatters, and
-        the row blend into the table. The geometry (registration,
+        cell-major passes (``grid_cellmajor.grid_pass_diff``: the
+        ``grid_vjp`` kernel on the card, a step-wise recomputed adjoint
+        on the CPU) or the windowed scatters, and the row blend into the
+        table. The geometry (registration,
         candidates, packed records, CIC coordinate planes) depends only on
         halo positions and the epsilon_max * R reach: it is staged once in
         the runner's caches and held constant, so a fit registers only on

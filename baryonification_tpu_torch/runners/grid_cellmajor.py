@@ -14,16 +14,22 @@ candidates. Each voxel is written once a bucket; there is no scatter.
 The passes keep the JAX package's semantics, including the reference's
 per-bucket cutout: a halo only reaches voxels whose index lies, on every
 axis, in the window [cen - half, cen + half) around its nearest bin
-(periodic). In the JAX package they are XLA; here they are plain PyTorch
-ops, with what the TPU needed left out: the redshift axis is blended once
-a pass (:func:`blend_table_z`), each halo's radial row once a bucket
+(periodic). In the JAX package they are XLA; here, with what the TPU
+needed left out, the redshift axis is blended once a pass
+(:func:`blend_table_z`), each halo's radial row once a bucket
 (:func:`halo_rows`; no one-hot matmuls), and the readout is a direct lerp
-of two nodes. The candidate loop takes a group of candidate slots of a
-chunk of blocks at once, as one (blocks, slots, voxels) tensor of at most
-``PASS_BUDGET`` elements, so a chunk costs a few dozen launches, not a few
-dozen a candidate. The anisotropic paint (:func:`grid_anis_paint_pass_2d`)
-steps through the same loop with a window of each halo's own, a readout
-at the log of an existing map's value, and that map as a second input.
+of two nodes. On the card the displacement and paint passes
+(:func:`grid_pass_diff`, 2D and 3D) are one launch a bucket of the
+hand-written kernel ``grid_pass`` and their first-order adjoint one of
+``grid_vjp`` (``ops/grid_pass_cuda.py``, ``csrc/grid_pass.cu``). Their
+plain version, which CPU tensors take, is a candidate loop in plain
+PyTorch ops that takes a group of candidate slots of a chunk of blocks at
+once, as one (blocks, slots, voxels) tensor of at most ``PASS_BUDGET``
+elements, so a chunk costs a few dozen launches, not a few dozen a
+candidate. The anisotropic paint (:func:`grid_anis_paint_pass_2d`) and
+the snapshot pass step through that loop on the card too, the paint with
+a window of each halo's own, a readout at the log of an existing map's
+value, and that map as a second input.
 
 The packed records carry the nearest-bin indices as floats (exact for
 N <= 2^24 in float32) and, in place of each halo's position, its offset
@@ -39,9 +45,12 @@ paint measures from the centre of the nearest bin, as the reference's
 cutout does, so its offsets are exact integers times res.
 """
 
+import warnings
+
 import numpy as np
 import torch
 
+from ..ops import grid_pass_cuda
 from ..ops.interp import blend_rows
 from ..ops.scatter_cuda import scatter_add_vjp
 
@@ -374,6 +383,9 @@ class _GridBucket:
     (which depend on the rows). ``mode`` is 'offsets', 'offsets_rdelta'
     or 'paint'."""
 
+    #: whether its pass on the card is the grid_pass / grid_vjp kernels
+    kernel = True
+
     def __init__(self, mode, dim, B, n_hi, N, half, dense, counts,
                  counts_host, packed, g0, dg, rad_hi, eps_max, res,
                  block0=0):
@@ -386,9 +398,11 @@ class _GridBucket:
         # on the mesh path; possibly none)
         self.ncell, self.block0 = counts.shape[0], block0
         self.K = dense.shape[0] // max(self.ncell, 1)
-        self.dense2 = dense.reshape(self.ncell, self.K).to(torch.int64)
-        self.counts = counts.to(torch.int64)
+        self.dense2 = dense.reshape(self.ncell, self.K).to(
+            torch.int64).contiguous()
+        self.counts = counts.to(torch.int64).contiguous()
         self.counts_host = counts_host
+        self.mode = mode
         self.paint = mode == "paint"
         self.rdelta = mode == "offsets_rdelta"
         self.g0, self.dg, self.rad_hi, self.res = g0, dg, rad_hi, res
@@ -404,6 +418,16 @@ class _GridBucket:
         self.hrec = torch.stack(hcols, dim=-1)
         self.lo = packed[:, list(cols['cen'])].to(torch.int64) - half
         self.o = torch.arange(B, device=dev)
+
+    def kernel_args(self, rows):
+        """The leading arguments of ``ops.grid_pass_cuda.grid_pass`` and
+        ``grid_vjp`` for this bucket and ``rows``."""
+        return (self.mode, self.dim, self.B, self.N, self.half, self.block0,
+                self.hrec, self.lo, self.dense2, self.counts, rows)
+
+    def kernel_scalars(self):
+        """The trailing (g0, dg, rad_hi, res) of those entries."""
+        return self.g0, self.dg, self.rad_hi, self.res
 
     def ax(self, v, d):
         """(C, G, B) per-axis values (B = 1: per slot) -> broadcastable
@@ -577,47 +601,98 @@ def _bucket_vjp(bk, rows, cts, extra=(), needs=None):
     return grads
 
 
+def _on_kernel(bk, rows):
+    """True where bucket ``bk``'s pass runs the ``grid_pass`` kernel: a
+    bucket whose class sets ``kernel`` (:class:`_GridBucket`), on CUDA
+    tensors. Its CPU tensors take the plain step loop; any other device
+    raises."""
+    if not getattr(bk, "kernel", False) or rows.device.type == "cpu":
+        return False
+    if rows.device.type != "cuda":
+        raise ValueError(f"the grid pass runs on cpu or cuda, not on "
+                         f"{rows.device}")
+    return True
+
+
+def _kernel_pass(bk, rows, census=None):
+    """The ``grid_pass`` kernel on bucket ``bk``: its new planes. A
+    ``census`` gets the kernel's own counts of voxel-slots listed and
+    inside, and one step a launch (it synchronises once)."""
+    tally = (None if census is None else
+             torch.zeros(len(grid_pass_cuda.TALLY), dtype=torch.int64,
+                         device=rows.device))
+    out = grid_pass_cuda.grid_pass(*bk.kernel_args(rows.detach()),
+                                   *bk.kernel_scalars(), tally=tally)
+    if census is not None:
+        counts = dict(zip(grid_pass_cuda.TALLY, tally.tolist()))
+        census['slots'] += counts['slots']
+        census['inside'] += counts['inside']
+        census['steps'] += 1
+    return out
+
+
 class _PassFn(torch.autograd.Function):
     """New planes = the pass of bucket ``bk`` of ``rows`` (and its
-    ``extra`` inputs); differentiable in each, to any order. The forward
-    runs the plain-op pass under no_grad; the backward recomputes it step
-    by step (:func:`_bucket_vjp`), so memory stays that of one step's
-    graph."""
+    ``extra`` inputs); differentiable in each, to any order. On the card a
+    :class:`_GridBucket`'s forward is the ``grid_pass`` kernel and its
+    backward the ``grid_vjp`` kernel. Under ``create_graph`` (a backward
+    that is to be differentiated again, as Hessians are) its backward is
+    the plain step loop :func:`_bucket_vjp` on the card too, with a
+    warning, until a second-order kernel exists. Elsewhere the forward runs the plain-op
+    pass under no_grad and the backward recomputes it step by step
+    (:func:`_bucket_vjp`), so memory stays that of one step's graph."""
 
     @staticmethod
     def forward(ctx, bk, rows, *extra):
         ctx.bk = bk
         ctx.save_for_backward(rows, *extra)
+        if _on_kernel(bk, rows):
+            return _kernel_pass(bk, rows)
         return _bucket_pass(bk, rows, _zero_planes(bk, rows), extra=extra)
 
     @staticmethod
     def backward(ctx, *cts):
         rows, *extra = ctx.saved_tensors
-        return (None, *_bucket_vjp(ctx.bk, rows, cts, extra,
+        bk = ctx.bk
+        if _on_kernel(bk, rows):
+            if not torch.is_grad_enabled():
+                return None, grid_pass_cuda.grid_vjp(
+                    *bk.kernel_args(rows), cts, *bk.kernel_scalars())
+            warnings.warn("a grid pass's backward under create_graph runs "
+                          "the plain step loop on the card (no second-order "
+                          "grid kernel yet)")
+        return (None, *_bucket_vjp(bk, rows, cts, extra,
                                    ctx.needs_input_grad[1:]))
 
 
 def _pass_diff(bk, rows, census=None, extra=()):
     """The pass of bucket ``bk`` as a differentiable function of ``rows``
     (and of ``extra``): new planes with the values of :func:`_bucket_pass`
-    on zero planes, bit for bit. Where an input requires grad, the
-    :class:`_PassFn`; otherwise the plain pass (a ``census`` is only
+    on zero planes (bit for bit on the CPU; on the card a
+    :class:`_GridBucket` runs the ``grid_pass`` kernel, which sums each
+    voxel's slots in another order). Where an input requires grad, the
+    :class:`_PassFn`; otherwise the pass alone (a ``census`` is only
     filled then)."""
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (rows,) + tuple(extra)):
         return _PassFn.apply(bk, rows, *extra)
+    if _on_kernel(bk, rows):
+        return _kernel_pass(bk, rows, census)
     return _bucket_pass(bk, rows, _zero_planes(bk, rows), census, extra)
 
 
 def grid_pass_diff(mode, dim, B, n_hi, N, half, dense, counts, counts_host,
-                   packed, rows, g0, dg, rad_hi, eps_max, res, census=None):
+                   packed, rows, g0, dg, rad_hi, eps_max, res, census=None,
+                   block0=0):
     """One bucket of ``mode`` ('offsets', 'offsets_rdelta' or 'paint')
     over every voxel (3D) or pixel (2D) in block-major order, as a
     differentiable function of ``rows``: returns new block-major planes
     (``dim`` offset planes in pixel units, or one paint plane, of N^dim
-    each). Where ``rows`` requires grad the backward recomputes the pass
-    a step at a time (the geometry is constant); otherwise this is the
-    plain pass.
+    each). On CUDA tensors the pass is the ``grid_pass`` kernel and its
+    backward the ``grid_vjp`` kernel, one launch a bucket each (under
+    ``create_graph`` the backward is the plain step loop); on CPU tensors
+    the plain pass, whose backward recomputes it a step at a time (the
+    geometry is constant).
 
     dense, counts : the bucket's (ncell * K,) Morton-block candidates and
                     (ncell,) counts (``counts_host`` a host copy)
@@ -637,11 +712,14 @@ def grid_pass_diff(mode, dim, B, n_hi, N, half, dense, counts, counts_host,
            values)
     half : the bucket's cutout half-window (voxels)
     census : None, or a dict of counts to add to (see :func:`_bucket_pass`;
+             on the card the kernel's own counts and one step a launch;
              only filled without a graph)
+    block0 : the Morton id of the first block (the blocks are block0 ..
+             block0 + ncell - 1)
     """
     return _pass_diff(_GridBucket(mode, dim, B, n_hi, N, half, dense, counts,
                                   counts_host, packed, g0, dg, rad_hi,
-                                  eps_max, res), rows, census)
+                                  eps_max, res, block0), rows, census)
 
 
 class _AnisBucket(_GridBucket):
@@ -654,6 +732,8 @@ class _AnisBucket(_GridBucket):
     remap row at the log of the canvas value at that pixel, and only
     inside the row's canvas range (its last two nodes). ``live_h`` marks
     the halos whose rows exist (masses on the remap's grid)."""
+
+    kernel = False
 
     def __init__(self, B, n_hi, N, dense, counts, counts_host, packed,
                  live_h, q0, dq, eps_max, res, block0=0):

@@ -1362,10 +1362,13 @@ TIMED_RUN = {"scatter_add": "grid BaryonifyGrid (auto = cellmajor)",
              "legendre_synth": "synthesis path",
              "cellmajor_vjp": "grad (value_and_grad, float32)",
              "cellmajor_vjp2": "fit (examples 14, 16, 18)",
-             "scatter_add_vjp": "gradgrid (value_and_grad, float32)"}
+             "scatter_add_vjp": "gradgrid (value_and_grad, float32)",
+             "grid_pass": "grid BaryonifyGrid (auto = cellmajor)",
+             "grid_vjp": "gradgrid (value_and_grad, float32)"}
 COUNTERS = []       # the LAUNCHES dicts of the kernel modules
 SCATTER = []        # the name of the scatter module's forward kernel
 CELLMAJOR = []      # the name of the cell-major module's forward kernel
+GRID = ["grid_pass"]  # the grid pass module's forward kernel
 PATH_LAUNCHES = {}  # path -> launch counts of its run (read_counts)
 
 
@@ -1616,6 +1619,23 @@ GRID_READ_FLOPS = {("offsets", 3): 9 + 1 + 1 + 2 + 3 + 3 + 2 + 6,
                    ("offsets", 2): 6 + 1 + 1 + 2 + 3 + 3 + 4 + 2 + 4,
                    ("paint", 3): 9 + 1 + 1 + 2 + 3 + 3 + 2,
                    ("paint", 2): 6 + 1 + 1 + 2 + 3 + 3 + 2}
+# the adjoint's operations a slot inside beyond the pass's: 1 - w, the two
+# node shares and their two adds (its cotangent dot product and divisions
+# stand where the pass's push does)
+GRID_VJP_FLOPS = 5
+# the grid_pass kernel against the plain step loop on the same bucket,
+# max|err| / max|plain|: each voxel's slots round alike (the geometry bit
+# for bit: the kernel builds without FMA contraction, the loop rounds one
+# operation a launch) and are summed in another
+# order (the loop by steps of slots, the kernel one slot at a time), over
+# at most K = 93 slots a voxel at grid2d-2048
+GRID_PASS_BAR = {"float64": 1e-12, "float32": 1e-5}
+# grid_vjp against the loop's VJP: both sum a node's shares with atomic
+# adds in no fixed order, over up to ~1e5 voxel-slots a node (the shell
+# adjoint's bars, ADJ_BAR)
+GRID_VJP_BAR = {"float64": 1e-10, "float32": 1e-4}
+GRID_PASS_SOURCE = "baryonification_tpu_torch/csrc/grid_pass.cu"
+GRID_PASS_REPLACES = "baryonification_tpu/runners/grid_cellmajor.py:317"
 _GRID_MODELS = {}
 
 
@@ -1680,14 +1700,24 @@ def census_run(torch, runner):
 
 def grid_census(torch, runner, label, mode, dim, dname):
     """One more warm process() with the pass's census (it synchronises
-    once a step), and one under torch.profiler (no stage syncs) for the
-    device's launches and busy time; logs per bucket the voxel-slots
-    listed and inside, the pass's steps, the operations bound, the
-    device-idle share of the profiled call (its busy time over its own
-    wall time, which holds the profiler's host cost too), and the peak
-    device memory of a warm call. Returns (voxel-slots, inside,
-    operations bound ms)."""
+    once a step; the kernel's own counts, one step a launch), and one
+    under torch.profiler (no stage syncs) for the device's launches and
+    busy time; logs per bucket the voxel-slots listed and inside, the
+    pass's steps, the operations bound, the device-idle share of the
+    profiled call (its busy time over its own wall time, which holds the
+    profiler's host cost too), and the peak device memory of a warm
+    call. Then one more warm process() must launch the grid_pass kernel
+    once a bucket. Returns (voxel-slots,
+    inside, operations bound ms)."""
+    from baryonification_tpu_torch.ops import grid_pass_cuda as gp
     census, peak, n_launch, dev_ms, idle = census_run(torch, runner)
+    n0 = gp.LAUNCHES["grid_pass"]
+    runner.process()
+    n = gp.LAUNCHES["grid_pass"] - n0
+    log(f"grid: {label}: a warm process() launches grid_pass {n} "
+        f"times for its {len(census)} buckets")
+    check(n == len(census), f"{label}: {n} grid_pass launches for "
+          f"{len(census)} buckets")
     slots = sum(c["slots"] for c in census)
     inside = sum(c["inside"] for c in census)
     flops = (slots * GRID_TEST_FLOPS[dim]
@@ -1718,6 +1748,155 @@ def compare_maps(label, a, b, base):
     check(rms < GRID_F32_BAR, f"{label} differ: rms/mean {rms:.3e}")
 
 
+def largest_bucket(calls):
+    """The positional arguments of the grid_pass_diff call (of
+    ``calls``) whose bucket lists the most voxel-slots."""
+    return max(calls, key=lambda a: int(a[7].sum()) * a[2] ** a[1])
+
+
+def grid_kernel_bound(c, mode, dim, dname, vjp):
+    """(ms, 'operations' or 'bytes') of one grid kernel launch on
+    a bucket whose counts are ``c`` (slots, inside, and its sizes): the
+    tests of every listed voxel-slot and the readout of each inside
+    (GRID_TEST_FLOPS, GRID_READ_FLOPS; rdelta one more, the adjoint
+    GRID_VJP_FLOPS more); bytes: each input read once (the candidate ids a
+    slot lists, the counts, the per-halo columns, the rows; the adjoint's
+    cotangent planes), each output written once (the planes; the
+    adjoint's rows)."""
+    t = 8 if dname == "float64" else 4
+    read = (GRID_READ_FLOPS["paint" if mode == "paint" else "offsets", dim]
+            + (mode == "offsets_rdelta") + (GRID_VJP_FLOPS if vjp else 0))
+    flops = c["slots"] * GRID_TEST_FLOPS[dim] + c["inside"] * read
+    planes = c["nvox"] * c["planes"] * t
+    n_bytes = (c["listed"] * 8 + c["ncell"] * 8 + c["H"] * c["hcols"] * t
+               + c["H"] * dim * 8 + c["H"] * c["n_hi"] * t * (1 + vjp)
+               + planes)
+    t_ops = flops / PEAK_FLOPS[dname] * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes
+            else (t_bytes, "bytes"))
+
+
+def check_grid_bucket(torch, label, args, mode, dt, seed=0):
+    """grid_pass and grid_vjp against the plain step loop (_bucket_pass,
+    _bucket_vjp) on one bucket of a run: ``args`` the runner's
+    grid_pass_diff arguments, its geometry read in ``mode`` and its rows
+    and records cast to ``dt``, seeded random cotangents. Both outputs
+    finite and within GRID_PASS_BAR / GRID_VJP_BAR of max|plain|; the
+    kernels' tallies equal to the loop's census. Logs and returns the
+    errors, the kernels' device times (queued_ms), the loop's (CUDA
+    events) and the bounds."""
+    from baryonification_tpu_torch.ops import grid_pass_cuda as gp
+    from baryonification_tpu_torch.runners import grid_cellmajor as tgcm
+    (_, dim, B, n_hi, N, half, dense, counts, counts_host, pk, rows, g0, dg,
+     rad_hi, eps, res) = args
+    dname = str(dt).split(".")[1]
+    bk = tgcm._GridBucket(mode, dim, B, n_hi, N, half, dense, counts,
+                          counts_host, pk.to(dt), g0, dg, rad_hi, eps, res)
+    rows = rows.detach().to(dt).contiguous()
+    head, tail = bk.kernel_args(rows), bk.kernel_scalars()
+    tally = torch.zeros(3, dtype=torch.int64, device=rows.device)
+    got = gp.grid_pass(*head, *tail, tally=tally)
+    census = dict(slots=0, inside=0, steps=0)
+    want = tgcm._bucket_pass(bk, rows, tgcm._zero_planes(bk, rows), census)
+    _, ms_p = timed(torch, lambda: tgcm._bucket_pass(
+        bk, rows, tgcm._zero_planes(bk, rows)))
+    err, scale = rel_err(tuple(got), tuple(want))
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    cts = tuple(torch.randn(g.shape, generator=gen, dtype=torch.float64)
+                .to(g) for g in got)
+    vtally = torch.zeros(3, dtype=torch.int64, device=rows.device)
+    d_k = gp.grid_vjp(*head, cts, *tail, tally=vtally)
+    with torch.no_grad():
+        d_p, ms_vp = timed(torch, lambda: tgcm._bucket_vjp(bk, rows, cts)[0])
+    fin = torch.isfinite(d_p)
+    verr, vscale = rel_err(d_k[fin], d_p[fin])
+    ms_k = queued_ms(torch, lambda: gp.grid_pass(*head, *tail), 5)
+    ms_vk = queued_ms(torch, lambda: gp.grid_vjp(*head, cts, *tail), 5)
+    kt, vt = tally.tolist(), vtally.tolist()
+    c = dict(slots=kt[0], inside=kt[1], nvox=bk.ncell * bk.F,
+             planes=len(got), listed=int(counts.sum()), ncell=bk.ncell,
+             H=rows.shape[0], hcols=bk.hrec.shape[1], n_hi=n_hi)
+    (b_ms, b_by), (vb_ms, vb_by) = (
+        grid_kernel_bound(c, mode, dim, dname, v) for v in (False, True))
+    log(f"{label}: largest bucket (H={rows.shape[0]}, B={B}, F={bk.F}, "
+        f"K={bk.K}, n_hi={n_hi}), {mode} {dname}: census {census['slots']:.4e}"
+        f" voxel-slots, {census['inside']:.4e} inside ({census['steps']} "
+        f"steps); grid_pass tally {kt[0]:.4e} / {kt[1]:.4e}, max|err| / "
+        f"max|plain| {err:.3e} (max|plain| {scale:.3e}, bar "
+        f"{GRID_PASS_BAR[dname]:g}), kernel {ms_k:.4f} ms, plain {ms_p:.2f}"
+        f" ms, bound {b_ms:.4f} ms ({b_by}); grid_vjp tally {vt[0]:.4e} / "
+        f"{vt[1]:.4e}, {vt[2]:.4e} global atomics, max|err| / max|plain| "
+        f"{verr:.3e} (max|plain| {vscale:.3e}, bar {GRID_VJP_BAR[dname]:g};"
+        f" {int((~fin).sum())} non-finite plain nodes), kernel "
+        f"{ms_vk:.4f} ms, plain {ms_vp:.2f} ms, bound {vb_ms:.4f} ms "
+        f"({vb_by})")
+    check(all(bool(torch.isfinite(g).all()) for g in got)
+          and bool(torch.isfinite(d_k).all()),
+          f"{label}: grid kernels {mode} {dname}: non-finite output")
+    check(err <= GRID_PASS_BAR[dname], f"{label}: grid_pass {mode} {dname} "
+          f"disagrees with its plain version: {err:.3e}")
+    check(verr <= GRID_VJP_BAR[dname], f"{label}: grid_vjp {mode} {dname} "
+          f"disagrees with its plain version: {verr:.3e}")
+    check(kt[:2] == [census["slots"], census["inside"]] and vt[:2] == kt[:2],
+          f"{label}: the kernels' tallies {kt}, {vt} are not the census "
+          f"{census}")
+    return dict(pass_=dict(max_abs_err=err * scale, ms=ms_k, plain_ms=ms_p,
+                           bound_ms=b_ms, bound_by=b_by, slots=kt[0],
+                           inside=kt[1]),
+                vjp=dict(max_abs_err=verr * vscale, ms=ms_vk, plain_ms=ms_vp,
+                         bound_ms=vb_ms, bound_by=vb_by, atomics=vt[2]))
+
+
+def grid_kernel_checks(torch, label, calls, real_modes):
+    """check_grid_bucket on the largest bucket of ``calls`` (a run's
+    grid_pass_diff arguments, by mode) in every mode (those of
+    ``real_modes`` on their own run's rows and records, the others on the
+    geometry of the first) and both dtypes. Returns {(mode, dtype name):
+    result}."""
+    out = {}
+    for mode in ("offsets", "offsets_rdelta", "paint"):
+        src = mode if mode in real_modes else real_modes[0]
+        args = largest_bucket(calls[src])
+        for dt in (torch.float32, torch.float64):
+            out[mode, str(dt).split(".")[1]] = check_grid_bucket(
+                torch, f"{label} ({mode} on the {src} run's bucket)", args,
+                mode, dt)
+            torch.cuda.empty_cache()
+    return out
+
+
+def kernel_record(name, source, replaces, res):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                library_ms=None, **{k: res[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+
+
+def device_equals_process(torch, label, runner, paint):
+    """process_device() against process() on the card: the paint bit for
+    bit; BaryonifyGrid's offsets planes (what the passes give the CIC)
+    bit for bit, the map itself to the atomic adds' order (the CIC's
+    scatter sums in no fixed order)."""
+    if paint:
+        got = runner.process_device().to(torch.float64).cpu().numpy()
+        same = np.array_equal(got, runner.process())
+    else:
+        seen = []
+        cic = runner._cic_offsets
+        runner._cic_offsets = lambda gm, off, *a: (
+            seen.append(tuple(o.clone() for o in off)), cic(gm, off, *a))[1]
+        try:
+            runner.process_device()
+            runner.process()
+        finally:
+            del runner._cic_offsets
+        same = all(torch.equal(a, b) for a, b in zip(*seen))
+    log(f"grid: {label}: process_device() against process() on the card: "
+        f"{'the map' if paint else 'the offsets planes'} bit for bit: "
+        f"{same}")
+    check(same, f"{label}: process_device() differs from process()")
+
+
 def grid_path(T, torch, device, cell):
     """One of bench_runners.py's grid runs on the card: BaryonifyGrid cold
     and warm with stages under ``auto`` (the cell-major method: the
@@ -1725,12 +1904,21 @@ def grid_path(T, torch, device, cell):
     cell-major shell kernel never) and with method="scatter" (the kernel
     launched once a chunk and for the CIC), the two maps compared; grid2d also
     paints a TabulatedProfile(Gas) both ways, and once more both ways in
-    float64, against which each float32 paint is held. Returns the launch
-    counts of every cold run, by run."""
+    float64, against which each float32 paint is held. Where the package
+    has the grid pass kernels, the auto runs launch grid_pass and never
+    the plain step loop on a _GridBucket, process_device() equals
+    process() bit for bit (the paint; BaryonifyGrid's offsets), and
+    grid_pass and grid_vjp are held against the step loop on the largest
+    bucket of the run (check_grid_bucket), in every mode and both dtypes.
+    Returns (the launch counts of every cold run, by run; those checks'
+    results by (mode, dtype))."""
+    from baryonification_tpu_torch.ops import cellmajor_cuda as cmc
+    from baryonification_tpu_torch.ops import scatter_cuda as sc
+    from baryonification_tpu_torch.runners import grid_cellmajor as tgcm
     dim, N, L, n_halo = GRID_CELLS[cell]
     model = grid_model(T, torch, device, dim)
     cat, gm = nd_catalog(T, dim, N, L, n_halo)
-    out = {}
+    out, calls = {}, {}
     dname = "float32"
     runs = [("BaryonifyGrid", model, GRID_EPS, "offsets")]
     if dim == 2:
@@ -1746,14 +1934,23 @@ def grid_path(T, torch, device, cell):
         check(runner.method == "cellmajor",
               f"method 'auto' resolved to {runner.method!r} on the card")
         label = f"{cell} {name} (auto = cellmajor)"
-        cm_map, out[label], _ = run_process(
-            torch, runner, label, [] if paint else SCATTER,
-            CELLMAJOR + (SCATTER if paint else []), paint=paint)
+        keep = lambda a: calls.setdefault(a[0], []).append(a)
+        with spied(tgcm, "grid_pass_diff", keep), \
+                plain_on_card(cmc, sc) as plain:
+            cm_map, out[label], _ = run_process(
+                torch, runner, label, GRID + ([] if paint else SCATTER),
+                CELLMAJOR + (SCATTER if paint else []) + ["grid_vjp"],
+                paint=paint)
+        check(not plain, f"{label}: plain versions ran on the card: {plain}")
         if not paint:
             check(out[label]["scatter_add"] == 2 ** dim,
                   f"{label}: the CIC redeposit is one scatter launch a "
                   f"corner ({2 ** dim}), got {out[label]['scatter_add']}")
+            gap = abs(cm_map.sum() - gm.map.sum()) / gm.map.sum()
+            log(f"grid: {label}: mass conserved to {gap:.3e} (bar 1e-8)")
+            check(gap < 1e-8, f"{label}: mass off by {gap:.3e}")
         grid_census(torch, runner, label, mode, dim, dname)
+        device_equals_process(torch, label, runner, paint)
         label_s = f"{cell} {name} (scatter)"
         sc_map, out[label_s], _ = run_process(
             torch, mk(method="scatter"), label_s, SCATTER, CELLMAJOR,
@@ -1765,7 +1962,8 @@ def grid_path(T, torch, device, cell):
                          f"both)", cm_map, sc_map, gm.map)
     if dim == 2:
         out.update(grid_tsz_paint(T, torch, device, cell, cat, gm))
-    return out
+    checks = grid_kernel_checks(torch, f"grid: {cell}", calls, list(calls))
+    return out, checks
 
 
 def grid_tsz_paint(T, torch, device, cell, cat, gm):
@@ -1782,7 +1980,7 @@ def grid_tsz_paint(T, torch, device, cell, cat, gm):
     check(runner.method == "cellmajor",
           f"method 'auto' resolved to {runner.method!r} on the card")
     label = f"{cell} PaintProfilesGrid tSZ (auto = cellmajor)"
-    y, launches, _ = run_process(torch, runner, label, [],
+    y, launches, _ = run_process(torch, runner, label, GRID,
                                  CELLMAJOR + SCATTER, paint=True)
     t0 = time.perf_counter()
     y64 = mk(precision="float64").process()
@@ -2227,8 +2425,8 @@ def families_path(T, torch, device):
         check(runner.method == "cellmajor",
               f"method 'auto' resolved to {runner.method!r} on the card")
         label = f"families grid {fam} BaryonifyGrid (auto = cellmajor)"
-        _, out[label], _ = run_process(torch, runner, label, SCATTER,
-                                       CELLMAJOR)
+        _, out[label], _ = run_process(torch, runner, label,
+                                       SCATTER + GRID, CELLMAJOR)
         check(out[label]["scatter_add"] == 2 ** dim,
               f"{label}: the CIC redeposit is one scatter launch a corner "
               f"({2 ** dim}), got {out[label]['scatter_add']}")
@@ -3063,6 +3261,14 @@ def plain_on_card(cmc, sc=None):
                 module, name,
                 lambda args, name=name: calls.append(name)
                 if on_card(args) else None))
+        # the grid passes' step loop on a _GridBucket (the kernels' plain
+        # version; the anisotropic and snapshot buckets step through it on
+        # the card)
+        from baryonification_tpu_torch.runners import grid_cellmajor as tgcm
+        for name in ("_bucket_pass", "_bucket_vjp"):
+            stack.enter_context(spied(
+                tgcm, name, lambda args, name=name: calls.append(name)
+                if tgcm._on_kernel(args[0], args[1]) else None))
         yield calls
 
 
@@ -3818,8 +4024,9 @@ def warm_value_and_grad(torch, label, loss_of, x0, device, reg_module,
     device memory of the warm one, and then one more warm step with the
     passes' forwards and backwards timed (``pass_module``'s
     ``_bucket_pass`` and ``_bucket_vjp``, the grid and snapshot passes'
-    step loops, synchronised: for the breakdown only). Returns (cold,
-    warm, peak GiB)."""
+    step loops, and the grid kernels' ``_kernel_pass`` and ``grid_vjp``,
+    synchronised: for the breakdown only). Returns (cold, warm, peak
+    GiB)."""
     regs = []
     with spied(reg_module, reg_name, regs.append):
         cold = value_and_grad(torch, loss_of, x0, device)
@@ -3830,8 +4037,13 @@ def warm_value_and_grad(torch, label, loss_of, x0, device, reg_module,
         peak = torch.cuda.max_memory_allocated() / 2**30
         regs_warm = len(regs)
     t_fwd, t_bwd = [], []
-    with synced_time(torch, pass_module, "_bucket_pass", t_fwd), \
-            synced_time(torch, pass_module, "_bucket_vjp", t_bwd):
+    from baryonification_tpu_torch.ops import grid_pass_cuda as gp
+    timers = [(pass_module, "_bucket_pass", t_fwd),
+              (pass_module, "_bucket_vjp", t_bwd),
+              (pass_module, "_kernel_pass", t_fwd), (gp, "grid_vjp", t_bwd)]
+    with contextlib.ExitStack() as stack:
+        for module, name, times in timers:
+            stack.enter_context(synced_time(torch, module, name, times))
         split = value_and_grad(torch, loss_of, x0, device)
     log(f"{label}: cold value_and_grad forward {cold[2]:.3f} s, backward "
         f"{cold[3]:.3f} s ({regs_cold} registrations); warm forward "
@@ -4133,7 +4345,8 @@ def grad_small(T, torch, device):
             check(np.isfinite(res[1]) and res[1] != 0,
                   f"gradgrid: {name}: gradient {res[1]!r}")
     return read_counts("gradgrid small sizes (2D, paints, scatter methods)",
-                       ("scatter_add", "scatter_add_vjp"))
+                       ["scatter_add", "scatter_add_vjp"] + GRID
+                       + ["grid_vjp"])
 
 
 def gradgrid_path(T, torch, sc, device):
@@ -4145,8 +4358,10 @@ def gradgrid_path(T, torch, sc, device):
     step; the scatter and its backward kernel launched), the float64
     gradient against central differences, process_device() against
     process(); then the backward kernel against its plain version on the
-    CIC's rows, and the 2D path and both paints at GRAD_SMALL. Returns
-    the kernels-line record of scatter_add_vjp."""
+    CIC's rows, grid_vjp against its plain version on the largest bucket,
+    and the 2D path and both paints at
+    GRAD_SMALL. Returns the kernels-line record of scatter_add_vjp and
+    grid_vjp's check."""
     from baryonification_tpu_torch.runners import grid as tgrid
     from baryonification_tpu_torch.runners import grid_cellmajor as tgcm
     dim, N, L, n_halo = GRID_CELLS["grid"]
@@ -4177,7 +4392,7 @@ def gradgrid_path(T, torch, sc, device):
         torch, label, chi2("float32"), LN_MC_START, device, tgcm,
         "register_halos_grid", tgcm)
     read_counts("gradgrid (value_and_grad, float32)",
-                ("scatter_add", "scatter_add_vjp"))
+                ["scatter_add", "scatter_add_vjp"] + GRID + ["grid_vjp"])
     mem = memory_split(torch, label, chi2("float32"), LN_MC_START, device,
                        [(T.Baryonification3D, "build_table_device"),
                         (tgcm, "grid_pass_diff"),
@@ -4190,6 +4405,15 @@ def gradgrid_path(T, torch, sc, device):
     for p, r in runners.items():
         device_vs_process(torch, f"{label} {p}", r,
                           lambda m: gm.map.mean())
+    # grid_vjp (and grid_pass) against the step loop on the largest
+    # bucket, its rows from build_table_device's float32 table
+    calls = []
+    with torch.no_grad(), spied(tgcm, "grid_pass_diff", calls.append):
+        chi2("float32")(torch.tensor(LN_MC_START, **f64))
+    vjp = check_grid_bucket(torch, "gradgrid: grad-grid-256",
+                            largest_bucket(calls), calls[0][0],
+                            torch.float32)["vjp"]
+    del calls
     del runners, auto, targets
     torch.cuda.empty_cache()
     rec = check_scatter_vjp(T, torch, sc, device)
@@ -4198,7 +4422,7 @@ def gradgrid_path(T, torch, sc, device):
     torch.cuda.empty_cache()
     check_scatter_big(T, torch, sc, device)
     grad_small(T, torch, device)
-    return rec
+    return rec, vjp
 
 
 def gradsnap_path(T, torch, device):
@@ -5284,7 +5508,7 @@ def mesh_rank_runs(T, torch, cmc, sc, mesh, device, rank, world, work,
         cat, gm, epsilon_max=GRID_EPS, model=models["grid3d"],
         verbose=False, device=device, mesh=mesh_, method="cellmajor")
     r = mk(mesh)
-    g_map, cold = timed_run("grid-256", r, SCATTER)
+    g_map, cold = timed_run("grid-256", r, SCATTER + GRID)
     warm, stages = warm_stages(r)
     out["digests"]["grid"] = digest(g_map)
     out["grid"] = dict(cold_s=cold, warm_s=warm, stages=stages,
@@ -5304,8 +5528,8 @@ def mesh_rank_runs(T, torch, cmc, sc, mesh, device, rank, world, work,
     reset_counts()
     with plain_on_card(cmc, sc) as plain:
         val, g, secs = scale_value_and_grad(torch, mk(mesh), device)
-    read_counts(f"mesh grad grid2d-{N} {tag}", ("scatter_add",
-                                                 "scatter_add_vjp"))
+    read_counts(f"mesh grad grid2d-{N} {tag}",
+                ["scatter_add", "scatter_add_vjp"] + GRID + ["grid_vjp"])
     check(not plain, f"mesh grad grid2d: plain versions ran on the card: "
           f"{plain}")
     out["grad_grid2d"] = dict(value=val, grad=g, step_s=secs)
@@ -5377,9 +5601,10 @@ def mesh_rank_main(rank, world, init_file, root, work, n_halo, nside,
 
     import baryonification_tpu_torch as T
     from baryonification_tpu_torch.ops import cellmajor_cuda as cmc
+    from baryonification_tpu_torch.ops import grid_pass_cuda as gp
     from baryonification_tpu_torch.ops import scatter_cuda as sc
 
-    COUNTERS.extend([sc.LAUNCHES, cmc.LAUNCHES])
+    COUNTERS.extend([sc.LAUNCHES, cmc.LAUNCHES, gp.LAUNCHES])
     SCATTER.append("scatter_add")
     CELLMAJOR.append("cellmajor_pass")
     device = torch.device(device_type, 0)
@@ -5498,7 +5723,11 @@ def ptxas_summary(build_log):
             b = re.search(r"\d(cellmajor_kernel|adjoint_kernel)I([fd])"
                           r"Lb([01])ELb([01])ELb([01])E(Li([12])E)?",
                           m.group(1))
-            entry = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else
+            g = re.search(r"\dgrid_kernelI([fd])Li([23])ELi([012])ELb([01])E",
+                          m.group(1))
+            entry = (f"grid_{('pass', 'vjp')[int(g.group(4))]}<{g.group(1)},"
+                     f"dim={g.group(2)},mode={g.group(3)}>" if g else
+                     f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else
                      f"{b.group(1)}<{b.group(2)},paint={b.group(3)},"
                      f"rdelta={b.group(4)},patch={b.group(5)}"
                      + (f",order={b.group(7)}" if b.group(7) else "") + ">"
@@ -5513,7 +5742,7 @@ def ptxas_summary(build_log):
     return out
 
 
-def build_all(torch, sc, lc, cmc):
+def build_all(torch, sc, lc, cmc, gp):
     """Compile every kernel source at once (one nvcc each, in parallel),
     then bind each kernel in both dtypes. The kernels of the paths (the
     scatter, the cell-major pass, the Legendre kernels at 8 rings per
@@ -5540,6 +5769,8 @@ def build_all(torch, sc, lc, cmc):
                 cmc._kernel(dt, entry)
         lc._kernel("legendre_alm", dt)
         lc._kernel("legendre_synth", dt)
+        for entry in gp.LAUNCHES:
+            gp._kernel(dt, entry)
     log("build: " + ", ".join(f"{n}.cu {t:.2f} s" for n, t in times)
         + f"; all built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, text in getattr(cb, "BUILD_LOG", {}).items():
@@ -5547,7 +5778,7 @@ def build_all(torch, sc, lc, cmc):
         log(f"build: {name}.cu registers (spill bytes): " + ", ".join(
             f"{e} {r} ({sp})" for e, r, sp in rows))
         for e, r, sp in rows:
-            if e.startswith(("scatter_add", "cellmajor", "adjoint")) \
+            if e.startswith(("scatter_add", "cellmajor", "adjoint", "grid_")) \
                     or e.endswith(("<f,8>", "<d,8>")):
                 check(sp == 0, f"{e} spills {sp} bytes of registers")
 
@@ -5579,12 +5810,13 @@ def main(argv=None):
     sys.path.insert(0, str(args.root.resolve()))
     import baryonification_tpu_torch as T
     from baryonification_tpu_torch.ops import cellmajor_cuda as cmc
+    from baryonification_tpu_torch.ops import grid_pass_cuda as gp
     from baryonification_tpu_torch.ops import legendre_cuda as lc
     from baryonification_tpu_torch.ops import scatter_cuda as sc
     from baryonification_tpu_torch.ops import spectra as sp
     check("jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                         if v is not None}, "JAX was imported")
-    COUNTERS.extend([sc.LAUNCHES, lc.LAUNCHES, cmc.LAUNCHES])
+    COUNTERS.extend([sc.LAUNCHES, lc.LAUNCHES, cmc.LAUNCHES, gp.LAUNCHES])
     SCATTER.append("scatter_add")
     CELLMAJOR.append("cellmajor_pass")
 
@@ -5597,9 +5829,20 @@ def main(argv=None):
         f"{torch.cuda.device_count()}), torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; nvidia-smi: {smi_line}")
 
-    build_all(torch, sc, lc, cmc)
+    build_all(torch, sc, lc, cmc, gp)
     records = {}
-    if "kernels" in phases:
+    phase_s, mark = {}, [None, time.perf_counter()]
+
+    def run(name):
+        """True where phase ``name`` is asked for; the seconds since the
+        previous phase began are that phase's."""
+        now = time.perf_counter()
+        if mark[0] in phases:
+            phase_s[mark[0]] = round(now - mark[1], 1)
+        mark[:] = [name, now]
+        return name in phases
+
+    if run("kernels"):
         records["scatter_add"] = check_scatter(T, torch, sc, device,
                                                args.halos, args.nside)
         records.update(check_legendre(
@@ -5610,54 +5853,69 @@ def main(argv=None):
     if args.halos != 1_000_000 or args.nside != 1024:
         log(f"cut: paths at NSIDE {args.nside}, shell path at "
             f"{args.halos} halos")
-    if "shell" in phases:
+    if run("shell"):
         main_path(T, torch, device, args.halos, args.nside)
-    if "grad" in phases:
+    if run("grad"):
         records["cellmajor_vjp"] = grad_path(
             T, torch, cmc, device, args.halos, args.nside,
             issue_bound=args.root.resolve() == ROOT)
-    if "fit" in phases:
+    if run("fit"):
         records["cellmajor_vjp2"] = fit_path(T, torch, cmc, device)
+    grid_checks = {}
     for cell in ("grid", "grid2d"):
-        if cell in phases:
-            runs = grid_path(T, torch, device, cell)
+        if run(cell):
+            runs, grid_checks[cell] = grid_path(T, torch, device, cell)
             log(f"{cell}: scatter_add launches by run: " + ", ".join(
                 f"{k} {c['scatter_add']}" for k, c in runs.items()))
-    if "tsz" in phases:
+    if grid_checks.get("grid"):
+        # the timed run's bucket: grid-256's BaryonifyGrid (offsets),
+        # float32
+        res = grid_checks["grid"]["offsets", "float32"]
+        records["grid_pass"] = kernel_record(
+            "grid_pass", GRID_PASS_SOURCE, GRID_PASS_REPLACES, res["pass_"])
+        records["grid_vjp"] = kernel_record(
+            "grid_vjp", GRID_PASS_SOURCE, GRID_PASS_REPLACES, res["vjp"])
+    if run("tsz"):
         tsz_path(T, torch, sp, sc, cmc, device, args.halos, args.nside)
-    if "families" in phases:
+    if run("families"):
         families_path(T, torch, device)
-    if "snap" in phases:
+    if run("snap"):
         runs = snap_path(T, torch, sc, device)
         log("snap: scatter_add launches by run: " + ", ".join(
             f"{k} {c['scatter_add']}" for k, c in runs.items()))
-    if "gradgrid" in phases:
-        records["scatter_add_vjp"] = gradgrid_path(T, torch, sc, device)
-    if "gradsnap" in phases:
+    if run("gradgrid"):
+        records["scatter_add_vjp"], vjp = gradgrid_path(T, torch, sc, device)
+        if vjp is not None:
+            records["grid_vjp"] = kernel_record(
+                "grid_vjp", GRID_PASS_SOURCE, GRID_PASS_REPLACES, vjp)
+    if run("gradsnap"):
         gradsnap_path(T, torch, device)
-    if "ex15" in phases:
+    if run("ex15"):
         ex15_path(T, torch, device)
-    if "anis" in phases:
+    if run("anis"):
         anis = anis_path(T, torch, device)
         anis["ex17_step_s"] = ex17_path(T, torch, device)
         log("anis: " + json.dumps(anis, default=str))
-    if "pk" in phases:
+    if run("pk"):
         pk_path(T, torch, device)
-    if "cl" in phases:
+    if run("cl"):
         cl_path(T, torch, sp, device, args.nside)
-    if "synth" in phases:
+    if run("synth"):
         synth_path(T, torch, sp, device, args.nside)
-    if "reference" in phases:
+    if run("reference"):
         reference_check(T, torch, device)
         reference_spectra(T, torch, sp, device)
         reference_grid(T, torch, device)
         reference_models(T, torch, device)
-    if "examples" in phases:
+    if run("examples"):
         secs = examples_path(T, torch, device)
         log("examples: seconds " + json.dumps(secs))
-    if "mesh" in phases:
+    if run("mesh"):
         mesh_path(T, torch, cmc, sc, device, args.root.resolve(),
                   args.halos, args.nside)
+
+    run(None)
+    log("phase seconds: " + json.dumps(phase_s))
 
     # each kernel's launches on every path that was driven, each path run
     # with the counts set to 0 just before it and read just after; the
@@ -5665,6 +5923,7 @@ def main(argv=None):
     kernel_of = {k: k for k in sc.LAUNCHES}
     kernel_of.update({k: k for k in cmc.LAUNCHES})
     kernel_of.update({k: k for k in lc.LAUNCHES})
+    kernel_of.update({k: k for k in gp.LAUNCHES})
     for path, counts in PATH_LAUNCHES.items():
         for k, n in counts.items():
             if n:

@@ -1587,3 +1587,155 @@ def test_ud_grade_on_card_matches_cpu(nside_in, nside_out, cuda_device):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-14,
                                atol=0)
     assert abs(float(got.sum()) - float(m.sum())) < 1e-12 * float(m.sum())
+
+
+# ----- the grid pass kernels (csrc/grid_pass.cu) against the step loop -----
+
+from _torch_grid_cases import CASES as GRID_CASES  # noqa: E402
+from _torch_grid_cases import (grid_case, port_bucket,  # noqa: E402
+                               port_rows)
+from baryonification_tpu_torch.ops import grid_pass_cuda as gpc  # noqa: E402
+from baryonification_tpu_torch.runners import \
+    grid_cellmajor as tgcm  # noqa: E402
+
+# float32 bars of the kernels against the step loop, of max|plain|: the
+# same arithmetic a slot (the geometry bit for bit), summed in another
+# order: a voxel's at most 9 slots (the pass), a node's shares from a few
+# hundred voxel-slots, by atomic adds in no fixed order on both sides
+# (the adjoint)
+GRID_KERNEL_F32_BAR = {"pass": 1e-5, "vjp": 1e-4}
+
+
+def _grid_inputs(name, mode, dtype, device):
+    case = grid_case(name, mode)
+    bk = port_bucket(case, mode, device, dtype)
+    rows = port_rows(case, torch.as_tensor(case["table_z"], dtype=dtype,
+                                           device=device))
+    return case, bk, rows
+
+
+def _grid_cts(bk, rows, seed=1):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return tuple(torch.randn(bk.ncell * bk.F, generator=gen,
+                             dtype=torch.float64).to(rows)
+                 for _ in range(bk.n_planes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["offsets", "offsets_rdelta", "paint"])
+@pytest.mark.parametrize("name", list(GRID_CASES))
+def test_grid_kernels_match_step_loop(name, mode, dtype, cuda_device):
+    """grid_pass and grid_vjp against the plain step loop (_bucket_pass,
+    _bucket_vjp) on the shared cases: float64 within 1e-12 of max|plain|,
+    float32 within GRID_KERNEL_F32_BAR; the kernels' tallies equal to the
+    loop's census. The adjoint gives 0 at the NaN row, where the loop's
+    autograd gives NaN (0 * exp(NaN), paint) or 0."""
+    _, bk, rows = _grid_inputs(name, mode, dtype, cuda_device)
+    head, tail = bk.kernel_args(rows), bk.kernel_scalars()
+    tally = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    got = gpc.grid_pass(*head, *tail, tally=tally)
+    census = dict(slots=0, inside=0, steps=0)
+    want = tgcm._bucket_pass(bk, rows, tgcm._zero_planes(bk, rows), census)
+    torch.cuda.synchronize()
+    f64 = dtype == torch.float64
+    scale = max(float(w.abs().max()) for w in want)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    assert scale > 0 and all(bool(torch.isfinite(g).all()) for g in got)
+    assert err <= (1e-12 if f64 else GRID_KERNEL_F32_BAR["pass"]) * scale, \
+        (err, scale)
+    assert tally.tolist()[:2] == [census["slots"], census["inside"]]
+    assert 0 < census["inside"] < census["slots"]
+    assert tally.tolist()[2] == 0
+
+    cts = _grid_cts(bk, rows)
+    vtally = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    d_k = gpc.grid_vjp(*head, cts, *tail, tally=vtally)
+    with torch.no_grad():
+        (d_p,) = tgcm._bucket_vjp(bk, rows, cts)
+    ok = torch.isfinite(rows).all(dim=1)
+    assert not ok.all() and bool(torch.isfinite(d_k).all())
+    assert float(d_k[~ok].abs().max()) == 0.0
+    scale = float(d_p[ok].abs().max())
+    err = float((d_k[ok] - d_p[ok]).abs().max())
+    assert scale > 0
+    assert err <= (1e-12 if f64 else GRID_KERNEL_F32_BAR["vjp"]) * scale, \
+        (err, scale)
+    vt = vtally.tolist()
+    assert vt[:2] == tally.tolist()[:2] and 0 < vt[2] <= 2 * vt[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mode", [("3d_block0", "offsets"),
+                                       ("2d", "offsets_rdelta"),
+                                       ("3d", "paint")])
+def test_grid_pass_gradcheck(name, mode, cuda_device):
+    """torch.autograd.gradcheck of the pass in its rows on the card in
+    float64 (the kernel forward, the grid_vjp backward; the NaN row set
+    finite; the atomic adds' order allowed 1e-12 between two backwards)."""
+    _, bk, rows = _grid_inputs(name, mode, torch.float64, cuda_device)
+    rows = torch.nan_to_num(rows, nan=0.5).requires_grad_(True)
+    before = dict(gpc.LAUNCHES)
+    assert torch.autograd.gradcheck(lambda r: tgcm._pass_diff(bk, r),
+                                    (rows,), nondet_tol=1e-12)
+    assert gpc.LAUNCHES["grid_pass"] > before["grid_pass"]
+    assert gpc.LAUNCHES["grid_vjp"] > before["grid_vjp"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["offsets", "paint"])
+def test_grid_kernel_launches(mode, cuda_device):
+    """One grid_pass launch a bucket's forward and one grid_vjp launch its
+    first-order backward, with no scatter_add_vjp launch for the row
+    reads; under create_graph the backward is the step loop (its row
+    reads through scatter_add_vjp, no grid_vjp launch) and its gradient
+    the first-order one."""
+    case, bk, rows = _grid_inputs("2d_block0", mode, torch.float64,
+                                  cuda_device)
+    n0 = dict(gpc.LAUNCHES, vjp=sc.LAUNCHES["scatter_add_vjp"])
+    gpc_counts = lambda: dict(gpc.LAUNCHES,
+                              vjp=sc.LAUNCHES["scatter_add_vjp"])
+    with torch.no_grad():
+        tgcm._pass_diff(bk, rows)
+    assert gpc_counts() == dict(n0, grid_pass=n0["grid_pass"] + 1)
+    r = rows.clone().requires_grad_(True)
+    out = tgcm._pass_diff(bk, r)
+    cts = _grid_cts(bk, rows)
+    (d1,) = torch.autograd.grad(out, r, cts)
+    assert gpc_counts() == dict(n0, grid_pass=n0["grid_pass"] + 2,
+                                grid_vjp=n0["grid_vjp"] + 1)
+    out = tgcm._pass_diff(bk, r)
+    (d2,) = torch.autograd.grad(out, r, cts, create_graph=True)
+    d2 = d2.detach()
+    now = gpc_counts()
+    assert now["grid_pass"] == n0["grid_pass"] + 3
+    assert now["grid_vjp"] == n0["grid_vjp"] + 1 and now["vjp"] > n0["vjp"]
+    ok = torch.isfinite(rows).all(dim=1)
+    scale = float(d1[ok].abs().max())
+    assert float((d1[ok] - d2[ok]).abs().max()) <= 1e-12 * scale
+
+
+@pytest.mark.cuda
+def test_grid_runner_launches_grid_pass(cuda_device):
+    """A warm process() of BaryonifyGrid and PaintProfilesGrid (3D and 2D)
+    launches grid_pass once a bucket, and the census that the kernels'
+    tallies fill counts the slots the loop's census counts on the CPU."""
+    T, model, gas, grids = _small_grids()
+    for dim, (cat, gm) in grids.items():
+        for cls, mdl, eps in (("BaryonifyGrid", model, 10),
+                              ("PaintProfilesGrid", gas, 5)):
+            kw = dict(epsilon_max=eps, model=mdl, verbose=False,
+                      precision="float64", use_ellipticity=dim == 2)
+            card = getattr(T, cls)(cat, gm, device=cuda_device, **kw)
+            cpu = getattr(T, cls)(cat, gm, device="cpu", method="cellmajor",
+                                  **kw)
+            card.process()
+            card.census, cpu.census = [], []
+            n0 = gpc.LAUNCHES["grid_pass"]
+            card.process()
+            assert gpc.LAUNCHES["grid_pass"] - n0 == len(card.census) > 0
+            cpu.process()
+            assert len(cpu.census) == len(card.census)
+            for a, b in zip(card.census, cpu.census):
+                assert (a["slots"], a["inside"]) == (b["slots"],
+                                                     b["inside"]), (dim, cls)
