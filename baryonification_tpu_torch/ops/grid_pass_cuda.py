@@ -25,11 +25,26 @@ runners take for CPU tensors. These entries take CUDA tensors only: any
 other device raises, and nothing runs in their place. A build or launch
 error raises.
 
-``LAUNCHES`` counts kernel launches by entry. A ``tally`` (a (3,) int64
+The kernels take a warp's voxels of one block (a patch: a tile of 4 x 8
+or 1 x 4 x 8 voxels where B is a multiple of 8, two whole blocks a warp
+where a block has 16 voxels) through their block's candidates a
+few slots at a time: one lane a (patch, slot) stages the slot's per-axis
+terms in shared memory once and tests whether any voxel of the patch can
+be inside the halo's window and reach; slots that none can reach are
+skipped for the patch (the cull), the others walked in slot order, each
+voxel summing in registers. The cull is conservative bit for bit:
+``cull=False`` (for the tests and ``chip_smoke.py``; the runners never
+pass it) walks every listed slot and gives the same planes and counts of
+slots and inside. The adjoint merges the shares that a warp's lanes add
+to the same nodes before its atomic adds. :func:`launch_shape` gives a
+launch's shape (patch size, slots a stage, shared memory).
+
+``LAUNCHES`` counts kernel launches by entry. A ``tally`` (a (4,) int64
 CUDA tensor, for a runner's census, the tests and ``chip_smoke.py``)
 gets the launch's counts of :data:`TALLY` added to it: voxel-slots
-listed, voxel-slots inside (those that pass every test of the geometry)
-and the adjoint's global atomic adds.
+listed, voxel-slots inside (those that pass every test of the geometry),
+the adjoint's global atomic adds issued and the (patch, slot) pairs that
+the cull skipped.
 """
 
 import ctypes
@@ -38,7 +53,8 @@ import torch
 
 from .._cuda_build import load_library
 
-__all__ = ["grid_pass", "grid_vjp", "LAUNCHES", "MODES", "TALLY"]
+__all__ = ["grid_pass", "grid_vjp", "launch_shape", "LAUNCHES", "MODES",
+           "TALLY"]
 
 #: kernel launches by entry name (read and reset by callers)
 LAUNCHES = {"grid_pass": 0, "grid_vjp": 0}
@@ -47,7 +63,11 @@ LAUNCHES = {"grid_pass": 0, "grid_vjp": 0}
 MODES = {"offsets": 0, "offsets_rdelta": 1, "paint": 2}
 
 #: the counts of a ``tally``
-TALLY = ("slots", "inside", "atomics")
+TALLY = ("slots", "inside", "atomics", "culled")
+
+#: the fields of :func:`launch_shape`
+SHAPE = ("L", "patches_a_warp", "slots_a_stage", "row_stride",
+         "warps_a_cta", "smem_bytes")
 
 _FUNCS = {}
 
@@ -63,10 +83,27 @@ def _kernel(dtype, entry="grid_pass"):
         P, I, L, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_double)
         fn.argtypes = ([I, I] + [P] * 11 + [L, L, L] + [I] * 5 + [D] * 4
-                       + [P, P])
+                       + [P, I, P])
         fn.restype = I
         _FUNCS[key] = fn
     return _FUNCS[key]
+
+
+def launch_shape(mode, dim, B, dtype):
+    """The shape of a launch of either entry for blocks of edge ``B``:
+    dict over :data:`SHAPE` (the padded patch size L, patches a warp, slots
+    a stage, the staged rows' stride in terms, warps a CTA and the CTA's
+    dynamic shared memory in bytes). Builds the library at first use."""
+    fn = load_library("grid_pass").grid_launch_shape
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(SHAPE))()
+    err = fn(MODES[mode], dim, B, int(dtype == torch.float64),
+             ctypes.addressof(out))
+    if err != 0:
+        raise ValueError(f"no launch shape for mode {mode!r}, dim {dim}, "
+                         f"B {B}: error {err}")
+    return dict(zip(SHAPE, out))
 
 
 def _hcols(mode, dim):
@@ -112,13 +149,13 @@ def _check(entry, mode, dim, B, N, half, hrec, lo, dense, counts, rows,
             raise ValueError(f"{entry} takes contiguous tensors")
     F = B ** dim
     ncell = counts.shape[0]
-    if B < 1 or N < 1 or half < 0 or F >= 2 ** 31:
+    if B < 1 or N < 1 or half < 0 or F >= 2 ** 30:
         raise ValueError(f"bad block edge {B}, grid {N} or half {half}")
     return ncell, F
 
 
 def _launch(entry, mode, dim, B, N, half, block0, hrec, lo, dense, counts,
-            rows, cts, outs, g0, dg, rad_hi, res, tally):
+            rows, cts, outs, g0, dg, rad_hi, res, tally, cull):
     ptr = lambda ts: [t.data_ptr() for t in ts] + [None] * (3 - len(ts))
     err = _kernel(rows.dtype, entry)(
         MODES[mode], dim, hrec.data_ptr(), lo.data_ptr(), dense.data_ptr(),
@@ -126,34 +163,35 @@ def _launch(entry, mode, dim, B, N, half, block0, hrec, lo, dense, counts,
         counts.shape[0], dense.shape[1], int(block0), B, N, half,
         rows.shape[1], hrec.shape[1], float(res), float(g0), float(dg),
         float(rad_hi), None if tally is None else tally.data_ptr(),
-        torch.cuda.current_stream(rows.device).cuda_stream)
+        int(bool(cull)), torch.cuda.current_stream(rows.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     LAUNCHES[entry] += 1
 
 
 def grid_pass(mode, dim, B, N, half, block0, hrec, lo, dense, counts, rows,
-              g0, dg, rad_hi, res, tally=None):
+              g0, dg, rad_hi, res, tally=None, cull=True):
     """One bucket's pass in one launch: returns new block-major planes
     (``dim`` offset planes in pixel units, or one paint plane; ncell B^dim
-    elements each), each element written once. See the module
-    docstring."""
+    elements each), each element written once. ``cull=False`` walks every
+    slot (the same planes, bit for bit). See the module docstring."""
     ncell, F = _check("grid_pass", mode, dim, B, N, half, hrec, lo, dense,
                       counts, rows, tally)
     outs = tuple(torch.empty(ncell * F, dtype=rows.dtype, device=rows.device)
                  for _ in range(1 if mode == "paint" else dim))
     if ncell:
         _launch("grid_pass", mode, dim, B, N, half, block0, hrec, lo, dense,
-                counts, rows, (), outs, g0, dg, rad_hi, res, tally)
+                counts, rows, (), outs, g0, dg, rad_hi, res, tally, cull)
     return outs
 
 
 def grid_vjp(mode, dim, B, N, half, block0, hrec, lo, dense, counts, rows,
-             cts, g0, dg, rad_hi, res, tally=None):
+             cts, g0, dg, rad_hi, res, tally=None, cull=True):
     """The VJP of :func:`grid_pass` with respect to ``rows`` for the
     cotangent planes ``cts`` (one a plane of the pass), in one launch:
     returns the (H, n_hi) d_rows, summed with atomic adds (in no fixed
-    order)."""
+    order) of the shares merged over each warp. ``cull=False`` walks every
+    slot."""
     ncell, F = _check("grid_vjp", mode, dim, B, N, half, hrec, lo, dense,
                       counts, rows, tally)
     cts = tuple(cts)
@@ -168,5 +206,6 @@ def grid_vjp(mode, dim, B, N, half, block0, hrec, lo, dense, counts, rows,
     d_rows = torch.zeros_like(rows)
     if ncell:
         _launch("grid_vjp", mode, dim, B, N, half, block0, hrec, lo, dense,
-                counts, rows, cts, (d_rows,), g0, dg, rad_hi, res, tally)
+                counts, rows, cts, (d_rows,), g0, dg, rad_hi, res, tally,
+                cull)
     return d_rows

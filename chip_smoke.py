@@ -1783,9 +1783,15 @@ def check_grid_bucket(torch, label, args, mode, dt, seed=0):
     grid_pass_diff arguments, its geometry read in ``mode`` and its rows
     and records cast to ``dt``, seeded random cotangents. Both outputs
     finite and within GRID_PASS_BAR / GRID_VJP_BAR of max|plain|; the
-    kernels' tallies equal to the loop's census. Logs and returns the
-    errors, the kernels' device times (queued_ms), the loop's (CUDA
-    events) and the bounds."""
+    kernels' tallies equal to the loop's census. Then both kernels without
+    their cull (cull=False): the planes bit for bit those of the cull's
+    launch, the tallies' slots and inside the same, grid_vjp within
+    GRID_VJP_BAR of the cull's. Logs and returns the errors, the kernels'
+    device times with and without the cull (queued_ms), the loop's (CUDA
+    events), the bounds, the share of (patch, slot) pairs culled (the
+    kernel's own count over the listed pairs, a patch being the voxels of
+    a block that one warp holds), the adjoint's atomic adds and the
+    launch's shape (gp.launch_shape)."""
     from baryonification_tpu_torch.ops import grid_pass_cuda as gp
     from baryonification_tpu_torch.runners import grid_cellmajor as tgcm
     (_, dim, B, n_hi, N, half, dense, counts, counts_host, pk, rows, g0, dg,
@@ -1795,7 +1801,8 @@ def check_grid_bucket(torch, label, args, mode, dt, seed=0):
                           counts_host, pk.to(dt), g0, dg, rad_hi, eps, res)
     rows = rows.detach().to(dt).contiguous()
     head, tail = bk.kernel_args(rows), bk.kernel_scalars()
-    tally = torch.zeros(3, dtype=torch.int64, device=rows.device)
+    n_tally = len(gp.TALLY)
+    tally = torch.zeros(n_tally, dtype=torch.int64, device=rows.device)
     got = gp.grid_pass(*head, *tail, tally=tally)
     census = dict(slots=0, inside=0, steps=0)
     want = tgcm._bucket_pass(bk, rows, tgcm._zero_planes(bk, rows), census)
@@ -1805,15 +1812,30 @@ def check_grid_bucket(torch, label, args, mode, dt, seed=0):
     gen = torch.Generator(device="cpu").manual_seed(seed)
     cts = tuple(torch.randn(g.shape, generator=gen, dtype=torch.float64)
                 .to(g) for g in got)
-    vtally = torch.zeros(3, dtype=torch.int64, device=rows.device)
+    vtally = torch.zeros(n_tally, dtype=torch.int64, device=rows.device)
     d_k = gp.grid_vjp(*head, cts, *tail, tally=vtally)
     with torch.no_grad():
         d_p, ms_vp = timed(torch, lambda: tgcm._bucket_vjp(bk, rows, cts)[0])
     fin = torch.isfinite(d_p)
     verr, vscale = rel_err(d_k[fin], d_p[fin])
+    # without the cull: the same planes and counts
+    ntally = torch.zeros(n_tally, dtype=torch.int64, device=rows.device)
+    got_nc = gp.grid_pass(*head, *tail, tally=ntally, cull=False)
+    same = all(torch.equal(a, b) for a, b in zip(got, got_nc))
+    nvtally = torch.zeros(n_tally, dtype=torch.int64, device=rows.device)
+    d_nc = gp.grid_vjp(*head, cts, *tail, tally=nvtally, cull=False)
+    ok_rows = torch.isfinite(rows).all(dim=1)
+    ncerr, _ = rel_err(d_k[ok_rows], d_nc[ok_rows])
     ms_k = queued_ms(torch, lambda: gp.grid_pass(*head, *tail), 5)
     ms_vk = queued_ms(torch, lambda: gp.grid_vjp(*head, cts, *tail), 5)
+    ms_knc = queued_ms(
+        torch, lambda: gp.grid_pass(*head, *tail, cull=False), 5)
+    ms_vknc = queued_ms(
+        torch, lambda: gp.grid_vjp(*head, cts, *tail, cull=False), 5)
     kt, vt = tally.tolist(), vtally.tolist()
+    nkt, nvt = ntally.tolist(), nvtally.tolist()
+    pairs = int(counts.sum()) * -(-bk.F // 32)
+    shape = gp.launch_shape(mode, dim, B, dt)
     c = dict(slots=kt[0], inside=kt[1], nvox=bk.ncell * bk.F,
              planes=len(got), listed=int(counts.sum()), ncell=bk.ncell,
              H=rows.shape[0], hcols=bk.hrec.shape[1], n_hi=n_hi)
@@ -1825,12 +1847,19 @@ def check_grid_bucket(torch, label, args, mode, dt, seed=0):
         f"steps); grid_pass tally {kt[0]:.4e} / {kt[1]:.4e}, max|err| / "
         f"max|plain| {err:.3e} (max|plain| {scale:.3e}, bar "
         f"{GRID_PASS_BAR[dname]:g}), kernel {ms_k:.4f} ms, plain {ms_p:.2f}"
-        f" ms, bound {b_ms:.4f} ms ({b_by}); grid_vjp tally {vt[0]:.4e} / "
+        f" ms, bound {b_ms:.4f} ms ({b_by}, {100 * b_ms / ms_k:.1f}%); "
+        f"grid_vjp tally {vt[0]:.4e} / "
         f"{vt[1]:.4e}, {vt[2]:.4e} global atomics, max|err| / max|plain| "
         f"{verr:.3e} (max|plain| {vscale:.3e}, bar {GRID_VJP_BAR[dname]:g};"
         f" {int((~fin).sum())} non-finite plain nodes), kernel "
         f"{ms_vk:.4f} ms, plain {ms_vp:.2f} ms, bound {vb_ms:.4f} ms "
-        f"({vb_by})")
+        f"({vb_by}, {100 * vb_ms / ms_vk:.1f}%); cull: {kt[3]:.4e} of "
+        f"{pairs:.4e} (patch, slot) pairs culled "
+        f"({100 * kt[3] / max(pairs, 1):.1f}%); "
+        f"without it grid_pass {ms_knc:.4f} ms, planes bit for bit: {same}, "
+        f"tally {nkt}; grid_vjp {ms_vknc:.4f} ms, {nvt[2]:.4e} global "
+        f"atomics, max|diff| / max|d_rows| {ncerr:.3e} against the cull's;"
+        f" launch shape {shape}")
     check(all(bool(torch.isfinite(g).all()) for g in got)
           and bool(torch.isfinite(d_k).all()),
           f"{label}: grid kernels {mode} {dname}: non-finite output")
@@ -1841,11 +1870,20 @@ def check_grid_bucket(torch, label, args, mode, dt, seed=0):
     check(kt[:2] == [census["slots"], census["inside"]] and vt[:2] == kt[:2],
           f"{label}: the kernels' tallies {kt}, {vt} are not the census "
           f"{census}")
+    check(same and nkt[:2] == kt[:2] and nvt[:2] == kt[:2]
+          and nkt[3] == nvt[3] == 0 and vt[3] == kt[3] <= pairs,
+          f"{label}: {mode} {dname}: the cull changed the planes "
+          f"(bit for bit {same}) or the tallies {kt}, {vt} against "
+          f"{nkt}, {nvt} without it")
+    check(ncerr <= GRID_VJP_BAR[dname], f"{label}: grid_vjp {mode} {dname} "
+          f"with and without the cull differ: {ncerr:.3e}")
     return dict(pass_=dict(max_abs_err=err * scale, ms=ms_k, plain_ms=ms_p,
                            bound_ms=b_ms, bound_by=b_by, slots=kt[0],
-                           inside=kt[1]),
+                           inside=kt[1], ms_no_cull=ms_knc, culled=kt[3],
+                           pairs=pairs),
                 vjp=dict(max_abs_err=verr * vscale, ms=ms_vk, plain_ms=ms_vp,
-                         bound_ms=vb_ms, bound_by=vb_by, atomics=vt[2]))
+                         bound_ms=vb_ms, bound_by=vb_by, atomics=vt[2],
+                         ms_no_cull=ms_vknc, atomics_no_cull=nvt[2]))
 
 
 def grid_kernel_checks(torch, label, calls, real_modes):
@@ -5712,8 +5750,8 @@ def mesh_path(T, torch, cmc, sc, device, root, n_halo, nside):
 
 
 def ptxas_summary(build_log):
-    """[(kernel<type, rings per thread>, registers, spill bytes)] from the
-    output of ``ptxas -v``."""
+    """[(kernel<type, rings per thread>, registers, spill bytes, static
+    shared bytes)] from the output of ``ptxas -v``."""
     import re
     out, entry, spill = [], None, 0
     for line in build_log.splitlines():
@@ -5738,7 +5776,9 @@ def ptxas_summary(build_log):
             spill = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            out.append((entry, int(m.group(1)), spill))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out.append((entry, int(m.group(1)), spill,
+                        int(sm.group(1)) if sm else 0))
     return out
 
 
@@ -5775,9 +5815,10 @@ def build_all(torch, sc, lc, cmc, gp):
         + f"; all built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, text in getattr(cb, "BUILD_LOG", {}).items():
         rows = ptxas_summary(text)
-        log(f"build: {name}.cu registers (spill bytes): " + ", ".join(
-            f"{e} {r} ({sp})" for e, r, sp in rows))
-        for e, r, sp in rows:
+        log(f"build: {name}.cu registers (spill bytes, static shared "
+            f"bytes): " + ", ".join(f"{e} {r} ({sp}, {sm})"
+                                    for e, r, sp, sm in rows))
+        for e, r, sp, _ in rows:
             if e.startswith(("scatter_add", "cellmajor", "adjoint", "grid_")) \
                     or e.endswith(("<f,8>", "<d,8>")):
                 check(sp == 0, f"{e} spills {sp} bytes of registers")

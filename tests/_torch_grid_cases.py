@@ -10,6 +10,13 @@ halo listed in blocks its window misses), a z-blended table whose mass
 grid one halo lies outside (its row is NaN), -1e30 nodes in the paint
 table, a 2D shear that is not the identity, and optionally a range of
 blocks that starts past block 0 (as one rank's share on the mesh path).
+The later cases take larger blocks: more voxels than a CTA of the kernels
+(3d_b8), blocks of several warps in 2D (2d_b8), a block over many CTAs
+(3d_b16), edges that are not powers of two (3d_b6: a block of 216
+voxels, 2d_b5: of 25), whose warps span wrapped offset ranges, a 2D
+block whose warps take 4 x 8 tiles of it (2d_b16), and one of 144 pixels
+whose float64 offsets launch asks for more than 48 KB of shared memory
+with the tally's (2d_b12).
 """
 
 import numpy as np
@@ -21,7 +28,14 @@ from baryonification_tpu_torch.runners import grid_cellmajor as gcm
 CASES = {"3d": (3, 16, 4, 5, 14, 0, None),
          "3d_block0": (3, 16, 4, 5, 14, 24, 24),
          "2d": (2, 32, 4, 9, 24, 0, None),
-         "2d_block0": (2, 32, 4, 9, 24, 16, 32)}
+         "2d_block0": (2, 32, 4, 9, 24, 16, 32),
+         "3d_b8": (3, 16, 8, 5, 14, 0, None),
+         "2d_b8": (2, 32, 8, 9, 24, 0, None),
+         "3d_b16": (3, 32, 16, 9, 20, 0, None),
+         "3d_b6": (3, 24, 6, 7, 16, 0, None),
+         "2d_b5": (2, 20, 5, 6, 20, 0, None),
+         "2d_b16": (2, 64, 16, 9, 30, 0, None),
+         "2d_b12": (2, 48, 12, 9, 30, 0, None)}
 MODES = ("offsets", "offsets_rdelta", "paint")
 EPS_MAX = 2.5
 NR = 24             # radial nodes of the table
@@ -128,3 +142,45 @@ def port_bucket(case, mode, device, dtype):
     return gcm._GridBucket(mode, dim, B, n_hi, N, half, dense, counts,
                            counts_host, packed, g0, dg, rad_hi, eps_max, res,
                            block0=case["block0"])
+
+
+def patch_of(F, B, dim):
+    """(F,) the patch of each voxel of a block: the voxels of the block
+    that one warp of the grid kernels holds. A block of at most 32 voxels
+    is one patch; where B is a multiple of 8, a patch is a tile of 4 x 8
+    voxels (2D) or 1 x 4 x 8 (3D), the tiles row-major in the block;
+    otherwise 32 consecutive voxels (the last maybe fewer)."""
+    f = torch.arange(F)
+    if F <= 32:
+        return torch.zeros(F, dtype=torch.int64)
+    if B % 8:
+        return f // 32
+    tile = (4, 8) if dim == 2 else (1, 4, 8)
+    pid = torch.zeros(F, dtype=torch.int64)
+    for d in range(dim):
+        o = (f // B ** (dim - 1 - d)) % B
+        pid = pid * (B // tile[d]) + o // tile[d]
+    return pid
+
+
+def patch_slots(bk):
+    """(pairs, dead) of a ``_GridBucket``: its listed (patch, slot) pairs
+    (:func:`patch_of`) and those of them where no voxel is live, by the
+    plain geometry: the most that a conservative cull can skip."""
+    F = bk.F
+    pid = patch_of(F, bk.B, bk.dim)
+    n_patch = int(pid.max()) + 1
+    pairs = dead = 0
+    for c0, c1, iv, steps in bk.chunks():
+        for k0, k1 in steps:
+            live = bk.geometry(c0, c1, iv, k0, k1)["live"].cpu()
+            C, G = c1 - c0, k1 - k0
+            alive = torch.zeros(C, G, n_patch, dtype=torch.int64)
+            alive.scatter_reduce_(2, pid.expand(C, G, F),
+                                  live.reshape(C, G, F).to(torch.int64),
+                                  "amax")
+            ok = (torch.arange(k0, k1)[None, :]
+                  < bk.counts[c0:c1, None].cpu())
+            pairs += int(ok.sum()) * n_patch
+            dead += int((ok[..., None] & (alive == 0)).sum())
+    return pairs, dead

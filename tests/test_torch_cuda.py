@@ -1592,8 +1592,8 @@ def test_ud_grade_on_card_matches_cpu(nside_in, nside_out, cuda_device):
 # ----- the grid pass kernels (csrc/grid_pass.cu) against the step loop -----
 
 from _torch_grid_cases import CASES as GRID_CASES  # noqa: E402
-from _torch_grid_cases import (grid_case, port_bucket,  # noqa: E402
-                               port_rows)
+from _torch_grid_cases import (grid_case, patch_slots,  # noqa: E402
+                               port_bucket, port_rows)
 from baryonification_tpu_torch.ops import grid_pass_cuda as gpc  # noqa: E402
 from baryonification_tpu_torch.runners import \
     grid_cellmajor as tgcm  # noqa: E402
@@ -1633,7 +1633,8 @@ def test_grid_kernels_match_step_loop(name, mode, dtype, cuda_device):
     autograd gives NaN (0 * exp(NaN), paint) or 0."""
     _, bk, rows = _grid_inputs(name, mode, dtype, cuda_device)
     head, tail = bk.kernel_args(rows), bk.kernel_scalars()
-    tally = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    tally = torch.zeros(len(gpc.TALLY), dtype=torch.int64,
+                        device=cuda_device)
     got = gpc.grid_pass(*head, *tail, tally=tally)
     census = dict(slots=0, inside=0, steps=0)
     want = tgcm._bucket_pass(bk, rows, tgcm._zero_planes(bk, rows), census)
@@ -1649,7 +1650,8 @@ def test_grid_kernels_match_step_loop(name, mode, dtype, cuda_device):
     assert tally.tolist()[2] == 0
 
     cts = _grid_cts(bk, rows)
-    vtally = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    vtally = torch.zeros(len(gpc.TALLY), dtype=torch.int64,
+                         device=cuda_device)
     d_k = gpc.grid_vjp(*head, cts, *tail, tally=vtally)
     with torch.no_grad():
         (d_p,) = tgcm._bucket_vjp(bk, rows, cts)
@@ -1663,6 +1665,51 @@ def test_grid_kernels_match_step_loop(name, mode, dtype, cuda_device):
         (err, scale)
     vt = vtally.tolist()
     assert vt[:2] == tally.tolist()[:2] and 0 < vt[2] <= 2 * vt[1]
+    assert vt[3] == tally.tolist()[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["offsets", "offsets_rdelta", "paint"])
+@pytest.mark.parametrize("name", list(GRID_CASES))
+def test_grid_kernels_cull_is_exact(name, mode, dtype, cuda_device):
+    """The kernels with their cull (the runners' launch) against launches
+    that walk every listed slot (cull=False): the planes equal bit for
+    bit, and so do the tallies' slots and inside; the cull skips at least
+    one (patch, slot) pair and none where a voxel is live by the plain
+    geometry (patch_slots), and none without it; grid_vjp with and
+    without the cull agrees within 1e-12 (float64) or GRID_KERNEL_F32_BAR
+    (float32) of max|d_rows| (its adds merge in another order)."""
+    _, bk, rows = _grid_inputs(name, mode, dtype, cuda_device)
+    head, tail = bk.kernel_args(rows), bk.kernel_scalars()
+    out, counts = {}, {}
+    for cull in (True, False):
+        for entry in ("pass", "vjp"):
+            tally = torch.zeros(len(gpc.TALLY), dtype=torch.int64,
+                                device=cuda_device)
+            out[entry, cull] = (
+                gpc.grid_pass(*head, *tail, tally=tally, cull=cull)
+                if entry == "pass" else
+                gpc.grid_vjp(*head, _grid_cts(bk, rows), *tail,
+                             tally=tally, cull=cull))
+            counts[entry, cull] = dict(zip(gpc.TALLY, tally.tolist()))
+    assert all(torch.equal(a, b)
+               for a, b in zip(out["pass", True], out["pass", False]))
+    pairs, dead = patch_slots(bk)
+    for entry in ("pass", "vjp"):
+        on, off = counts[entry, True], counts[entry, False]
+        assert (on["slots"], on["inside"]) == (off["slots"], off["inside"])
+        assert off["culled"] == 0 and 0 < on["culled"] <= dead < pairs, \
+            (entry, on["culled"], dead, pairs)
+    ok = torch.isfinite(rows).all(dim=1)
+    d_on, d_off = out["vjp", True], out["vjp", False]
+    assert bool(torch.isfinite(d_on).all())
+    scale = float(d_off[ok].abs().max())
+    err = float((d_on[ok] - d_off[ok]).abs().max())
+    f64 = dtype == torch.float64
+    assert scale > 0
+    assert err <= (1e-12 if f64 else GRID_KERNEL_F32_BAR["vjp"]) * scale, \
+        (err, scale)
 
 
 @pytest.mark.cuda

@@ -12,8 +12,9 @@ seeded cotangent agrees with ``jax.vjp`` to 1e-10 of its largest
 |value|. The JAX pass is differentiated with a static trip count
 (``k_static``), as its ``process_device`` does.
 
-The dispatch: CPU tensors take the plain step loop (``_bucket_pass``) bit
-for bit, tensors of another device than the CPU or CUDA raise, and the
+The cases of larger blocks (B = 5 to 16) hold their premise, among it
+(patch, slot) pairs that the kernels' cull may skip. The dispatch: CPU
+tensors take the plain step loop (``_bucket_pass``) bit for bit, tensors of another device than the CPU or CUDA raise, and the
 kernel entries (``ops.grid_pass_cuda``) refuse CPU tensors. The kernels
 themselves are held against the step loop on the card in
 tests/test_torch_cuda.py.
@@ -32,16 +33,17 @@ from baryonification_tpu.runners import grid_cellmajor as jgcm
 from baryonification_tpu_torch.ops import grid_pass_cuda
 from baryonification_tpu_torch.runners import grid_cellmajor as gcm
 
-from _torch_grid_cases import (grid_case, port_bucket, port_pass_args,
-                               port_rows)
+from _torch_grid_cases import (CASES, grid_case, patch_slots, port_bucket,
+                               port_pass_args, port_rows)
 
 torch.set_num_threads(1)
 
 # (case, mode): every JAX pass, both offsets modes in 2D and 3D, a first
-# block past 0 in each dimension
+# block past 0 in each dimension, blocks of B = 8 in each dimension
 JAX_CASES = [("3d", "offsets"), ("3d_block0", "offsets_rdelta"),
              ("3d", "paint"), ("2d", "offsets_rdelta"),
-             ("2d_block0", "offsets"), ("2d", "paint")]
+             ("2d_block0", "offsets"), ("2d", "paint"),
+             ("3d_b8", "offsets"), ("2d_b8", "paint")]
 
 
 def _cotangents(case, mode, seed=1):
@@ -133,6 +135,30 @@ def test_cases_hold_their_premise():
             gcm.grid_pass_diff(*head, rows, *tail, census=census,
                                block0=c["block0"])
             assert 0 < census["inside"] < census["slots"]
+
+
+@pytest.mark.parametrize("name", list(CASES)[4:])
+def test_block_cases_hold_their_premise(name):
+    """The cases of larger blocks: empty blocks, padded lists, windows
+    that wrap, slots that add and slots that do not in every mode, and
+    listed (patch, slot) pairs of the kernels' warps where no voxel is
+    live (what their cull may skip) beside pairs where one is."""
+    for mode in ("offsets", "offsets_rdelta", "paint"):
+        c = grid_case(name, mode)
+        assert (c["counts"] == 0).any()
+        assert c["dense"].shape[1] > c["counts"].max()
+        lo = c["packed"][:, c["dim"] + 3:2 * c["dim"] + 3] - c["half"]
+        assert (lo < 0).any()
+        bk = port_bucket(c, mode, "cpu", torch.float64)
+        assert bk.F > 16 and bk.ncell == (c["N"] // c["B"]) ** c["dim"]
+        census = dict(slots=0, inside=0, steps=0)
+        head, tail = port_pass_args(c, mode, "cpu", torch.float64)
+        gcm.grid_pass_diff(*head, port_rows(c, torch.as_tensor(
+            c["table_z"])), *tail, census=census, block0=c["block0"])
+        assert 0 < census["inside"] < census["slots"]
+        pairs, dead = patch_slots(bk)
+        assert pairs == int(c["counts"].sum()) * -(-bk.F // 32)
+        assert 0 < dead < pairs, (name, mode, dead, pairs)
 
 
 @pytest.mark.parametrize("mode", ["offsets", "offsets_rdelta", "paint"])
