@@ -21,7 +21,8 @@ import torch
 __all__ = ["npix", "nside2resol", "ang2vec", "vec2ang", "radec2ang",
            "pix2ang", "pix2vec", "ang2pix", "vec2pix", "ring_info",
            "z_to_ring", "disc_window", "ud_grade",
-           "get_interp_weights", "get_interp_weights_parts", "RingTables",
+           "get_interp_weights", "get_interp_weights_parts", "interp_terms",
+           "RingTables",
            "pixel_planes_device", "ring_above_tab",
            "get_interp_weights_parts_tab", "get_interp_weights_tab",
            "disc_window_mask_tab", "nest2ring", "ring2nest",
@@ -197,11 +198,15 @@ def z_to_ring(nside, z):
 
 # ----- bilinear interpolation weights (healpy get_interp_weights) -----
 
-def get_interp_weights_parts(nside, theta, phi):
-    """Closed-form 4-neighbour bilinear weights as component tuples
-    ((p1..p4), (w1..w4)); the weights sum to 1 (healpy
-    get_interp_weights parity; the pole rows split the weight within the
-    nearest ring)."""
+def interp_terms(nside, theta, phi):
+    """The terms of :func:`get_interp_weights_parts` that its derivative
+    needs: a dict of the ids ``p`` (p11, p12, p21, p22), the phi
+    fractions ``f1``, ``f2`` and phi steps ``dphi1``, ``dphi2`` of the
+    rings above and below, ``th1`` and ``denom`` (the theta weight is
+    (theta - th1) / denom), that weight before its clamp (``wt0``) and
+    after the clamp and the pole rows (``wt``), and the pole masks
+    ``npole``, ``spole``. The ring index, floor and mod are piecewise
+    constant in (theta, phi)."""
     n = nside
     dt = theta.dtype
     z = torch.cos(theta)
@@ -221,17 +226,29 @@ def get_interp_weights_parts(nside, theta, phi):
         p1 = start + torch.remainder(j1, npr)
         p2 = start + torch.remainder(j1 + 1, npr)
         th_r = torch.arccos(torch.clamp(zr, -1.0, 1.0))
-        return p1, p2, frac, th_r
+        return p1, p2, frac, th_r, dphi
 
-    p11, p12, f1, th1 = ring_neighbors(r1c)
-    p21, p22, f2, th2 = ring_neighbors(r2c)
+    p11, p12, f1, th1, dphi1 = ring_neighbors(r1c)
+    p21, p22, f2, th2, dphi2 = ring_neighbors(r2c)
 
     # theta-weight toward ring 2 (healpy interpolates in theta)
     denom = torch.where(th2 > th1, th2 - th1, 1.0)
-    wt = torch.clamp((theta - th1) / denom, 0.0, 1.0)
+    wt0 = (theta - th1) / denom
+    wt = torch.clamp(wt0, 0.0, 1.0)
     wt = torch.where(at_npole, 0.0, torch.where(at_spole, 1.0, wt))
+    return dict(p=(p11, p12, p21, p22), f1=f1, f2=f2, dphi1=dphi1,
+                dphi2=dphi2, th1=th1, denom=denom, wt0=wt0, wt=wt,
+                npole=at_npole, spole=at_spole)
 
-    return ((p11, p12, p21, p22),
+
+def get_interp_weights_parts(nside, theta, phi):
+    """Closed-form 4-neighbour bilinear weights as component tuples
+    ((p1..p4), (w1..w4)); the weights sum to 1 (healpy
+    get_interp_weights parity; the pole rows split the weight within the
+    nearest ring)."""
+    t = interp_terms(nside, theta, phi)
+    wt, f1, f2 = t["wt"], t["f1"], t["f2"]
+    return (t["p"],
             ((1 - wt) * (1 - f1), (1 - wt) * f1,
              wt * (1 - f2), wt * f2))
 

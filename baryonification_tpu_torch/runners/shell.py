@@ -17,8 +17,9 @@ hand-written CUDA kernel ``ops.cellmajor_cuda`` on a GPU). ``method=
 
 ``BaryonifyShell.process`` ends both methods in (C) one regrid: 4-neighbour
 bilinear weights for every displaced pixel, a scatter-add of the original
-mass, then the mass-conservation check (the cell-major method regrids in
-NESTED order; the deposit targets are RING ids either way).
+mass (on a GPU the hand-written kernel ``ops.regrid_cuda``), then the
+mass-conservation check (the cell-major method regrids in NESTED order;
+the deposit targets are RING ids either way).
 ``PaintProfilesShell.process`` adds the tabulated projected profile
 instead and has no regrid. ``process_device`` of both runners is the
 cell-major method as a differentiable function of the table: the map
@@ -47,6 +48,7 @@ import torch
 from ..cosmology import Cosmology, MassDef
 from ..ops import healpix as hpx
 from ..ops.cellmajor_cuda import cellmajor_pass, cellmajor_pass_diff
+from ..ops import regrid_cuda
 from ..ops.interp import blend_table_radial, radial_readout
 from ..ops.scatter_cuda import scatter_add_accum
 from ..parallel import (mesh_grad_sum, mesh_offsets_bucket,
@@ -654,23 +656,13 @@ def _accumulate_shell_paint(nside, n_rings, n_phi, n_props, tables, vx, vy,
 
 def _regrid_shell(nside, vx, vy, vz, orig_map, offsets):
     """Stage C: displace every pixel's unit vector and redeposit the
-    original mass with bilinear weights. ``offsets`` is the (ox, oy, oz)
-    plane tuple. The deposit is ``index_add_`` (XLA's scatter in the JAX
-    package); a fused regrid kernel is later work."""
-    ox, oy, oz = offsets
-    x = vx.to(ox.dtype) + ox
-    y = vy.to(ox.dtype) + oy
-    z = vz.to(ox.dtype) + oz
-    r = torch.sqrt(x * x + y * y + z * z)
-    theta = torch.arccos(torch.clamp(z / r, -1.0, 1.0))
-    phi = torch.atan2(y, x)
-    phi = torch.where(phi < 0, phi + 2 * np.pi, phi)
-    ps, ws = hpx.get_interp_weights_parts(nside, theta, phi)
-    idx = torch.cat(ps)
-    contrib = torch.cat([w.to(orig_map.dtype) * orig_map for w in ws])
-    out = torch.zeros(hpx.npix(nside), dtype=orig_map.dtype,
-                      device=orig_map.device)
-    return out.index_add_(0, idx, contrib)
+    original mass with bilinear weights into a new RING map. ``offsets``
+    is the (ox, oy, oz) plane tuple. ``ops.regrid_cuda.regrid_shell``: on
+    the card the kernels of ``csrc/regrid.cu`` (the deterministic route
+    under deterministic algorithms), on the CPU the plain version (the
+    ``index_add_`` deposit, XLA's scatter in the JAX package);
+    differentiable, its backward the adjoint kernel on the card."""
+    return regrid_cuda.regrid_shell(nside, vx, vy, vz, orig_map, offsets)
 
 
 class BaryonifyShell(DefaultRunner):

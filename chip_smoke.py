@@ -18,13 +18,20 @@ and fails on any fault:
      of one CIC corner each), with the whole call, the library call doing the same function, and the device
      launches a call; both Legendre kernels also get their issue bound; the
      cell-major pass runs in both modes at the shell path's bucket with
-     the most slot-pixels, after a census of the path's buckets;
+     the most slot-pixels, after a census of the path's buckets; the
+     regrid kernels (csrc/regrid.cu) at the shell path's inputs of one
+     process(): the check entry's ids and weights against the plain ops
+     bit for bit, the atomic kernel's and the deterministic route's maps
+     against the plain version (the route bit for bit over two runs, its
+     longest segment), the adjoint kernel against autograd of the plain
+     version, each timed beside index_add_ of the same rows;
   4. shell path: the Schneider19 displacement table built on the card
      (bench.py's grid) and BaryonifyShell.process() on an NSIDE-1024
      full-sky shell with bench.py's 1e6-halo catalog, cold and warm with
      stages, under method "auto" (the cell-major method on the card: its
      kernel launched, no scatter) and with method="scatter" (the scatter
-     kernel launched); asserts mass conservation and that the map
+     kernel launched), both regridding through the regrid kernel;
+     asserts mass conservation and that the map
      changed, and compares the two maps; then writes the input map to a
      FITS file, loads it through LightconeShell(path=...), holds the
      process() of the loaded shell to the in-memory run's bit for bit,
@@ -1078,6 +1085,227 @@ def check_cellmajor(T, torch, cmc, device, n_halo, nside, issue_bound):
     return rec
 
 
+# the regrid (csrc/regrid.cu): floating-point operations a pixel for its
+# operations bound, counted from the kernel's source (a division, square
+# root or transcendental one each): the moved vector and its norm 9, z / r
+# and its clamp 3, theta, phi and the wrap 4, cos 1, z_to_ring's three
+# branches and the select 21, each of the two rings 14 (its z, phi step,
+# t, floor, fraction, clamped acos), the theta weight and the four
+# weights 13, the four products 4; the adjoint recomputes all but the
+# products and adds 54 (the weights' derivatives 15, theta and phi 6,
+# acos and its clamp 8, the norm's and atan2's terms 25)
+REGRID_FLOPS = 9 + 3 + 4 + 1 + 21 + 2 * 14 + 13 + 4
+REGRID_VJP_FLOPS = REGRID_FLOPS - 4 + 54
+# the adjoint kernel against autograd of the plain version, of the
+# largest gradient (the same formula in another order; float32 rounds in
+# 1 / sqrt(1 - c^2) and 1 / (x^2 + y^2) near the poles)
+REGRID_VJP_BAR = {"float64": 1e-10, "float32": 1e-4}
+REGRID_SOURCE = "baryonification_tpu_torch/csrc/regrid.cu"
+REGRID_REPLACES = "baryonification_tpu/runners/shell.py:756"
+
+
+def regrid_inputs(T, torch, device, n_halo, nside):
+    """The regrid's inputs of one process() of the shell path (auto =
+    cellmajor, float32: the NESTED pixel planes, the passes' offsets and
+    the NESTED mass map), as runners.shell._regrid_shell receives them."""
+    from baryonification_tpu_torch.runners import shell as tsh
+    model = model_for(T, device, BENCH_GRID)
+    cat, shell = catalog(T, n_halo, nside)
+    runner = T.BaryonifyShell(cat, shell, epsilon_max=EPS_MAX, model=model,
+                              verbose=False, device=device)
+    keep = []
+    with spied(tsh, "_regrid_shell", keep.append):
+        runner.process()
+    check(len(keep) == 1, f"process() regridded {len(keep)} times")
+    # the rest of a warm call's regrid stage: the NESTED mass map, cached
+    # on the runner under a key that sums the host map
+    n2r, _ = runner._nested_maps(nside)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner._orig_map_nested(np.asarray(shell.map, dtype=np.float64), n2r,
+                            runner.dtype)
+    torch.cuda.synchronize()
+    log(f"kernels: regrid stage's host part in a warm process(): the "
+        f"cached NESTED mass map (its key sums the host map) "
+        f"{time.perf_counter() - t0:.4f} s")
+    return keep[0]
+
+
+def regrid_bar(dname, longest):
+    """The bar of a map against the plain version's, of max|map|: the
+    same positive rows summed in two orders differ by at most 2 (L - 1) u
+    of the sum, L the longest segment (the most rows one destination
+    takes), u the unit roundoff; float64 at least 1e-12."""
+    u = 2.0 ** -24 if dname == "float32" else 2.0 ** -53
+    bar = 2 * max(longest - 1, 1) * u
+    return bar if dname == "float32" else max(bar, 1e-12)
+
+
+def regrid_bound(n, npix, dname, vjp=False):
+    """((ms, 'bytes' or 'operations'), bytes, operations) of one regrid
+    (or its adjoint) of n pixels into an npix map: seven planes read once
+    and the map written once (the adjoint: the cotangent map read, three
+    offset planes written), the operations at the card's peak rate."""
+    t = 8 if dname == "float64" else 4
+    n_bytes = 7 * n * t + npix * t + (3 * n * t if vjp else 0)
+    flops = n * (REGRID_VJP_FLOPS if vjp else REGRID_FLOPS)
+    t_ops = flops / PEAK_FLOPS[dname] * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes
+            else (t_bytes, "bytes")), n_bytes, flops
+
+
+def check_regrid(T, torch, rc, device, n_halo, nside):
+    """The regrid kernels at the shell path's inputs (captured from one
+    process(), float32; the same planes cast to float64): the check
+    entry's ids and weights against the plain ops bit for bit (float32:
+    at most 1 ulp, counted); the atomic kernel's and the deterministic
+    route's maps against the plain version (regrid_bar of the longest
+    segment), the route equal to itself bit for bit, the mass kept; the
+    adjoint kernel against autograd of the plain version (REGRID_VJP_BAR);
+    queued_ms times beside the plain versions', index_add_ of the same
+    rows (the library call; under deterministic algorithms for the
+    route) and the bounds; the device launches of one call. Returns the
+    kernels-line records of regrid, regrid_det and regrid_vjp (float32)."""
+    hpx = T.ops.healpix
+    base = regrid_inputs(T, torch, device, n_halo, nside)
+    nside = base[0]
+    npix = 12 * nside ** 2
+    recs = {}
+    for dname, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        vx, vy, vz, m = (x.to(dt) for x in base[1:5])
+        off = tuple(o.to(dt) for o in base[5])
+        n = m.shape[0]
+        args = (nside, vx, vy, vz, m, off)
+        # ids and weights
+        ids, w = rc._regrid_parts(nside, vx, vy, vz, off)
+        x, y, z = (v + o for v, o in zip((vx, vy, vz), off))
+        r = torch.sqrt(x * x + y * y + z * z)
+        theta = torch.arccos(torch.clamp(z / r, -1.0, 1.0))
+        phi = torch.atan2(y, x)
+        phi = torch.where(phi < 0, phi + 2 * np.pi, phi)
+        ps, ws = hpx.get_interp_weights_parts(nside, theta, phi)
+        same_ids = torch.equal(ids, torch.stack(ps))
+        want_w = torch.stack(ws)
+        n_diff = int((w != want_w).sum())
+        ib = torch.int32 if dt == torch.float32 else torch.int64
+        ulps = int((w.view(ib).long() - want_w.view(ib).long()).abs().max())
+        del x, y, z, r, theta, phi, ps, ws, want_w
+        log(f"kernels: regrid {dname} at the shell path's inputs ({n} "
+            f"NESTED pixels, NSIDE {nside}): the check entry's ids equal "
+            f"the plain ops' {same_ids}; weights differing {n_diff} of "
+            f"{4 * n}, at most {ulps} ulp")
+        check(same_ids and (n_diff == 0 if dname == "float64" else ulps <= 1),
+              f"regrid {dname}: ids or weights differ from the plain ops")
+        # maps
+        planes, _, _ = rc._planes("regrid", vx, vy, vz, m, off)
+        counts = rc._segment_counts(nside, planes, dt, n)
+        longest = int(counts.max())
+        n_warp, n_global = int((counts > 16).sum()), int((counts > 256).sum())
+        bar = regrid_bar(dname, longest)
+        want, ms_p = timed(torch, lambda: rc.regrid_shell_reference(*args))
+        got = rc.regrid_shell(*args)
+        with deterministic(torch):
+            det = [rc.regrid_shell(*args) for _ in range(2)]
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        err_d = float((det[0] - want).abs().max())
+        same = torch.equal(det[0], det[1])
+        mass = float(m.double().sum())
+        drift = [abs(float(o.double().sum()) - mass) / mass
+                 for o in (want, got, det[0])]
+        log(f"kernels: regrid {dname}: the atomic map against the plain "
+            f"version max|err| / max|map| {err / scale:.3e}, the "
+            f"deterministic route's {err_d / scale:.3e} (bar {bar:.3e} from "
+            f"the longest segment, {longest} rows; {n_warp} segments of "
+            f"more than 16 rows (a warp each), {n_global} of more than 256 "
+            f"(sorted in global memory)); the route bit for bit over two "
+            f"runs {same}; |sum - mass| / mass plain {drift[0]:.3e}, kernel "
+            f"{drift[1]:.3e}, route {drift[2]:.3e}")
+        mass_bar = 1e-8 if dname == "float64" else bar + 8 * 2.0 ** -24
+        check(err <= bar * scale and err_d <= bar * scale and same
+              and bool(torch.isfinite(got).all())
+              and max(drift[1:]) <= mass_bar,
+              f"regrid {dname}: the kernels' maps disagree")
+        # times: the wrapper (the map's memset and the kernel), the
+        # library call on the same rows, the route, the plain version
+        idx = ids.reshape(-1)
+        contrib = (w * m).reshape(-1)
+        del ids, w, want, got, det, planes
+        lib = lambda: torch.zeros(npix, dtype=dt, device=device).index_add_(
+            0, idx, contrib)
+        ms_k = queued_ms(torch, lambda: rc.regrid_shell(*args), 20)
+        ms_lib = queued_ms(torch, lib, 20)
+        with deterministic(torch):
+            ms_det = queued_ms(torch, lambda: rc.regrid_shell(*args), 10)
+            ms_lib_det = queued_ms(torch, lib, 5)
+        del idx, contrib
+        (bound, by), n_bytes, flops = regrid_bound(n, npix, dname)
+        n0 = rc.LAUNCHES["regrid"]
+        rc.regrid_shell(*args)
+        n_k = rc.LAUNCHES["regrid"] - n0
+        n_p = device_launches(torch, lambda: rc.regrid_shell_reference(
+            *args))[0]
+        log(f"kernels: regrid {dname}: kernel {ms_k:.4f} ms (with its "
+            f"map's memset), index_add_ of the same rows {ms_lib:.4f} ms, "
+            f"plain {ms_p:.3f} ms; deterministic route {ms_det:.4f} ms, "
+            f"deterministic index_add_ {ms_lib_det:.4f} ms; bound "
+            f"{bound:.4f} ms by {by} ({n_bytes / 1e6:.1f} MB, {flops:.3e} "
+            f"operations): kernel at {100 * bound / ms_k:.1f}%, route at "
+            f"{100 * bound / ms_det:.1f}%; launches a call: the wrapper's "
+            f"torch.zeros of the map and {n_k} kernel launch, the plain "
+            f"version {n_p} device launches (torch.profiler)")
+        # the adjoint (the path's: no map gradient)
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        ct = torch.randn(npix, generator=gen, dtype=torch.float64).to(
+            device, dt)
+        leaves = [o.clone().requires_grad_() for o in off] + [
+            m.clone().requires_grad_()]
+        out = rc.regrid_shell_reference(nside, vx, vy, vz, leaves[3],
+                                        tuple(leaves[:3]))
+        # autograd of the plain chain: the regrid's share of a backward
+        # before its adjoint kernel
+        want_g, ms_auto = timed(torch, lambda: torch.autograd.grad(
+            out, leaves, ct))
+        del out, leaves
+        d_o, d_m = rc.regrid_vjp(*args, ct)
+        scale_g = max(float(g.abs().max()) for g in want_g)
+        err_v = max(float((a - b).abs().max())
+                    for a, b in zip(list(d_o) + [d_m], want_g))
+        finite = all(bool(torch.isfinite(a).all()) for a in d_o)
+        del d_o, d_m, want_g
+        log(f"kernels: regrid_vjp {dname} against autograd of the plain "
+            f"version: max|err| / max|grad| {err_v / scale_g:.3e} (bar "
+            f"{REGRID_VJP_BAR[dname]:g})")
+        check(finite and err_v <= REGRID_VJP_BAR[dname] * scale_g,
+              f"regrid_vjp {dname} disagrees with autograd")
+        ms_v = queued_ms(torch, lambda: rc.regrid_vjp(*args, ct, False), 20)
+        _, ms_vp = timed(torch, lambda: rc.regrid_vjp_reference(*args, ct,
+                                                                False))
+        (bound_v, by_v), nb_v, fl_v = regrid_bound(n, npix, dname, vjp=True)
+        log(f"kernels: regrid_vjp {dname}: kernel {ms_v:.4f} ms, plain "
+            f"{ms_vp:.3f} ms, autograd of the plain forward {ms_auto:.3f} "
+            f"ms; bound {bound_v:.4f} ms by {by_v} "
+            f"({nb_v / 1e6:.1f} MB, {fl_v:.3e} operations): kernel at "
+            f"{100 * bound_v / ms_v:.1f}%")
+        if dname == "float32":
+            common = dict(route="cuda", source=REGRID_SOURCE,
+                          replaces=REGRID_REPLACES)
+            recs["regrid"] = dict(common, name="regrid", max_abs_err=err,
+                                  ms=ms_k, plain_ms=ms_p, bound_ms=bound,
+                                  bound_by=by, library_ms=ms_lib,
+                                  longest_segment=longest)
+            recs["regrid_det"] = dict(common, name="regrid_det",
+                                      max_abs_err=err_d, ms=ms_det,
+                                      plain_ms=ms_p, bound_ms=bound,
+                                      bound_by=by, library_ms=ms_lib_det)
+            recs["regrid_vjp"] = dict(common, name="regrid_vjp",
+                                      max_abs_err=err_v, ms=ms_v,
+                                      plain_ms=ms_vp, bound_ms=bound_v,
+                                      bound_by=by_v, library_ms=None)
+    return recs
+
+
 def cellmajor_issue_bound(torch, mode, dname, n, sass, k_fn, ms_k,
                           name="cellmajor_pass", label="kernels"):
     """Log the issue bound of one call of kernel ``name`` from the census
@@ -1364,11 +1592,17 @@ TIMED_RUN = {"scatter_add": "grid BaryonifyGrid (auto = cellmajor)",
              "cellmajor_vjp2": "fit (examples 14, 16, 18)",
              "scatter_add_vjp": "gradgrid (value_and_grad, float32)",
              "grid_pass": "grid BaryonifyGrid (auto = cellmajor)",
-             "grid_vjp": "gradgrid (value_and_grad, float32)"}
+             "grid_vjp": "gradgrid (value_and_grad, float32)",
+             "regrid": "shell path (auto = cellmajor)",
+             "regrid_vjp": "grad (value_and_grad, float32)",
+             "regrid_det": "mesh shell-1e6 (1 nccl rank)"}
 COUNTERS = []       # the LAUNCHES dicts of the kernel modules
 SCATTER = []        # the name of the scatter module's forward kernel
 CELLMAJOR = []      # the name of the cell-major module's forward kernel
 GRID = ["grid_pass"]  # the grid pass module's forward kernel
+REGRID = ["regrid"]   # the shell regrid's kernel (stage C of a baryonify)
+# the regrid's deterministic route, under use_deterministic_algorithms
+REGRID_DET = ["regrid_det"]
 PATH_LAUNCHES = {}  # path -> launch counts of its run (read_counts)
 
 
@@ -1460,12 +1694,12 @@ def main_path(T, torch, device, n_halo, nside):
           f"method 'auto' resolved to {runner.method!r} on the card")
     cm_map, cm_launches, _ = run_process(torch, runner,
                                          "shell path (auto = cellmajor)",
-                                         CELLMAJOR, SCATTER)
+                                         CELLMAJOR + REGRID, SCATTER)
     runner = T.BaryonifyShell(cat, shell, epsilon_max=EPS_MAX, model=model,
                               verbose=False, device=device, method="scatter")
     sc_map, sc_launches, _ = run_process(torch, runner,
-                                         "shell path (scatter)", SCATTER,
-                                         CELLMAJOR)
+                                         "shell path (scatter)",
+                                         SCATTER + REGRID, CELLMAJOR)
     rms = np.sqrt(np.mean((cm_map - sc_map) ** 2)) / shell.map.mean()
     rel = np.abs(cm_map - sc_map).max() / np.abs(sc_map - shell.map).max()
     log(f"main: cell-major vs scatter map (float32 both): rms/mean = "
@@ -1480,7 +1714,8 @@ def fits_shell(T, torch, device, model, cat, shell):
     loaded through LightconeShell(path=...) (the map read back exactly),
     and BaryonifyShell.process() (auto) from it equal to the run from the
     map in memory bit for bit, both under deterministic algorithms (the
-    regrid's index_add_ otherwise sums in no fixed order on the card);
+    regrid's atomic kernel otherwise sums in no fixed order on the card;
+    under them it takes its deterministic route);
     then ud_grade of that map to NSIDE 256 with power -2 (the sum kept)
     on the card against the CPU's."""
     path = ROOT / ".scratch" / "chip_smoke_shell.fits"
@@ -2631,7 +2866,7 @@ def cl_path(T, torch, sp, device, nside, n_halo=3000):
         log(f"cl: theta_ej={theta_ej}: baryonify {t_b:.2f} s, anafast "
             f"{t_cl:.3f} s")
     counts = read_counts("C_ell path (baryonify + anafast)",
-                         CELLMAJOR + ["legendre_alm"])
+                         CELLMAJOR + REGRID + ["legendre_alm"])
     profile_anafast(torch, sp, torch.as_tensor(new_map, device=device,
                                                dtype=torch.float32),
                     nside, lmax)
@@ -3281,15 +3516,26 @@ def on_card(x):
     return getattr(x, "is_cuda", False)
 
 
+# the regrid's plain adjoint called on the card under create_graph (the
+# declared route of its autograd Function's backward), by name
+CREATE_GRAPH_PLAIN = []
+
+
 @contextlib.contextmanager
 def plain_on_card(cmc, sc=None):
-    """Names of the cell-major plain versions (and with ``sc`` the
-    scatter's) called on CUDA tensors in the block (a path on the card
-    must call none)."""
+    """Names of the cell-major and regrid plain versions (and with ``sc``
+    the scatter's) called on CUDA tensors in the block (a path on the
+    card must call none). The regrid's plain adjoint called with grad
+    mode on is its Function's backward under create_graph, the one
+    declared route of a plain version on the card: it goes to
+    CREATE_GRAPH_PLAIN instead."""
+    import torch
+    from baryonification_tpu_torch.ops import regrid_cuda as rc
     calls = []
     spies = [(cmc, name) for name in ("cellmajor_pass_reference",
                                       "cellmajor_vjp_reference",
                                       "cellmajor_vjp2_reference")]
+    spies += [(rc, "regrid_shell_reference")]
     if sc is not None:
         spies += [(sc, "scatter_add_accum_reference"),
                   (sc, "scatter_add_vjp_reference")]
@@ -3299,6 +3545,11 @@ def plain_on_card(cmc, sc=None):
                 module, name,
                 lambda args, name=name: calls.append(name)
                 if on_card(args) else None))
+        name = "regrid_vjp_reference"
+        stack.enter_context(spied(
+            rc, name, lambda args: (
+                CREATE_GRAPH_PLAIN if torch.is_grad_enabled() else calls
+            ).append(name) if on_card(args) else None))
         # the grid passes' step loop on a _GridBucket (the kernels' plain
         # version; the anisotropic and snapshot buckets step through it on
         # the card)
@@ -3312,8 +3563,9 @@ def plain_on_card(cmc, sc=None):
 
 @contextlib.contextmanager
 def deterministic(torch):
-    """Deterministic algorithms for the block: the regrid's index_add_
-    then sums in a fixed order on the card."""
+    """Deterministic algorithms for the block: the regrid then takes its
+    deterministic route on the card (each pixel's rows summed in the
+    order of their keys)."""
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         yield
@@ -3545,7 +3797,8 @@ def grad_path(T, torch, cmc, device, n_halo, nside, issue_bound=False):
         peak = torch.cuda.max_memory_allocated() / 2**30
         regs_warm = len(regs)
     launches = read_counts("grad (value_and_grad, float32)",
-                           ("cellmajor_pass", "cellmajor_vjp"))
+                           ("cellmajor_pass", "cellmajor_vjp", "regrid",
+                            "regrid_vjp"))
     check(not plain, f"grad: plain versions ran on the card: {plain}")
     check(regs_warm == 0, f"grad: the warm step registered {regs_warm} "
           f"buckets")
@@ -3863,6 +4116,7 @@ def fit_path(T, torch, cmc, device):
     fit). Returns the kernels-line record of cellmajor_vjp2."""
     reset_counts()
     t0 = time.perf_counter()
+    n_graph = len(CREATE_GRAPH_PLAIN)
     with plain_on_card(cmc) as plain:
         runner, table, s14 = example14(T, torch, device)
         t14 = time.perf_counter() - t0
@@ -3871,8 +4125,14 @@ def fit_path(T, torch, cmc, device):
         example18(T, torch, device)
     t18 = time.perf_counter() - t0 - t14 - t16
     read_counts("fit (examples 14, 16, 18)",
-                ("cellmajor_pass",) + ADJOINT)
+                ("cellmajor_pass",) + ADJOINT + ("regrid", "regrid_vjp"))
     check(not plain, f"fit: plain versions ran on the card: {plain}")
+    n_graph = len(CREATE_GRAPH_PLAIN) - n_graph
+    log(f"fit: the regrid's backward under create_graph (the Laplace "
+        f"covariances' reverse over reverse) ran its plain closed form on "
+        f"the card {n_graph} times, the declared route")
+    check(n_graph > 0, "fit: no Laplace covariance took the regrid's "
+          "create_graph route")
     log(f"fit: examples 14, 16, 18 passed every assert in {t14:.1f}, "
         f"{t16:.1f}, {t18:.1f} s; Adam {s14:.3f} s a step (ex14), "
         f"{s16:.3f} s a step (ex16)")
@@ -5505,7 +5765,7 @@ def mesh_rank_runs(T, torch, cmc, sc, mesh, device, rank, world, work,
                               device=device, mesh=mesh)
     check(runner.method == "cellmajor", "mesh: auto is not cellmajor")
     with deterministic(torch):
-        m, cold = timed_run("shell-1e6", runner, CELLMAJOR)
+        m, cold = timed_run("shell-1e6", runner, CELLMAJOR + REGRID_DET)
         warm, stages = warm_stages(runner)
     one = np.load(work / "shell_1rank.npy").astype(np.float64)
     rms, rel = map_diff(m, one)
@@ -5530,7 +5790,7 @@ def mesh_rank_runs(T, torch, cmc, sc, mesh, device, rank, world, work,
     with plain_on_card(cmc, sc) as plain:
         loss, g, secs = shell_value_and_grad(T, torch, runner, device)
     read_counts(f"mesh grad shell-1e6 {tag}",
-                ("cellmajor_pass", "cellmajor_vjp"))
+                ("cellmajor_pass", "cellmajor_vjp", "regrid", "regrid_vjp"))
     check(not plain, f"mesh grad: plain versions ran on the card: {plain}")
     dg = abs(g - ref["grad"]) / abs(ref["grad"])
     check(dg < MESH_GRAD_BAR, f"mesh grad shell-1e6: {world} ranks "
@@ -5640,9 +5900,10 @@ def mesh_rank_main(rank, world, init_file, root, work, n_halo, nside,
     import baryonification_tpu_torch as T
     from baryonification_tpu_torch.ops import cellmajor_cuda as cmc
     from baryonification_tpu_torch.ops import grid_pass_cuda as gp
+    from baryonification_tpu_torch.ops import regrid_cuda as rc
     from baryonification_tpu_torch.ops import scatter_cuda as sc
 
-    COUNTERS.extend([sc.LAUNCHES, cmc.LAUNCHES, gp.LAUNCHES])
+    COUNTERS.extend([sc.LAUNCHES, cmc.LAUNCHES, gp.LAUNCHES, rc.LAUNCHES])
     SCATTER.append("scatter_add")
     CELLMAJOR.append("cellmajor_pass")
     device = torch.device(device_type, 0)
@@ -5704,7 +5965,8 @@ def mesh_path(T, torch, cmc, sc, device, root, n_halo, nside):
         with plain_on_card(cmc, sc) as plain, deterministic(torch):
             m1 = runner.process()
             warm, stages = warm_stages(runner)
-        read_counts(f"mesh shell-1e6 (1 {backend} rank)", CELLMAJOR)
+        read_counts(f"mesh shell-1e6 (1 {backend} rank)",
+                    CELLMAJOR + REGRID_DET)
         check(not plain, f"mesh: plain versions ran on the card: {plain}")
         check(np.array_equal(m1, ref), "mesh shell-1e6: the 1-rank mesh "
               "differs from process() (deterministic algorithms)")
@@ -5713,7 +5975,8 @@ def mesh_path(T, torch, cmc, sc, device, root, n_halo, nside):
         with plain_on_card(cmc, sc) as plain:
             loss, g, secs = shell_value_and_grad(T, torch, runner, device)
         read_counts(f"mesh grad shell-1e6 (1 {backend} rank)",
-                    ("cellmajor_pass", "cellmajor_vjp"))
+                    ("cellmajor_pass", "cellmajor_vjp", "regrid",
+                     "regrid_vjp"))
         check(not plain, f"mesh grad: plain versions ran on the card: "
               f"{plain}")
         out["1rank"].update(loss=loss, grad=g, step_s=secs)
@@ -5763,7 +6026,9 @@ def ptxas_summary(build_log):
                           m.group(1))
             g = re.search(r"\dgrid_kernelI([fd])Li([23])ELi([012])ELb([01])E",
                           m.group(1))
-            entry = (f"grid_{('pass', 'vjp')[int(g.group(4))]}<{g.group(1)},"
+            rg = re.search(r"\d(regrid\w*_kernel)I([fd])E", m.group(1))
+            entry = (f"{rg.group(1)}<{rg.group(2)}>" if rg else
+                     f"grid_{('pass', 'vjp')[int(g.group(4))]}<{g.group(1)},"
                      f"dim={g.group(2)},mode={g.group(3)}>" if g else
                      f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else
                      f"{b.group(1)}<{b.group(2)},paint={b.group(3)},"
@@ -5782,7 +6047,7 @@ def ptxas_summary(build_log):
     return out
 
 
-def build_all(torch, sc, lc, cmc, gp):
+def build_all(torch, sc, lc, cmc, gp, rc):
     """Compile every kernel source at once (one nvcc each, in parallel),
     then bind each kernel in both dtypes. The kernels of the paths (the
     scatter, the cell-major pass, the Legendre kernels at 8 rings per
@@ -5811,6 +6076,8 @@ def build_all(torch, sc, lc, cmc, gp):
         lc._kernel("legendre_synth", dt)
         for entry in gp.LAUNCHES:
             gp._kernel(dt, entry)
+        for entry in rc._ARGTYPES:
+            rc._kernel(dt, entry)
     log("build: " + ", ".join(f"{n}.cu {t:.2f} s" for n, t in times)
         + f"; all built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, text in getattr(cb, "BUILD_LOG", {}).items():
@@ -5819,7 +6086,8 @@ def build_all(torch, sc, lc, cmc, gp):
             f"bytes): " + ", ".join(f"{e} {r} ({sp}, {sm})"
                                     for e, r, sp, sm in rows))
         for e, r, sp, _ in rows:
-            if e.startswith(("scatter_add", "cellmajor", "adjoint", "grid_")) \
+            if e.startswith(("scatter_add", "cellmajor", "adjoint", "grid_",
+                             "regrid")) \
                     or e.endswith(("<f,8>", "<d,8>")):
                 check(sp == 0, f"{e} spills {sp} bytes of registers")
 
@@ -5853,11 +6121,13 @@ def main(argv=None):
     from baryonification_tpu_torch.ops import cellmajor_cuda as cmc
     from baryonification_tpu_torch.ops import grid_pass_cuda as gp
     from baryonification_tpu_torch.ops import legendre_cuda as lc
+    from baryonification_tpu_torch.ops import regrid_cuda as rc
     from baryonification_tpu_torch.ops import scatter_cuda as sc
     from baryonification_tpu_torch.ops import spectra as sp
     check("jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                         if v is not None}, "JAX was imported")
-    COUNTERS.extend([sc.LAUNCHES, lc.LAUNCHES, cmc.LAUNCHES, gp.LAUNCHES])
+    COUNTERS.extend([sc.LAUNCHES, lc.LAUNCHES, cmc.LAUNCHES, gp.LAUNCHES,
+                     rc.LAUNCHES])
     SCATTER.append("scatter_add")
     CELLMAJOR.append("cellmajor_pass")
 
@@ -5870,7 +6140,7 @@ def main(argv=None):
         f"{torch.cuda.device_count()}), torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; nvidia-smi: {smi_line}")
 
-    build_all(torch, sc, lc, cmc, gp)
+    build_all(torch, sc, lc, cmc, gp, rc)
     records = {}
     phase_s, mark = {}, [None, time.perf_counter()]
 
@@ -5891,6 +6161,8 @@ def main(argv=None):
         records["cellmajor_pass"] = check_cellmajor(
             T, torch, cmc, device, args.halos, args.nside,
             issue_bound=args.root.resolve() == ROOT)
+        records.update(check_regrid(T, torch, rc, device, args.halos,
+                                    args.nside))
     if args.halos != 1_000_000 or args.nside != 1024:
         log(f"cut: paths at NSIDE {args.nside}, shell path at "
             f"{args.halos} halos")
@@ -5965,6 +6237,7 @@ def main(argv=None):
     kernel_of.update({k: k for k in cmc.LAUNCHES})
     kernel_of.update({k: k for k in lc.LAUNCHES})
     kernel_of.update({k: k for k in gp.LAUNCHES})
+    kernel_of.update({k: k for k in rc.LAUNCHES})
     for path, counts in PATH_LAUNCHES.items():
         for k, n in counts.items():
             if n:

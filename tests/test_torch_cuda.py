@@ -35,7 +35,13 @@ backward, the autograd of the scatter-add by ``gradcheck`` and
 on the card in float64 against ``process()`` and against the CPU, values
 and gradients. ``PaintProfilesAnisGrid`` runs on the card in float64
 against the CPU, both methods, with the cell-major pass's derivatives in
-its canvas and its remap; ``ud_grade`` on the card against the CPU.
+its canvas and its remap; ``ud_grade`` on the card against the CPU. The
+regrid cases (tests/_torch_regrid_cases.py) hold the check entry's ids
+and weights to the plain ops bit for bit, the atomic kernel's and the
+deterministic route's maps to the plain version (the route bit for bit
+over two runs, its warp path on a pile-up), the adjoint kernel to
+autograd of the plain version, and show the shell runners launching the
+regrid kernels and never its plain version.
 """
 
 import numpy as np
@@ -620,8 +626,8 @@ def test_cellmajor_adjoint_matches_plain(name, mode, dtype, cuda_device):
 def test_process_device_on_card(cuda_device):
     """process_device() on the card equals process() bit for bit, float32
     and float64, for both shell runners (under deterministic algorithms:
-    the regrid's index_add_ otherwise sums with atomics in no fixed
-    order), launches the adjoint kernel for a gradient, and the float64
+    the regrid's atomic kernel otherwise sums in no fixed order),
+    launches the adjoint kernel for a gradient, and the float64
     gradient and Hessian-vector product through it agree with the CPU's
     plain versions to 1e-9."""
     T, model, cat, shell = _small_shell()
@@ -1786,3 +1792,211 @@ def test_grid_runner_launches_grid_pass(cuda_device):
             for a, b in zip(card.census, cpu.census):
                 assert (a["slots"], a["inside"]) == (b["slots"],
                                                      b["inside"]), (dim, cls)
+
+
+# ----- the shell regrid: csrc/regrid.cu -----
+
+from _torch_regrid_cases import CASES as REGRID_CASES  # noqa: E402
+from _torch_regrid_cases import as_torch, regrid_case  # noqa: E402
+from baryonification_tpu_torch.ops import regrid_cuda as rc  # noqa: E402
+
+# the adjoint kernel against autograd of the plain version, of the largest
+# gradient (the same formula in another order; float32 rounds in
+# 1 / sqrt(1 - c^2) and 1 / (x^2 + y^2) near the poles)
+REGRID_VJP_BAR = {torch.float64: 1e-10, torch.float32: 1e-4}
+
+
+def regrid_map_bar(dtype, counts):
+    """The bar of a map against the plain version's, of max|map|: the
+    same positive rows summed in two orders differ by at most
+    2 (L - 1) u of the sum, L the longest segment (``counts``: the rows
+    a destination takes), u the unit roundoff; float64 at least 1e-12,
+    the CPU tests' bar."""
+    u = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -53
+    bound = 2 * max(int(counts.max()) - 1, 1) * u if counts.numel() else u
+    return bound if dtype == torch.float32 else max(bound, 1e-12)
+
+
+def _regrid_inputs(name, dtype, device):
+    return as_torch(regrid_case(name), dtype=dtype, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", REGRID_CASES)
+def test_regrid_parts_match_plain(name, dtype, cuda_device):
+    """The check entry's ids and weights equal the plain ops' on the card
+    bit for bit (the kernel rounds as PyTorch's CUDA ops do)."""
+    nside, vx, vy, vz, m, off = _regrid_inputs(name, dtype, cuda_device)
+    ids, w = rc._regrid_parts(nside, vx, vy, vz, off)
+    x, y, z = (v + o for v, o in zip((vx, vy, vz), off))
+    r = torch.sqrt(x * x + y * y + z * z)
+    theta = torch.arccos(torch.clamp(z / r, -1.0, 1.0))
+    phi = torch.atan2(y, x)
+    phi = torch.where(phi < 0, phi + 2 * np.pi, phi)
+    ps, ws = hpx.get_interp_weights_parts(nside, theta, phi)
+    assert torch.equal(ids, torch.stack(ps))
+    want = torch.stack(ws)
+    bad = (w != want).nonzero()
+    assert bad.shape[0] == 0, (bad.shape[0], bad[:4].tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", REGRID_CASES)
+def test_regrid_kernel_matches_plain(name, dtype, cuda_device):
+    """The atomic kernel's map against the plain version on the card
+    (regrid_map_bar of max|map|), the mass conserved (float64 to 1e-8,
+    float32 to that bar and eight roundings); one launch
+    (none for no pixel); the deterministic route within the same bar and
+    equal to itself over two runs bit for bit."""
+    args = _regrid_inputs(name, dtype, cuda_device)
+    m = args[4]
+    want = rc.regrid_shell_reference(*args)
+    bar = regrid_map_bar(dtype, rc._segment_counts(
+        args[0], *rc._planes("t", *args[1:]))) if m.shape[0] else 0.0
+    n0 = dict(rc.LAUNCHES)
+    got = rc.regrid_shell(*args)
+    assert rc.LAUNCHES["regrid"] - n0["regrid"] == int(m.shape[0] > 0)
+    torch.use_deterministic_algorithms(True)
+    try:
+        det = [rc.regrid_shell(*args) for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert rc.LAUNCHES["regrid_det"] - n0["regrid_det"] == \
+        2 * int(m.shape[0] > 0)
+    assert torch.equal(det[0], det[1])
+    scale = max(float(want.abs().max()), 1e-300)
+    for out in (got, det[0]):
+        assert out.dtype == dtype and out.shape == want.shape
+        assert float((out - want).abs().max()) <= bar * scale
+        # float32 weights sum to 1 within a few roundings, and the sums
+        # round as above
+        tol = 1e-8 if dtype == torch.float64 else bar + 8 * 2.0 ** -24
+        mass = float(m.double().sum())
+        assert abs(float(out.double().sum()) - mass) <= tol * max(mass, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_regrid_deterministic_long_segments(dtype, cuda_device):
+    """The pile-up (hundreds of rows on a few destinations: the warp path,
+    in shared memory and past it in global memory) and a whole NSIDE-64
+    sky moved a few pixels: the deterministic route's map the same bit
+    for bit over two runs, and within regrid_map_bar of the plain version
+    also with the inputs permuted (other keys, so another order)."""
+    for name in ("pileup", "n64_nested_large"):
+        nside, vx, vy, vz, m, off = _regrid_inputs(name, dtype, cuda_device)
+        planes, T, n = rc._planes("t", vx, vy, vz, m, off)
+        counts = rc._segment_counts(nside, planes, T, n)
+        if name == "pileup":
+            assert int(counts.max()) > 256, int(counts.max())
+        bar = regrid_map_bar(dtype, counts)
+        perm = torch.randperm(n, generator=torch.Generator().manual_seed(0)
+                              ).to(cuda_device)
+        torch.use_deterministic_algorithms(True)
+        try:
+            a = rc.regrid_shell(nside, vx, vy, vz, m, off)
+            b = rc.regrid_shell(nside, vx, vy, vz, m, off)
+            c = rc.regrid_shell(nside, vx[perm], vy[perm], vz[perm], m[perm],
+                                tuple(o[perm] for o in off))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        assert torch.equal(a, b)
+        want = rc.regrid_shell_reference(nside, vx, vy, vz, m, off)
+        scale = float(want.abs().max())
+        for out in (a, c):
+            assert float((out - want).abs().max()) <= bar * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", [c for c in REGRID_CASES if c != "empty"])
+def test_regrid_vjp_matches_autograd(name, dtype, cuda_device):
+    """The adjoint kernel against autograd of the plain forward on the
+    card, in the offsets and the map (REGRID_VJP_BAR of the largest
+    gradient; NaN where autograd's is NaN: z / r exactly +-1), and through
+    the autograd Function: one regrid_vjp launch for a first-order
+    backward, none under create_graph (the plain closed form)."""
+    nside, vx, vy, vz, m, off = _regrid_inputs(name, dtype, cuda_device)
+    ct = torch.as_tensor(np.random.default_rng(1).normal(
+        size=12 * nside * nside), dtype=dtype, device=cuda_device)
+    leaves = [o.clone().requires_grad_() for o in off] + [
+        m.clone().requires_grad_()]
+    out = rc.regrid_shell_reference(nside, vx, vy, vz, leaves[3],
+                                    tuple(leaves[:3]))
+    want = torch.autograd.grad(out, leaves, ct)
+    n0 = rc.LAUNCHES["regrid_vjp"]
+    out = rc.regrid_shell(nside, vx, vy, vz, leaves[3], tuple(leaves[:3]))
+    got = torch.autograd.grad(out, leaves, ct)
+    assert rc.LAUNCHES["regrid_vjp"] == n0 + 1
+    (d_o, d_m) = rc.regrid_vjp(nside, vx, vy, vz, m, off, ct)
+    assert all(torch.allclose(a, b, rtol=0, atol=0, equal_nan=True)
+               for a, b in zip(got, list(d_o) + [d_m]))
+    scale = max(float(torch.nan_to_num(w, nan=0.0).abs().max())
+                for w in want)
+
+    def assert_close(got):
+        for g, w in zip(got, want):
+            g = g.detach()
+            assert torch.equal(torch.isnan(g), torch.isnan(w))
+            ok = ~torch.isnan(w)
+            if ok.any():
+                assert float((g[ok] - w[ok]).abs().max()) <= \
+                    REGRID_VJP_BAR[dtype] * scale, name
+
+    assert_close(got)
+    out = rc.regrid_shell(nside, vx, vy, vz, leaves[3], tuple(leaves[:3]))
+    got2 = torch.autograd.grad(out, leaves, ct, create_graph=True)
+    assert rc.LAUNCHES["regrid_vjp"] == n0 + 2      # the direct call above
+    assert_close(got2)
+
+
+@pytest.mark.cuda
+def test_regrid_refuses_bad_inputs(cuda_device):
+    nside, vx, vy, vz, m, off = _regrid_inputs("n16_nested_small",
+                                               torch.float32, cuda_device)
+    with pytest.raises(TypeError, match="dtype"):
+        rc.regrid_shell(nside, vx, vy, vz, m.double(), off)
+    with pytest.raises(ValueError, match="NSIDE"):
+        rc.regrid_shell(2 * rc.MAX_NSIDE, vx, vy, vz, m, off)
+    with pytest.raises(ValueError, match="1-D"):
+        rc.regrid_shell(nside, vx[:-1], vy, vz, m, off)
+    with pytest.raises(ValueError, match="ct"):
+        rc.regrid_vjp(nside, vx, vy, vz, m, off, m[:-1])
+
+
+@pytest.mark.cuda
+def test_regrid_in_the_shell_runners(cuda_device):
+    """process() on the card launches the regrid kernel under both
+    methods (the deterministic route under deterministic algorithms) and
+    never the plain version; a gradient of process_device() launches
+    regrid_vjp."""
+    T, model, cat, shell = _small_shell()
+    calls = []
+    plain = rc.regrid_shell_reference
+    rc.regrid_shell_reference = lambda *a: calls.append(a) or plain(*a)
+    try:
+        for method in ("cellmajor", "scatter"):
+            r = T.BaryonifyShell(cat, shell, epsilon_max=20, model=model,
+                                 verbose=False, device=cuda_device,
+                                 method=method)
+            n0 = dict(rc.LAUNCHES)
+            r.process()
+            assert rc.LAUNCHES["regrid"] == n0["regrid"] + 1, method
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                r.process()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            assert rc.LAUNCHES["regrid_det"] == n0["regrid_det"] + 1
+        table = model._table.to(cuda_device).requires_grad_(True)
+        n0 = rc.LAUNCHES["regrid_vjp"]
+        r = T.BaryonifyShell(cat, shell, epsilon_max=20, model=model,
+                             verbose=False, device=cuda_device,
+                             precision="float64")
+        torch.autograd.grad((r.process_device(table) ** 2).sum(), table)
+        assert rc.LAUNCHES["regrid_vjp"] == n0 + 1
+    finally:
+        rc.regrid_shell_reference = plain
+    assert not calls
