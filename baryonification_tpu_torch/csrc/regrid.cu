@@ -8,27 +8,52 @@
 // (:201) and ring_info (:167), ending in one scatter of 4 x npix rows. The
 // port's plain version (ops/regrid_cuda.py regrid_shell_reference) is the
 // same chain of elementwise PyTorch ops, four concatenated id and mass
-// planes and one index_add_; it is the shell path's largest device stage.
+// planes and one index_add_.
 //
-// Design. One thread an input pixel computes x, y, z = v + o, r, theta,
-// phi, the two rings around cos(theta), the four ids and weights in
-// registers, and adds w_k * m_i to the zeroed map with four atomicAdds
-// whose results are unused (red.global.add): no 4 x npix temporaries.
-// Inputs come in any order (NESTED on the cell-major path, RING on the
-// scatter path, one rank's slice on the mesh path); the map is always
-// the full-sky RING map. Every operation rounds as the plain version's
-// PyTorch op on the card does: the file is built with --fmad=false, the
-// Python scalars are taken in the hot dtype T, a division by a Python
-// scalar is a product with its reciprocal (PyTorch's CUDA division by a
-// CPU scalar), 2 pi / npr is reciprocal(npr) * 2 pi (Tensor.__rtruediv__),
-// floor and the int64 casts and remainders are those of PyTorch's kernels,
+// Design. What bounds it, measured on an H100 at the inputs of one
+// shell-1e6 process() (12.6M NESTED pixels, float32;
+// experiments/regrid/split.py and chip_smoke.py, PERF.md): a first
+// design that computed every ring term for every pixel in 64-bit
+// integers and made four red.global.add a pixel took 0.40 ms, its corners
+// alone 0.32 ms (668 SASS instructions a pixel, an issue bound of
+// 0.25 ms), its adds alone 0.39 ms (5.0e7 adds into 1.26e7
+// destinations), the map's memset 0.018 ms; the bytes (0.12 ms) did not
+// bound it. So:
+//
+// 1. regrid_rings fills a table of the 4 nside rings once per (NSIDE,
+//    dtype, device): each ring's first pixel and length (int32), its
+//    theta, phi step and shift, and the step's reciprocal. A pixel reads
+//    its two rings' rows (32 or 48 bytes each, through the read-only
+//    path) in place of two acos, six IEEE divisions and the rings'
+//    integer arithmetic.
+// 2. Rings, floors, remainders and ids are 32-bit: npix < 2^30 up to
+//    MAX_NSIDE = 8192. A column's remainder takes compares; the division
+//    runs only past them.
+// 3. A warp merges its 128 rows by destination before the global adds
+//    (merge_rows: four rounds of __match_any_sync, one a (ring parity,
+//    id parity), so all the rows of one destination meet in one round),
+//    which leaves one add a (warp, destination): 0.39 of the rows. No
+//    float atomic touches shared memory (sm_90a makes those a CAS loop).
+// The corners now take 416 instructions a pixel and the kernel with its
+// merge 591: it runs at about 85% of that issue bound, beside the merged
+// adds (1.96e7 of them take 0.14 ms alone). regrid_vjp reads the same
+// table (537 instructions, about 85% of its issue bound); its derivative
+// in phi is a product with the table's reciprocal of the phi step, within
+// a rounding of the plain version's division.
+//
+// Every operation that gives an id or a weight rounds as the plain
+// version's PyTorch op on the card does, so the ids and weights are the
+// plain ops' bit for bit: the file is built with --fmad=false, the Python
+// scalars are taken in the hot dtype T, a division by a Python scalar is
+// a product with its reciprocal (PyTorch's CUDA division by a CPU
+// scalar), 2 pi / npr is reciprocal(npr) * 2 pi (Tensor.__rtruediv__),
+// floor, the integer casts and remainders are those of PyTorch's kernels,
 // and acos, atan2, cos and sqrt are the CUDA math library's, as in
-// PyTorch's kernels. regrid_parts writes each pixel's four ids and weights
-// instead of adding them, so the tests and chip_smoke.py can hold them to
-// the plain ops bit for bit.
-//
-// Bound: memory bytes. Seven planes read once (v, o, m), the map written
-// once; the adds land in L2. The sums arrive in no fixed order.
+// PyTorch's kernels. The table's entries are the same ops on the ring
+// index, so they too are the plain ops' closed form of every ring bit for
+// bit. regrid_parts writes each pixel's four ids and weights instead of
+// adding them, so the tests and chip_smoke.py can hold them to the plain
+// ops bit for bit.
 //
 // Deterministic route (what the wrapper takes under
 // torch.use_deterministic_algorithms): regrid_count adds each (pixel,
@@ -50,16 +75,16 @@
 // gradients once (no atomics): dL/dm = sum w_k g_k, and through the
 // weights' derivatives in theta (inside wt's clamp, not at a pole) and
 // phi, acos, the clamp of z / r, atan2 and the norm, dL/do = dL/d(x, y,
-// z). Bound: memory bytes (seven planes and the cotangent map read, three
-// or four planes written).
+// z).
 
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpCap = 256;            // rows a warp sorts in shared memory
 constexpr int kLongWarps = 8;            // warps a CTA of regrid_long
 constexpr int kRegisterRows = 16;        // longest segment a thread sorts
@@ -102,20 +127,19 @@ template <typename T>
 __device__ __forceinline__ T clamp_min(T v, T lo) {
   return v != v ? v : d_max(v, lo);
 }
-__device__ __forceinline__ long long clampll(long long v, long long lo,
-                                             long long hi) {
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// torch.remainder of int64 (the result takes the divisor's sign); b is a
-// ring length, 0 < b < 2^31, so a 32-bit division serves where a fits
-__device__ __forceinline__ long long remainder_ll(long long a, long long b) {
-  long long r = (a >= INT_MIN && a <= INT_MAX)
-                    ? static_cast<long long>(static_cast<int>(a) %
-                                             static_cast<int>(b))
-                    : a % b;
-  if (r != 0 && ((r < 0) != (b < 0))) r += b;
-  return r;
+// torch.remainder of a column a by a ring length b > 0 (the result in
+// [0, b)): a is in [-1, b] for every direction but a NaN, so compares
+// serve and the division runs only past them
+__device__ __forceinline__ int remainder_i(int a, int b) {
+  if (a >= 0 && a < b) return a;
+  if (a < 0 && a >= -b) return a + b;
+  if (a >= b && a - b < b) return a - b;
+  const int r = a % b;
+  return r < 0 ? r + b : r;
 }
 
 // float(x) of a Python scalar, as PyTorch casts it to the op's dtype
@@ -124,37 +148,43 @@ __device__ __forceinline__ T S(double x) {
   return static_cast<T>(x);
 }
 
-// ops/healpix.py z_to_ring
+// ops/healpix.py z_to_ring; only the branch that z selects is computed
+// (the plain version computes all three and selects, to the same bits)
 template <typename T>
-__device__ __forceinline__ long long z_to_ring(long long n, T z) {
+__device__ __forceinline__ int z_to_ring(int n, T z) {
   const T fn = static_cast<T>(n);
-  const long long i_eq = static_cast<long long>(
-      d_floor((S<T>(2.0) - z * S<T>(1.5)) * fn));
-  const long long i_n = static_cast<long long>(d_floor(
-      d_sqrt(clamp_min((S<T>(1.0) - z) * S<T>(3.0), T(0))) * fn));
-  const long long i_s =
-      4 * n - 1 -
-      static_cast<long long>(d_floor(
-          d_sqrt(clamp_min((z + S<T>(1.0)) * S<T>(3.0), T(0))) * fn));
-  const long long ring =
-      z > S<T>(2.0 / 3.0) ? i_n : (z < S<T>(-2.0 / 3.0) ? i_s : i_eq);
-  return clampll(ring, 0, 4 * n - 1);
+  int ring;
+  if (z > S<T>(2.0 / 3.0)) {
+    ring = static_cast<int>(d_floor(
+        d_sqrt(clamp_min((S<T>(1.0) - z) * S<T>(3.0), T(0))) * fn));
+  } else if (z < S<T>(-2.0 / 3.0)) {
+    ring = 4 * n - 1 -
+           static_cast<int>(d_floor(
+               d_sqrt(clamp_min((z + S<T>(1.0)) * S<T>(3.0), T(0))) * fn));
+  } else {
+    ring = static_cast<int>(d_floor((S<T>(2.0) - z * S<T>(1.5)) * fn));
+  }
+  return clampi(ring, 0, 4 * n - 1);
 }
 
-// ops/healpix.py ring_info and interp_terms' ring_neighbors for ring i:
-// the two ids bracketing phi, the fraction toward the second, the ring's
-// theta and its phi step
+// One row of the ring table: what ops/healpix.py ring_info and
+// interp_terms' ring_neighbors compute from the ring index alone (its
+// first pixel, its length, its theta, its phi step and shift, and the
+// step's reciprocal, which only the adjoint reads)
 template <typename T>
-__device__ __forceinline__ void ring_neighbors(long long n, long long i,
-                                               T phi, long long& p1,
-                                               long long& p2, T& frac,
-                                               T& th, T& dphi) {
-  // i ** 2 / (3 n n) and 2 i / (3 n): a product with the scalar's
-  // reciprocal, taken in T
+struct __align__(16) Ring {
+  int start, npr;
+  T theta, dphi, shift, inv_dphi;
+};
+
+// ring i of NSIDE n, op for op as the plain version: i ** 2 / (3 n n)
+// and 2 i / (3 n) as products with the scalar's reciprocal, taken in T
+template <typename T>
+__device__ __forceinline__ Ring<T> ring_row(int n, int i) {
   const T inv3nn = T(1) / S<T>(3.0 * n * n);
   const T inv3n = T(1) / S<T>(3.0 * n);
   T zr, shift;
-  long long start, npr;
+  int start, npr;
   if (i < n) {
     const T fi = static_cast<T>(i);
     zr = S<T>(1.0) - (fi * fi) * inv3nn;
@@ -162,7 +192,7 @@ __device__ __forceinline__ void ring_neighbors(long long n, long long i,
     npr = 4 * i;
     shift = S<T>(0.5);
   } else if (i > 3 * n) {
-    const long long im = 4 * n - i;
+    const int im = 4 * n - i;
     const T fm = static_cast<T>(im);
     zr = -(S<T>(1.0) - (fm * fm) * inv3nn);
     start = 12 * n * n - 2 * im * (im + 1);
@@ -173,31 +203,46 @@ __device__ __forceinline__ void ring_neighbors(long long n, long long i,
     zr = S<T>(4.0 / 3.0) - (fi * S<T>(2.0)) * inv3n;
     start = 2 * n * (n - 1) + 4 * n * (i - n);
     npr = 4 * n;
-    shift = static_cast<T>(remainder_ll(i - n + 1, 2)) * S<T>(0.5);
+    shift = static_cast<T>((i - n + 1) & 1) * S<T>(0.5);
   }
-  dphi = (T(1) / static_cast<T>(npr)) * S<T>(kTwoPi);
-  const T t = phi / dphi - shift;
-  const long long j1 = static_cast<long long>(d_floor(t));
+  Ring<T> g;
+  g.start = start;
+  g.npr = npr;
+  g.theta = d_acos(clampf(zr, T(-1), T(1)));
+  g.dphi = (T(1) / static_cast<T>(npr)) * S<T>(kTwoPi);
+  g.shift = shift;
+  g.inv_dphi = T(1) / g.dphi;
+  return g;
+}
+
+// the two ids of ring g bracketing phi and the fraction toward the second
+template <typename T>
+__device__ __forceinline__ void ring_pair(const Ring<T>& g, T phi, int& p1,
+                                          int& p2, T& frac) {
+  const T t = phi / g.dphi - g.shift;
+  const int j1 = static_cast<int>(d_floor(t));
   frac = t - static_cast<T>(j1);
-  p1 = start + remainder_ll(j1, npr);
-  p2 = start + remainder_ll(j1 + 1, npr);
-  th = d_acos(clampf(zr, T(-1), T(1)));
+  p1 = g.start + remainder_i(j1, g.npr);
+  p2 = g.start + remainder_i(j1 + 1, g.npr);
 }
 
 // what the adjoint needs of the forward besides ids and weights
 template <typename T>
 struct Terms {
-  T x, y, z, r, c0, c, f1, f2, wt, wt0, denom, dphi1, dphi2;
+  T x, y, z, r, c0, c, f1, f2, wt, wt0, denom, inv_dphi1, inv_dphi2;
   bool npole, spole;
+  int ring1;  // the first pair's ring (clamped)
 };
 
 // the four ids and weights of the pixel moved to (vx + ox, vy + oy,
 // vz + oz): runners/shell.py _regrid_shell's geometry and ops/healpix.py
-// get_interp_weights_parts, op for op
+// get_interp_weights_parts, op for op, each ring's terms read from the
+// table
 template <typename T>
-__device__ __forceinline__ void corners(long long n, T vx, T vy, T vz, T ox,
-                                        T oy, T oz, long long p[4], T w[4],
-                                        Terms<T>& tm) {
+__device__ __forceinline__ void corners(int n,
+                                        const Ring<T>* __restrict__ rings,
+                                        T vx, T vy, T vz, T ox, T oy, T oz,
+                                        int p[4], T w[4], Terms<T>& tm) {
   const T x = vx + ox, y = vy + oy, z = vz + oz;
   const T r = d_sqrt(x * x + y * y + z * z);
   const T c0 = z / r;
@@ -206,16 +251,17 @@ __device__ __forceinline__ void corners(long long n, T vx, T vy, T vz, T ox,
   T phi = d_atan2(y, x);
   if (phi < T(0)) phi = phi + S<T>(kTwoPi);
   const T zc = d_cos(theta);
-  const long long r1 = z_to_ring(n, zc);
-  const long long r2 = r1 + 1;
+  const int r1 = z_to_ring(n, zc);
+  const int r2 = r1 + 1;
   const bool npole = r1 < 1, spole = r2 > 4 * n - 1;
-  T f1, f2, th1, th2, dphi1, dphi2;
-  ring_neighbors(n, clampll(r1, 1, 4 * n - 1), phi, p[0], p[1], f1, th1,
-                 dphi1);
-  ring_neighbors(n, clampll(r2, 1, 4 * n - 1), phi, p[2], p[3], f2, th2,
-                 dphi2);
-  const T denom = th2 > th1 ? th2 - th1 : T(1);
-  const T wt0 = (theta - th1) / denom;
+  const int r1c = clampi(r1, 1, 4 * n - 1);
+  const Ring<T> g1 = rings[r1c];
+  const Ring<T> g2 = rings[clampi(r2, 1, 4 * n - 1)];
+  T f1, f2;
+  ring_pair(g1, phi, p[0], p[1], f1);
+  ring_pair(g2, phi, p[2], p[3], f2);
+  const T denom = g2.theta > g1.theta ? g2.theta - g1.theta : T(1);
+  const T wt0 = (theta - g1.theta) / denom;
   T wt = clampf(wt0, T(0), T(1));
   wt = npole ? T(0) : (spole ? T(1) : wt);
   const T a = T(1) - wt;
@@ -223,8 +269,9 @@ __device__ __forceinline__ void corners(long long n, T vx, T vy, T vz, T ox,
   w[1] = a * f1;
   w[2] = wt * (T(1) - f2);
   w[3] = wt * f2;
-  tm = Terms<T>{x, y, z, r, c0, c, f1, f2, wt, wt0, denom, dphi1, dphi2,
-                npole, spole};
+  tm = Terms<T>{x,     y,           z,           r,     c0,    c,
+                f1,    f2,          wt,          wt0,   denom, g1.inv_dphi,
+                g2.inv_dphi, npole, spole, r1c};
 }
 
 template <typename T>
@@ -233,45 +280,111 @@ struct In {
 };
 
 template <typename T>
-__device__ __forceinline__ void load_corners(const In<T>& in, long long i,
-                                             long long n, long long p[4],
+__device__ __forceinline__ void load_corners(const In<T>& in,
+                                             const Ring<T>* __restrict__ r,
+                                             long long i, int n, int p[4],
                                              T w[4], Terms<T>& tm) {
-  corners<T>(n, in.vx[i], in.vy[i], in.vz[i], in.ox[i], in.oy[i], in.oz[i],
-             p, w, tm);
+  corners<T>(n, r, in.vx[i], in.vy[i], in.vz[i], in.ox[i], in.oy[i],
+             in.oz[i], p, w, tm);
+}
+
+// A warp's rows merged by destination, in four rounds. A lane's rows are
+// two pairs, each of two ring neighbours (ids of each parity: a ring
+// holds 4 i or 4 nside pixels, so a pair that wraps too pairs an odd id
+// with an even one), the pairs on rings of each parity (r1 and r1 + 1).
+// Round q presents from every lane the row on the ring of parity q / 2
+// whose id has parity q % 2, so all the rows of one destination (one
+// ring, one id) meet in the same round: __match_any_sync groups them, the
+// lowest lane of a group sums the group's values through shared memory
+// and adds the sum with one red.global.add. At the south pole both pairs
+// lie on the last ring and the first pair's weights are 0: the second
+// pair's rows are then presented in the other parity's rounds, correct
+// but unmerged with their ring's other rows. A zero value adds nothing.
+// Every lane of the warp calls it; returns the adds this lane issued.
+template <typename T>
+__device__ __forceinline__ int merge_rows(T* buf, int ring1, const int p[4],
+                                          const T v[4], T* out) {
+  const int lane = threadIdx.x & 31;
+  int adds = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const bool first_pair = (ring1 & 1) == (q >> 1);
+    const int a = first_pair ? p[0] : p[2], b = first_pair ? p[1] : p[3];
+    const T va = first_pair ? v[0] : v[2], vb = first_pair ? v[1] : v[3];
+    const bool take_a = (a & 1) == (q & 1);
+    const T val = take_a ? va : vb;
+    const int key = val != T(0) ? (take_a ? a : b) : -1;
+    const unsigned peers = __match_any_sync(kFull, key);
+    buf[lane] = val;
+    __syncwarp();
+    if (key >= 0 && lane == __ffs(peers) - 1) {
+      T s = val;
+      for (unsigned rest = peers & (peers - 1); rest; rest &= rest - 1)
+        s += buf[__ffs(rest) - 1];
+      atomicAdd(out + key, s);
+      ++adds;
+    }
+    __syncwarp();
+  }
+  return adds;
+}
+
+// the warp's sum of ``n`` added to *tally by its first lane
+__device__ __forceinline__ void add_tally(unsigned long long* tally,
+                                          int n) {
+  const unsigned s = __reduce_add_sync(kFull, static_cast<unsigned>(n));
+  if ((threadIdx.x & 31) == 0 && s)
+    atomicAdd(tally, static_cast<unsigned long long>(s));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+regrid_rings_kernel(int nside, Ring<T>* __restrict__ rings) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < 4 * nside) rings[i] = ring_row<T>(nside, i);
 }
 
 // The kernels that add read the mass before the corners: read after
 // them, it made ptxas spill a register around the call of the float64
-// cos's slow path.
+// cos's slow path. A warp wholly past the end leaves; the lanes of a
+// warp that holds the end take no pixel but join the merge.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-regrid_kernel(In<T> in, int nside, long long n_in, T* __restrict__ out) {
+regrid_kernel(In<T> in, const Ring<T>* __restrict__ rings, int nside,
+              long long n_in, T* __restrict__ out,
+              unsigned long long* __restrict__ tally) {
+  __shared__ T buf[kWarps][32];
   const long long i =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n_in) return;
-  const T m = in.m[i];
-  long long p[4];
-  T w[4];
-  Terms<T> tm;
-  load_corners(in, i, nside, p, w, tm);
+  if (i - (threadIdx.x & 31) >= n_in) return;
+  int p[4] = {0, 0, 0, 0};
+  T v[4] = {T(0), T(0), T(0), T(0)};
+  int ring1 = 0;
+  if (i < n_in) {
+    const T m = in.m[i];
+    T w[4];
+    Terms<T> tm;
+    load_corners(in, rings, i, nside, p, w, tm);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const T v = w[k] * m;
-    if (v != T(0)) atomicAdd(out + p[k], v);
+    for (int k = 0; k < 4; ++k) v[k] = w[k] * m;
+    ring1 = tm.ring1;
   }
+  const int adds = merge_rows(buf[threadIdx.x >> 5], ring1, p, v, out);
+  if (tally != nullptr) add_tally(tally, adds);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-regrid_parts_kernel(In<T> in, int nside, long long n_in,
-                    long long* __restrict__ ids, T* __restrict__ wts) {
+regrid_parts_kernel(In<T> in, const Ring<T>* __restrict__ rings, int nside,
+                    long long n_in, long long* __restrict__ ids,
+                    T* __restrict__ wts) {
   const long long i =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n_in) return;
-  long long p[4];
+  int p[4];
   T w[4];
   Terms<T> tm;
-  load_corners(in, i, nside, p, w, tm);
+  load_corners(in, rings, i, nside, p, w, tm);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     ids[k * n_in + i] = p[k];
@@ -281,17 +394,17 @@ regrid_parts_kernel(In<T> in, int nside, long long n_in,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-regrid_vjp_kernel(In<T> in, int nside, long long n_in,
-                  const T* __restrict__ ct, T* __restrict__ dox,
-                  T* __restrict__ doy, T* __restrict__ doz,
-                  T* __restrict__ dm) {
+regrid_vjp_kernel(In<T> in, const Ring<T>* __restrict__ rings, int nside,
+                  long long n_in, const T* __restrict__ ct,
+                  T* __restrict__ dox, T* __restrict__ doy,
+                  T* __restrict__ doz, T* __restrict__ dm) {
   const long long i =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n_in) return;
-  long long p[4];
+  int p[4];
   T w[4];
   Terms<T> t;
-  load_corners(in, i, nside, p, w, t);
+  load_corners(in, rings, i, nside, p, w, t);
   T g[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) g[k] = ct[p[k]];
@@ -308,7 +421,9 @@ regrid_vjp_kernel(In<T> in, int nside, long long n_in,
   const bool inside =
       t.wt0 >= T(0) && t.wt0 <= T(1) && !t.npole && !t.spole;
   const T d_th = inside ? d_wt / t.denom : T(0);
-  const T d_phi = d_f1 / t.dphi1 + d_f2 / t.dphi2;
+  // d f / d phi = 1 / dphi: a product with the table's reciprocal (the
+  // plain version divides; within a rounding of it)
+  const T d_phi = d_f1 * t.inv_dphi1 + d_f2 * t.inv_dphi2;
   // d acos(c) / dc = -1 / sqrt(1 - c^2), passed where z / r is inside
   // the clamp (inclusive, as torch.clamp's backward)
   const bool c_in = t.c0 >= T(-1) && t.c0 <= T(1);
@@ -325,16 +440,16 @@ regrid_vjp_kernel(In<T> in, int nside, long long n_in,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-regrid_count_kernel(In<T> in, int nside, long long n_in,
-                    int* __restrict__ count) {
+regrid_count_kernel(In<T> in, const Ring<T>* __restrict__ rings, int nside,
+                    long long n_in, int* __restrict__ count) {
   const long long i =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n_in) return;
   const T m = in.m[i];
-  long long p[4];
+  int p[4];
   T w[4];
   Terms<T> tm;
-  load_corners(in, i, nside, p, w, tm);
+  load_corners(in, rings, i, nside, p, w, tm);
 #pragma unroll
   for (int k = 0; k < 4; ++k)
     if (w[k] * m != T(0)) atomicAdd(count + p[k], 1);
@@ -342,17 +457,17 @@ regrid_count_kernel(In<T> in, int nside, long long n_in,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-regrid_fill_kernel(In<T> in, int nside, long long n_in,
-                   unsigned long long* __restrict__ cursor,
+regrid_fill_kernel(In<T> in, const Ring<T>* __restrict__ rings, int nside,
+                   long long n_in, unsigned long long* __restrict__ cursor,
                    uint32_t* __restrict__ keys, T* __restrict__ vals) {
   const long long i =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n_in) return;
   const T m = in.m[i];
-  long long p[4];
+  int p[4];
   T w[4];
   Terms<T> tm;
-  load_corners(in, i, nside, p, w, tm);
+  load_corners(in, rings, i, nside, p, w, tm);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const T v = w[k] * m;
@@ -514,46 +629,63 @@ In<T> inputs(const void* const* planes) {
 }
 
 template <typename T>
+const Ring<T>* ring_table(const void* rings) {
+  return static_cast<const Ring<T>*>(rings);
+}
+
+template <typename T>
+int launch_rings(int nside, void* rings, cudaStream_t stream) {
+  regrid_rings_kernel<T><<<blocks_for(4LL * nside), kThreads, 0, stream>>>(
+      nside, static_cast<Ring<T>*>(rings));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_regrid(int nside, long long n_in, const void* const* planes,
-                  void* out, cudaStream_t stream) {
+                  const void* rings, void* out, void* tally,
+                  cudaStream_t stream) {
   regrid_kernel<T><<<blocks_for(n_in), kThreads, 0, stream>>>(
-      inputs<T>(planes), nside, n_in, static_cast<T*>(out));
+      inputs<T>(planes), ring_table<T>(rings), nside, n_in,
+      static_cast<T*>(out), static_cast<unsigned long long*>(tally));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_parts(int nside, long long n_in, const void* const* planes,
-                 void* ids, void* wts, cudaStream_t stream) {
+                 const void* rings, void* ids, void* wts,
+                 cudaStream_t stream) {
   regrid_parts_kernel<T><<<blocks_for(n_in), kThreads, 0, stream>>>(
-      inputs<T>(planes), nside, n_in, static_cast<long long*>(ids),
-      static_cast<T*>(wts));
+      inputs<T>(planes), ring_table<T>(rings), nside, n_in,
+      static_cast<long long*>(ids), static_cast<T*>(wts));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_vjp(int nside, long long n_in, const void* const* planes,
-               const void* ct, void* dox, void* doy, void* doz, void* dm,
-               cudaStream_t stream) {
+               const void* rings, const void* ct, void* dox, void* doy,
+               void* doz, void* dm, cudaStream_t stream) {
   regrid_vjp_kernel<T><<<blocks_for(n_in), kThreads, 0, stream>>>(
-      inputs<T>(planes), nside, n_in, static_cast<const T*>(ct),
-      static_cast<T*>(dox), static_cast<T*>(doy), static_cast<T*>(doz),
-      static_cast<T*>(dm));
+      inputs<T>(planes), ring_table<T>(rings), nside, n_in,
+      static_cast<const T*>(ct), static_cast<T*>(dox), static_cast<T*>(doy),
+      static_cast<T*>(doz), static_cast<T*>(dm));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_count(int nside, long long n_in, const void* const* planes,
-                 void* count, cudaStream_t stream) {
+                 const void* rings, void* count, cudaStream_t stream) {
   regrid_count_kernel<T><<<blocks_for(n_in), kThreads, 0, stream>>>(
-      inputs<T>(planes), nside, n_in, static_cast<int*>(count));
+      inputs<T>(planes), ring_table<T>(rings), nside, n_in,
+      static_cast<int*>(count));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_fill(int nside, long long n_in, const void* const* planes,
-                void* cursor, void* keys, void* vals, cudaStream_t stream) {
+                const void* rings, void* cursor, void* keys, void* vals,
+                cudaStream_t stream) {
   regrid_fill_kernel<T><<<blocks_for(n_in), kThreads, 0, stream>>>(
-      inputs<T>(planes), nside, n_in,
+      inputs<T>(planes), ring_table<T>(rings), nside, n_in,
       static_cast<unsigned long long*>(cursor), static_cast<uint32_t*>(keys),
       static_cast<T*>(vals));
   return static_cast<int>(cudaGetLastError());
@@ -586,35 +718,45 @@ int launch_sum(long long npix, const void* count, const void* end,
 }  // namespace
 
 #define REGRID_ENTRIES(SFX, T)                                               \
+  extern "C" int regrid_ring_bytes_##SFX() {                                 \
+    return static_cast<int>(sizeof(Ring<T>));                                \
+  }                                                                          \
+  extern "C" int regrid_rings_##SFX(int nside, void* rings, void* stream) {  \
+    return launch_rings<T>(nside, rings, static_cast<cudaStream_t>(stream)); \
+  }                                                                          \
   extern "C" int regrid_##SFX(int nside, long long n_in,                     \
-                              const void* const* planes, void* out,          \
-                              void* stream) {                                \
-    return launch_regrid<T>(nside, n_in, planes, out,                        \
+                              const void* const* planes, const void* rings,  \
+                              void* out, void* tally, void* stream) {        \
+    return launch_regrid<T>(nside, n_in, planes, rings, out, tally,          \
                             static_cast<cudaStream_t>(stream));              \
   }                                                                          \
   extern "C" int regrid_parts_##SFX(int nside, long long n_in,               \
-                                    const void* const* planes, void* ids,    \
-                                    void* wts, void* stream) {               \
-    return launch_parts<T>(nside, n_in, planes, ids, wts,                    \
+                                    const void* const* planes,               \
+                                    const void* rings, void* ids, void* wts, \
+                                    void* stream) {                          \
+    return launch_parts<T>(nside, n_in, planes, rings, ids, wts,             \
                            static_cast<cudaStream_t>(stream));               \
   }                                                                          \
   extern "C" int regrid_vjp_##SFX(int nside, long long n_in,                 \
-                                  const void* const* planes, const void* ct, \
+                                  const void* const* planes,                 \
+                                  const void* rings, const void* ct,         \
                                   void* dox, void* doy, void* doz, void* dm, \
                                   void* stream) {                            \
-    return launch_vjp<T>(nside, n_in, planes, ct, dox, doy, doz, dm,         \
+    return launch_vjp<T>(nside, n_in, planes, rings, ct, dox, doy, doz, dm,  \
                          static_cast<cudaStream_t>(stream));                 \
   }                                                                          \
   extern "C" int regrid_count_##SFX(int nside, long long n_in,               \
-                                    const void* const* planes, void* count,  \
+                                    const void* const* planes,               \
+                                    const void* rings, void* count,          \
                                     void* stream) {                          \
-    return launch_count<T>(nside, n_in, planes, count,                       \
+    return launch_count<T>(nside, n_in, planes, rings, count,                \
                            static_cast<cudaStream_t>(stream));               \
   }                                                                          \
   extern "C" int regrid_fill_##SFX(int nside, long long n_in,                \
-                                   const void* const* planes, void* cursor,  \
+                                   const void* const* planes,                \
+                                   const void* rings, void* cursor,          \
                                    void* keys, void* vals, void* stream) {   \
-    return launch_fill<T>(nside, n_in, planes, cursor, keys, vals,           \
+    return launch_fill<T>(nside, n_in, planes, rings, cursor, keys, vals,    \
                           static_cast<cudaStream_t>(stream));                \
   }                                                                          \
   extern "C" int regrid_sum_##SFX(long long npix, const void* count,         \

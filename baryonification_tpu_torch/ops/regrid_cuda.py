@@ -11,9 +11,17 @@ of the JAX package's ``_regrid_shell``
 (``baryonification_tpu/runners/shell.py:756``; XLA there, no TPU kernel).
 The kernels are ``csrc/regrid.cu``:
 
+- ``regrid_rings``: fills the ring table that the others read, a row a
+  ring (its first pixel, length, theta, phi step and shift, the step's
+  reciprocal), once per (NSIDE, dtype, device): :func:`_ring_table`
+  caches it in ``_RING_TABLES``;
 - ``regrid``: one thread a pixel computes its four ids and weights in
-  registers and adds w_k m to the zeroed map in L2 (no 4 x npix
-  temporaries); the sums arrive in no fixed order;
+  registers (the ring terms from the table, 32-bit integers); a warp
+  merges its 128 rows by destination (four rounds of
+  ``__match_any_sync``) and adds each sum to the zeroed map with one
+  global add (no 4 x npix temporaries); the sums arrive in no fixed
+  order. Its ``tally`` counts the global adds issued (for the tests and
+  ``chip_smoke.py``);
 - the deterministic route, taken where
   ``torch.are_deterministic_algorithms_enabled()``: a count kernel, a
   scan of the counts (``torch.cumsum``), a fill kernel and a segment
@@ -22,11 +30,12 @@ The kernels are ``csrc/regrid.cu``:
 - ``regrid_vjp``: the adjoint, one thread a pixel gathering the map's
   cotangent at its four ids and writing its gradients once.
 
-Every operation of the kernels rounds as the plain version's PyTorch op
-does on the card (``_cuda_build`` builds the source with
-``--fmad=false``); :func:`_regrid_parts` launches the check entry, which
-writes each pixel's four ids and four weights instead of adding them
-(for the tests and ``chip_smoke.py`` only).
+Every operation of the kernels that gives an id or a weight rounds as the
+plain version's PyTorch op does on the card (``_cuda_build`` builds the
+source with ``--fmad=false``); :func:`_regrid_parts` launches the check
+entry, which writes each pixel's four ids and four weights instead of
+adding them, and :func:`_ring_fields` reads the ring table (for the tests
+and ``chip_smoke.py`` only).
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
 versions (:func:`regrid_shell_reference`, :func:`regrid_vjp_reference`);
@@ -44,7 +53,7 @@ plain version runs on the card.
 
 ``LAUNCHES`` counts launches: ``regrid`` and ``regrid_vjp`` a kernel
 launch each, ``regrid_det`` a call of the deterministic route (its count,
-fill and segment kernels).
+fill and segment kernels), ``regrid_rings`` a fill of a ring table.
 """
 
 import ctypes
@@ -59,18 +68,22 @@ __all__ = ["regrid_shell", "regrid_shell_reference", "regrid_vjp",
            "regrid_vjp_reference", "LAUNCHES", "MAX_NSIDE"]
 
 #: launches by name (read and reset by callers)
-LAUNCHES = {"regrid": 0, "regrid_det": 0, "regrid_vjp": 0}
+LAUNCHES = {"regrid": 0, "regrid_det": 0, "regrid_vjp": 0, "regrid_rings": 0}
 
 #: the largest NSIDE the kernels take (ids and keys in 32 bits)
 MAX_NSIDE = 8192
 
 _FUNCS = {}
+# (nside, dtype, device) -> the ring table the kernels read
+_RING_TABLES = {}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = {"regrid": [_I, _L, _P, _P, _P],
-             "regrid_parts": [_I, _L, _P, _P, _P, _P],
-             "regrid_vjp": [_I, _L, _P, _P, _P, _P, _P, _P, _P],
-             "regrid_count": [_I, _L, _P, _P, _P],
-             "regrid_fill": [_I, _L, _P, _P, _P, _P, _P],
+_ARGTYPES = {"regrid_ring_bytes": [],
+             "regrid_rings": [_I, _P, _P],
+             "regrid": [_I, _L, _P, _P, _P, _P, _P],
+             "regrid_parts": [_I, _L, _P, _P, _P, _P, _P],
+             "regrid_vjp": [_I, _L, _P, _P, _P, _P, _P, _P, _P, _P],
+             "regrid_count": [_I, _L, _P, _P, _P, _P],
+             "regrid_fill": [_I, _L, _P, _P, _P, _P, _P, _P],
              "regrid_sum": [_L, _P, _P, _P, _P, _P, _P, _P, _P]}
 
 
@@ -92,6 +105,35 @@ def _call(entry, dtype, *args):
     err = _kernel(dtype, entry)(*args)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+
+
+def _ring_table(nside, T, device):
+    """The ring table of NSIDE ``nside`` in dtype ``T`` on ``device``: a
+    row a ring index (0 .. 4 nside - 1; row 0 is never read) of the ring's
+    first pixel and length (int32) and its theta, phi step, phi shift and
+    the step's reciprocal (``T``), as bytes. Filled by the kernel
+    ``regrid_rings`` at first use (counted in ``LAUNCHES``) and cached."""
+    key = (nside, T, device)
+    tab = _RING_TABLES.get(key)
+    if tab is None:
+        row = _kernel(T, "regrid_ring_bytes")()
+        tab = torch.empty((4 * nside, row), dtype=torch.uint8, device=device)
+        _call("regrid_rings", T, nside, tab.data_ptr(), _stream(tab))
+        LAUNCHES["regrid_rings"] += 1
+        _RING_TABLES[key] = tab
+    return tab
+
+
+def _ring_fields(nside, T, device):
+    """The ring table's columns as tensors (views): ``start``, ``npr``
+    (int32) and ``theta``, ``dphi``, ``shift``, ``inv_dphi`` (``T``). For
+    the tests and ``chip_smoke.py``."""
+    tab = _ring_table(nside, T, device)
+    ints, vals = tab.view(torch.int32), tab.view(T)
+    t = vals.element_size()
+    names = ("theta", "dphi", "shift", "inv_dphi")
+    return dict(start=ints[:, 0], npr=ints[:, 1],
+                **{k: vals[:, (8 + j * t) // t] for j, k in enumerate(names)})
 
 
 def regrid_shell_reference(nside, vx, vy, vz, orig_map, offsets):
@@ -210,11 +252,16 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _regrid_atomic(nside, planes, T, n):
-    out = torch.zeros(hpx.npix(nside), dtype=T, device=planes[0].device)
+def _regrid_atomic(nside, planes, T, n, tally=None):
+    """The atomic kernel into a zeroed map; ``tally`` (an int64 tensor of
+    one element on the card, or None) gets the global adds the kernel
+    issued added to it (for the tests and ``chip_smoke.py``)."""
+    dev = planes[0].device
+    out = torch.zeros(hpx.npix(nside), dtype=T, device=dev)
     if n:
-        _call("regrid", T, nside, n, _ptrs(planes), out.data_ptr(),
-              _stream(out))
+        _call("regrid", T, nside, n, _ptrs(planes),
+              _ring_table(nside, T, dev).data_ptr(), out.data_ptr(),
+              None if tally is None else tally.data_ptr(), _stream(out))
         LAUNCHES["regrid"] += 1
     return out
 
@@ -225,7 +272,8 @@ def _segment_counts(nside, planes, T, n):
     dev = planes[0].device
     count = torch.zeros(hpx.npix(nside), dtype=torch.int32, device=dev)
     if n:
-        _call("regrid_count", T, nside, n, _ptrs(planes), count.data_ptr(),
+        _call("regrid_count", T, nside, n, _ptrs(planes),
+              _ring_table(nside, T, dev).data_ptr(), count.data_ptr(),
               _stream(count))
     return count
 
@@ -240,7 +288,8 @@ def _regrid_det(nside, planes, T, n):
     cursor = torch.cumsum(count, 0) - count           # int64 segment starts
     keys = torch.empty(4 * n, dtype=torch.int32, device=dev)
     vals = torch.empty(4 * n, dtype=T, device=dev)
-    _call("regrid_fill", T, nside, n, _ptrs(planes), cursor.data_ptr(),
+    _call("regrid_fill", T, nside, n, _ptrs(planes),
+          _ring_table(nside, T, dev).data_ptr(), cursor.data_ptr(),
           keys.data_ptr(), vals.data_ptr(), _stream(count))
     # cursor now holds each segment's end; a segment of more than 16 rows
     # goes to the long list (at most 4 n / 17 of them)
@@ -283,7 +332,8 @@ def _regrid_parts(nside, vx, vy, vz, offsets):
     ids = torch.empty((4, n), dtype=torch.int64, device=ox.device)
     w = torch.empty((4, n), dtype=T, device=ox.device)
     if n:
-        _call("regrid_parts", T, nside, n, _ptrs(planes), ids.data_ptr(),
+        _call("regrid_parts", T, nside, n, _ptrs(planes),
+              _ring_table(nside, T, ox.device).data_ptr(), ids.data_ptr(),
               w.data_ptr(), _stream(ox))
     return ids, w
 
@@ -307,7 +357,8 @@ def regrid_vjp(nside, vx, vy, vz, orig_map, offsets, ct, need_map=True):
     d = tuple(torch.empty(n, dtype=T, device=ox.device) for _ in range(3))
     d_map = torch.empty(n, dtype=T, device=ox.device) if need_map else None
     if n:
-        _call("regrid_vjp", T, nside, n, _ptrs(planes), ct.data_ptr(),
+        _call("regrid_vjp", T, nside, n, _ptrs(planes),
+              _ring_table(nside, T, ox.device).data_ptr(), ct.data_ptr(),
               *(t.data_ptr() for t in d),
               None if d_map is None else d_map.data_ptr(), _stream(ct))
         LAUNCHES["regrid_vjp"] += 1

@@ -20,11 +20,14 @@ and fails on any fault:
      cell-major pass runs in both modes at the shell path's bucket with
      the most slot-pixels, after a census of the path's buckets; the
      regrid kernels (csrc/regrid.cu) at the shell path's inputs of one
-     process(): the check entry's ids and weights against the plain ops
-     bit for bit, the atomic kernel's and the deterministic route's maps
-     against the plain version (the route bit for bit over two runs, its
-     longest segment), the adjoint kernel against autograd of the plain
-     version, each timed beside index_add_ of the same rows;
+     process(): the ring table against its closed form bit for bit, the
+     check entry's ids and weights against the plain ops bit for bit,
+     the atomic kernel's and the deterministic route's maps against the
+     plain version (the route bit for bit over two runs, its longest
+     segment; the atomic kernel's global adds issued, its tally), the
+     adjoint kernel against autograd of the plain version, each timed
+     beside index_add_ of the same rows, with the issue bounds from the
+     SASS of this build;
   4. shell path: the Schneider19 displacement table built on the card
      (bench.py's grid) and BaryonifyShell.process() on an NSIDE-1024
      full-sky shell with bench.py's 1e6-halo catalog, cold and warm with
@@ -745,20 +748,68 @@ def cellmajor_blocks(ins):
             tuple(ranges(b) for b in blocks))
 
 
-def cellmajor_library_sass():
-    """sass_functions of this checkout's built cell-major library, by
-    cuobjdump -sass."""
+def library_sass(name):
+    """sass_functions of this checkout's built library ``name`` (a source
+    of csrc/, or the path of another shared library), by cuobjdump
+    -sass."""
     import shutil
     from baryonification_tpu_torch import _cuda_build as cb
-    lib = cb._LIBS.get("cellmajor_pass")
-    check(lib is not None, "the cell-major library is not loaded")
+    if name.endswith(".so"):
+        path = name
+    else:
+        lib = cb._LIBS.get(name)
+        check(lib is not None, f"the {name} library is not loaded")
+        path = lib._name
     tool = shutil.which("cuobjdump") or str(
         Path(cb.nvcc_path()).with_name("cuobjdump"))
     check(Path(tool).exists(), f"no cuobjdump beside nvcc ({tool})")
-    out = subprocess.run([tool, "-sass", lib._name], capture_output=True,
+    out = subprocess.run([tool, "-sass", path], capture_output=True,
                          text=True, timeout=120)
     check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr[-300:]}")
     return sass_functions(out.stdout)
+
+
+def fast_path(ins):
+    """(all, FP64, MUFU) instructions that a warp issues along one
+    kernel's SASS ``ins`` (sass_functions) from its entry to its EXIT on
+    the fast path: an unconditional forward branch is followed; a
+    conditional forward branch is taken where the code it skips, at most
+    160 instructions, holds a slow path (a CALL, or local memory: the
+    division's and the trigonometry's slow paths), else not; no backward
+    branch is taken. So a warp's lanes are taken to run one side of each
+    branch and the body of each loop once (the regrid merge's sum over a
+    group's lanes, which a group of two runs once); a predicated EXIT is
+    not taken."""
+    import re
+
+    def target(t):
+        m = re.search(r"\bBRA\s+(?:!?U?P\w+,\s*)?(0x[0-9a-f]+)", t)
+        return int(m.group(1), 16) if m else None
+
+    idx = {a: i for i, (a, _) in enumerate(ins)}
+
+    def slow(i, g):
+        return idx[g] - i <= 160 and any(
+            re.search(r"\b(CALL|STL|LDL)", t) for _, t in ins[i + 1:idx[g]])
+
+    out, i = [], 0
+    for _ in range(20000):
+        a, t = ins[i]
+        out.append(t)
+        if re.match(r"EXIT\b", t):
+            break
+        g = target(t)
+        if g is not None and g > a and (not t.startswith("@")
+                                        or slow(i, g)):
+            i = idx[g]
+            continue
+        i += 1
+    else:
+        raise RuntimeError("no EXIT on the fast path of the SASS")
+    return (len(out),
+            sum(1 for t in out
+                if re.match(r"(@\S+\s+)?D(ADD|MUL|FMA|SETP|MNMX)", t)),
+            sum(1 for t in out if "MUFU" in t))
 
 
 def cellmajor_sass():
@@ -766,7 +817,7 @@ def cellmajor_sass():
     cell-major library, with each block's address ranges logged; fails
     the run if an instance of CM_INSTANCES cannot be read or parsed."""
     counts = {}
-    for name, ins in cellmajor_library_sass().items():
+    for name, ins in library_sass("cellmajor_pass").items():
         for key, md in CM_INSTANCES.items():
             if "cellmajor_kernel" + key in name:
                 try:
@@ -793,7 +844,7 @@ def adjoint_sass():
     walked slot, which every lane runs. Fails the run where an instance
     cannot be read."""
     counts = {}
-    for name, ins in cellmajor_library_sass().items():
+    for name, ins in library_sass("cellmajor_pass").items():
         for key, dname in (("IfLb0ELb0ELb1ELi1E", "float32"),
                            ("IdLb0ELb0ELb1ELi1E", "float64")):
             if "adjoint_kernel" + key in name:
@@ -1102,6 +1153,9 @@ REGRID_VJP_FLOPS = REGRID_FLOPS - 4 + 54
 REGRID_VJP_BAR = {"float64": 1e-10, "float32": 1e-4}
 REGRID_SOURCE = "baryonification_tpu_torch/csrc/regrid.cu"
 REGRID_REPLACES = "baryonification_tpu/runners/shell.py:756"
+# the ring table's fill: the closed form of ring_info (and the ring terms
+# that interp_terms derives from it) a ring
+REGRID_RINGS_REPLACES = "baryonification_tpu/ops/healpix.py:167"
 
 
 def regrid_inputs(T, torch, device, n_halo, nside):
@@ -1155,23 +1209,106 @@ def regrid_bound(n, npix, dname, vjp=False):
             else (t_bytes, "bytes")), n_bytes, flops
 
 
-def check_regrid(T, torch, rc, device, n_halo, nside):
+def regrid_sass():
+    """{(kernel, dtype): fast_path counts} of the regrid kernel and its
+    adjoint in this checkout's build (cuobjdump -sass); fails the run
+    where one cannot be read."""
+    import re
+    counts = {}
+    for name, ins in library_sass("regrid").items():
+        m = re.search(r"\d(regrid_kernel|regrid_vjp_kernel)I([fd])E", name)
+        if m:
+            key = (m.group(1), {"f": "float32", "d": "float64"}[m.group(2)])
+            try:
+                counts[key] = fast_path(ins)
+            except (RuntimeError, KeyError, IndexError) as e:
+                check(False, f"the SASS of {key} has no fast path ({e!r})")
+    check(len(counts) == 4, f"regrid kernels not found in the SASS: "
+                            f"{sorted(counts)}")
+    return counts
+
+
+def lane_issue_ms(counts, n, mhz):
+    """(issue ms, MUFU ms) of n lanes each issuing ``counts`` = (all,
+    FP64, MUFU) SASS instructions at ``mhz``: an FP64 instruction holds
+    its pipe for two clocks, the MUFU pipe takes MUFU_LANES_PER_SM lanes a
+    clock and SM."""
+    a, f64, mufu = counts
+    lanes = N_SM * mhz * 1e6
+    return (n * max(a, 2 * f64) / (lanes * LANES_PER_SM) * 1e3,
+            n * mufu / (lanes * MUFU_LANES_PER_SM) * 1e3)
+
+
+def regrid_issue(torch, counts, n, k_fn, ms_k, label):
+    """Log the issue bound of one regrid kernel call over n pixels, each
+    a lane running ``counts`` = (all, FP64, MUFU) SASS instructions (its
+    fast path), at the SM clock read while k_fn runs; returns its ms."""
+    a, f64, mufu = counts
+    mhz = sm_clock_under(torch, k_fn, 200)
+    issue_ms, mufu_ms = lane_issue_ms(counts, n, mhz)
+    log(f"kernels: {label}: the fast path of its SASS (cuobjdump -sass of "
+        f"this build) is {a} instructions ({f64} FP64, {mufu} MUFU) a "
+        f"pixel: at the {mhz:.0f} MHz read during the run the issue bound "
+        f"is {issue_ms:.4f} ms ({N_SM} SMs x {LANES_PER_SM} lanes), the "
+        f"MUFU pipe's {mufu_ms:.4f} ms; kernel at "
+        f"{100 * issue_ms / ms_k:.1f}% of the issue bound")
+    return issue_ms
+
+
+def check_ring_table(torch, rc, hpx, nside, dt, dname, device):
+    """The ring table (regrid_rings) against the plain ops' closed form of
+    every ring on the card (ops/healpix.py ring_info, the clamped arccos,
+    2 pi / npr and its reciprocal), bit for bit; its fill's queued_ms and
+    the plain ops' time, its bytes. Returns (the largest difference of an
+    entry, ms, plain ms, bytes)."""
+    import math
+    fields = rc._ring_fields(nside, dt, device)
+
+    def plain():
+        zr, start, npr, shift = hpx.ring_info(
+            nside, torch.arange(1, 4 * nside, device=device), dt)
+        dphi = 2.0 * math.pi / npr.to(dt)
+        return dict(start=start, npr=npr, shift=shift, dphi=dphi,
+                    theta=torch.arccos(torch.clamp(zr, -1.0, 1.0)),
+                    inv_dphi=1 / dphi)
+
+    want, ms_p = timed(torch, plain)
+    got = {k: fields[k][1:].to(want[k].dtype) for k in want}
+    n_diff = sum(int((got[k] != want[k]).sum()) for k in want)
+    err = max(float((got[k] - want[k]).abs().max()) for k in want)
+    tab = rc._ring_table(nside, dt, device)
+    scratch = torch.empty_like(tab)
+    ms = queued_ms(torch, lambda: rc._call(
+        "regrid_rings", dt, nside, scratch.data_ptr(), rc._stream(tab)), 20)
+    log(f"kernels: regrid_rings {dname} (NSIDE {nside}, {tab.shape[0]} rows "
+        f"of {tab.shape[1]} bytes, {tab.numel()} bytes): {n_diff} of "
+        f"{len(want) * (4 * nside - 1)} entries differ from the plain ops' "
+        f"closed form; fill {ms:.4f} ms, the plain ops {ms_p:.3f} ms")
+    check(n_diff == 0, f"regrid_rings {dname} differs from the closed form")
+    return err, ms, ms_p, tab.numel()
+
+
+def check_regrid(T, torch, rc, device, n_halo, nside, issue_bound=False):
     """The regrid kernels at the shell path's inputs (captured from one
-    process(), float32; the same planes cast to float64): the check
-    entry's ids and weights against the plain ops bit for bit (float32:
-    at most 1 ulp, counted); the atomic kernel's and the deterministic
-    route's maps against the plain version (regrid_bar of the longest
-    segment), the route equal to itself bit for bit, the mass kept; the
-    adjoint kernel against autograd of the plain version (REGRID_VJP_BAR);
-    queued_ms times beside the plain versions', index_add_ of the same
-    rows (the library call; under deterministic algorithms for the
-    route) and the bounds; the device launches of one call. Returns the
-    kernels-line records of regrid, regrid_det and regrid_vjp (float32)."""
+    process(), float32; the same planes cast to float64): the ring table
+    against its closed form bit for bit; the check entry's ids and
+    weights against the plain ops bit for bit; the atomic kernel's and
+    the deterministic route's maps against the plain version (regrid_bar
+    of the longest segment), the route equal to itself bit for bit, the
+    mass kept, the atomic kernel's adds issued (its tally) against the
+    nonzero rows; the adjoint kernel against autograd of the plain
+    version (REGRID_VJP_BAR); queued_ms times beside the plain versions',
+    index_add_ of the same rows (the library call; under deterministic
+    algorithms for the route) and the bounds (with ``issue_bound`` the
+    issue bounds from the SASS of this build); the device launches of one
+    call. Returns the kernels-line records of regrid, regrid_rings,
+    regrid_det and regrid_vjp (float32)."""
     hpx = T.ops.healpix
     base = regrid_inputs(T, torch, device, n_halo, nside)
     nside = base[0]
     npix = 12 * nside ** 2
     recs = {}
+    sass = regrid_sass() if issue_bound else None
     for dname, dt in (("float32", torch.float32), ("float64", torch.float64)):
         vx, vy, vz, m = (x.to(dt) for x in base[1:5])
         off = tuple(o.to(dt) for o in base[5])
@@ -1190,13 +1327,16 @@ def check_regrid(T, torch, rc, device, n_halo, nside):
         n_diff = int((w != want_w).sum())
         ib = torch.int32 if dt == torch.float32 else torch.int64
         ulps = int((w.view(ib).long() - want_w.view(ib).long()).abs().max())
+        rows = int((w * m != 0).sum())
         del x, y, z, r, theta, phi, ps, ws, want_w
         log(f"kernels: regrid {dname} at the shell path's inputs ({n} "
             f"NESTED pixels, NSIDE {nside}): the check entry's ids equal "
             f"the plain ops' {same_ids}; weights differing {n_diff} of "
-            f"{4 * n}, at most {ulps} ulp")
-        check(same_ids and (n_diff == 0 if dname == "float64" else ulps <= 1),
+            f"{4 * n}, at most {ulps} ulp; {rows} nonzero rows")
+        check(same_ids and n_diff == 0,
               f"regrid {dname}: ids or weights differ from the plain ops")
+        err_tab, ms_tab, ms_tab_p, tab_bytes = check_ring_table(
+            torch, rc, hpx, nside, dt, dname, device)
         # maps
         planes, _, _ = rc._planes("regrid", vx, vy, vz, m, off)
         counts = rc._segment_counts(nside, planes, dt, n)
@@ -1227,6 +1367,13 @@ def check_regrid(T, torch, rc, device, n_halo, nside):
               and bool(torch.isfinite(got).all())
               and max(drift[1:]) <= mass_bar,
               f"regrid {dname}: the kernels' maps disagree")
+        tally = torch.zeros(1, dtype=torch.int64, device=device)
+        rc._regrid_atomic(nside, planes, dt, n, tally=tally)
+        adds = int(tally)
+        log(f"kernels: regrid {dname}: {adds} global adds issued for "
+            f"{rows} nonzero rows ({adds / rows:.4f} of them, "
+            f"{adds / n:.4f} a pixel; the warps' merge)")
+        check(0 < adds <= rows, f"regrid {dname}: {adds} adds issued")
         # times: the wrapper (the map's memset and the kernel), the
         # library call on the same rows, the route, the plain version
         idx = ids.reshape(-1)
@@ -1246,8 +1393,15 @@ def check_regrid(T, torch, rc, device, n_halo, nside):
         n_k = rc.LAUNCHES["regrid"] - n0
         n_p = device_launches(torch, lambda: rc.regrid_shell_reference(
             *args))[0]
+        ms_zeros = queued_ms(torch, lambda: torch.zeros(
+            npix, dtype=dt, device=device), 20)
+        issue_k = None if sass is None else regrid_issue(
+            torch, sass["regrid_kernel", dname], n,
+            lambda: rc.regrid_shell(*args), ms_k - ms_zeros,
+            f"regrid {dname} (without the map's memset)")
         log(f"kernels: regrid {dname}: kernel {ms_k:.4f} ms (with its "
-            f"map's memset), index_add_ of the same rows {ms_lib:.4f} ms, "
+            f"map's memset, alone {ms_zeros:.4f} ms), index_add_ of the "
+            f"same rows {ms_lib:.4f} ms, "
             f"plain {ms_p:.3f} ms; deterministic route {ms_det:.4f} ms, "
             f"deterministic index_add_ {ms_lib_det:.4f} ms; bound "
             f"{bound:.4f} ms by {by} ({n_bytes / 1e6:.1f} MB, {flops:.3e} "
@@ -1283,6 +1437,10 @@ def check_regrid(T, torch, rc, device, n_halo, nside):
         _, ms_vp = timed(torch, lambda: rc.regrid_vjp_reference(*args, ct,
                                                                 False))
         (bound_v, by_v), nb_v, fl_v = regrid_bound(n, npix, dname, vjp=True)
+        issue_v = None if sass is None else regrid_issue(
+            torch, sass["regrid_vjp_kernel", dname], n,
+            lambda: rc.regrid_vjp(*args, ct, False), ms_v,
+            f"regrid_vjp {dname}")
         log(f"kernels: regrid_vjp {dname}: kernel {ms_v:.4f} ms, plain "
             f"{ms_vp:.3f} ms, autograd of the plain forward {ms_auto:.3f} "
             f"ms; bound {bound_v:.4f} ms by {by_v} "
@@ -1294,7 +1452,14 @@ def check_regrid(T, torch, rc, device, n_halo, nside):
             recs["regrid"] = dict(common, name="regrid", max_abs_err=err,
                                   ms=ms_k, plain_ms=ms_p, bound_ms=bound,
                                   bound_by=by, library_ms=ms_lib,
-                                  longest_segment=longest)
+                                  longest_segment=longest,
+                                  issue_ms=issue_k)
+            # the table's bytes written once; a few operations a ring
+            recs["regrid_rings"] = dict(
+                common, name="regrid_rings", max_abs_err=err_tab,
+                replaces=REGRID_RINGS_REPLACES, ms=ms_tab,
+                plain_ms=ms_tab_p, bound_ms=tab_bytes / PEAK_BYTES * 1e3,
+                bound_by="bytes", library_ms=None)
             recs["regrid_det"] = dict(common, name="regrid_det",
                                       max_abs_err=err_d, ms=ms_det,
                                       plain_ms=ms_p, bound_ms=bound,
@@ -1302,7 +1467,8 @@ def check_regrid(T, torch, rc, device, n_halo, nside):
             recs["regrid_vjp"] = dict(common, name="regrid_vjp",
                                       max_abs_err=err_v, ms=ms_v,
                                       plain_ms=ms_vp, bound_ms=bound_v,
-                                      bound_by=by_v, library_ms=None)
+                                      bound_by=by_v, library_ms=None,
+                                      issue_ms=issue_v)
     return recs
 
 
@@ -1583,7 +1749,8 @@ def check_legendre(torch, lc, sp, device, issue_bound, nside=1024,
 # kernel -> the run whose inputs give its time in the kernels line (the
 # scatter: grid-256's CIC rows; the cell-major pass: the shell path's
 # largest bucket; legendre_alm: the C_ell path's anafast shapes;
-# legendre_synth: synth-1024's)
+# legendre_synth: synth-1024's; regrid_rings: the first regrid of a
+# process, which fills the ring table that its later calls read)
 TIMED_RUN = {"scatter_add": "grid BaryonifyGrid (auto = cellmajor)",
              "cellmajor_pass": "shell path (auto = cellmajor)",
              "legendre_alm": "C_ell path (baryonify + anafast)",
@@ -1594,6 +1761,8 @@ TIMED_RUN = {"scatter_add": "grid BaryonifyGrid (auto = cellmajor)",
              "grid_pass": "grid BaryonifyGrid (auto = cellmajor)",
              "grid_vjp": "gradgrid (value_and_grad, float32)",
              "regrid": "shell path (auto = cellmajor)",
+             "regrid_rings": "mesh shell-1e6 (2 gloo ranks on one card, "
+                             "rank 0)",
              "regrid_vjp": "grad (value_and_grad, float32)",
              "regrid_det": "mesh shell-1e6 (1 nccl rank)"}
 COUNTERS = []       # the LAUNCHES dicts of the kernel modules
@@ -5765,7 +5934,9 @@ def mesh_rank_runs(T, torch, cmc, sc, mesh, device, rank, world, work,
                               device=device, mesh=mesh)
     check(runner.method == "cellmajor", "mesh: auto is not cellmajor")
     with deterministic(torch):
-        m, cold = timed_run("shell-1e6", runner, CELLMAJOR + REGRID_DET)
+        # the rank's first regrid: it fills the process's ring table
+        m, cold = timed_run("shell-1e6", runner,
+                            CELLMAJOR + REGRID_DET + ["regrid_rings"])
         warm, stages = warm_stages(runner)
     one = np.load(work / "shell_1rank.npy").astype(np.float64)
     rms, rel = map_diff(m, one)
@@ -6162,7 +6333,8 @@ def main(argv=None):
             T, torch, cmc, device, args.halos, args.nside,
             issue_bound=args.root.resolve() == ROOT)
         records.update(check_regrid(T, torch, rc, device, args.halos,
-                                    args.nside))
+                                    args.nside,
+                                    issue_bound=args.root.resolve() == ROOT))
     if args.halos != 1_000_000 or args.nside != 1024:
         log(f"cut: paths at NSIDE {args.nside}, shell path at "
             f"{args.halos} halos")

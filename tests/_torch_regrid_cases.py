@@ -16,9 +16,13 @@ there acos has an infinite derivative, and the gradients are NaN in
 autograd as in the closed form); phi exactly 0
 after atan2 and exactly 2 pi after its wrap (``phi_wrap``); a contiguous
 slice of a NESTED case, as one rank's share on the mesh path
-(``mesh_slice``); no pixel (``empty``); and every pixel of a patch moved
+(``mesh_slice``); no pixel (``empty``); every pixel of a patch moved
 onto nearly one direction, so that a few destinations take hundreds of
-rows (``pileup``).
+rows (``pileup``); and, at the largest NSIDE the kernels take (8192),
+the first and the last thousand RING pixels and a thousand on the
+equator, moved about a pixel (``n8192_caps``: ids up to 805,306,367,
+built from their ids; its maps have 805M pixels, so the CPU tests hold
+only its ids and weights, ``LARGE_CASES``).
 """
 
 import numpy as np
@@ -33,7 +37,9 @@ GRID_CASES = {"n16_nested_small": (16, "nested", 0.3),
               "n64_ring_small": (64, "ring", 0.3)}
 EDGE_CASES = ("poles", "on_axis", "phi_wrap", "mesh_slice", "empty",
               "pileup")
-CASES = tuple(GRID_CASES) + EDGE_CASES
+# appended last: regrid_case seeds on a case's index in CASES
+LARGE_CASES = ("n8192_caps",)
+CASES = tuple(GRID_CASES) + EDGE_CASES + LARGE_CASES
 
 
 def pixel_vectors(nside, order="ring"):
@@ -96,6 +102,14 @@ def regrid_case(name, seed=0):
         nside = 16
         v = np.zeros((3, 0))
         off = (np.zeros(0),) * 3
+    elif name == "n8192_caps":
+        nside = 8192
+        npix = hpx.npix(nside)
+        eq = 2 * nside * (nside - 1) + 4 * nside * nside   # ring 2 nside
+        ids = np.concatenate([np.arange(1000), np.arange(eq - 500, eq + 500),
+                              np.arange(npix - 1000, npix)])
+        v = hpx.pix2vec(nside, torch.as_tensor(ids)).numpy().T.copy()
+        off = _moved(rng, v, 1.0 * hpx.nside2resol(nside))
     else:  # pileup
         nside = 32
         v = pixel_vectors(nside, "nested")[:, :1024]       # one face's part
