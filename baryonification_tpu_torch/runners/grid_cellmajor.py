@@ -26,10 +26,12 @@ plain version, which CPU tensors take, is a candidate loop in plain
 PyTorch ops that takes a group of candidate slots of a chunk of blocks at
 once, as one (blocks, slots, voxels) tensor of at most ``PASS_BUDGET``
 elements, so a chunk costs a few dozen launches, not a few dozen a
-candidate. The anisotropic paint (:func:`grid_anis_paint_pass_2d`) and
-the snapshot pass step through that loop on the card too, the paint with
-a window of each halo's own, a readout at the log of an existing map's
-value, and that map as a second input.
+candidate. The snapshot pass (``runners/snapshot_cellmajor.py``) shares
+that loop and this dispatch, with kernels of its own on the card
+(``ops/snap_pass_cuda.py``). The anisotropic paint
+(:func:`grid_anis_paint_pass_2d`) steps through the loop on the card too,
+with a window of each halo's own, a readout at the log of an existing
+map's value, and that map as a second input.
 
 The packed records carry the nearest-bin indices as floats (exact for
 N <= 2^24 in float32) and, in place of each halo's position, its offset
@@ -383,8 +385,8 @@ class _GridBucket:
     (which depend on the rows). ``mode`` is 'offsets', 'offsets_rdelta'
     or 'paint'."""
 
-    #: whether its pass on the card is the grid_pass / grid_vjp kernels
-    kernel = True
+    #: what the warnings and errors of its pass call it
+    name = "grid"
 
     def __init__(self, mode, dim, B, n_hi, N, half, dense, counts,
                  counts_host, packed, g0, dg, rad_hi, eps_max, res,
@@ -428,6 +430,19 @@ class _GridBucket:
     def kernel_scalars(self):
         """The trailing (g0, dg, rad_hi, res) of those entries."""
         return self.g0, self.dg, self.rad_hi, self.res
+
+    def kernel_pass(self, rows, census=None):
+        """The ``grid_pass`` kernel on this bucket: its new planes; a
+        ``census`` gets its voxel-slots listed and inside
+        (:func:`tallied`)."""
+        return tallied(lambda tally: grid_pass_cuda.grid_pass(
+            *self.kernel_args(rows), *self.kernel_scalars(), tally=tally),
+            grid_pass_cuda.TALLY, ("slots", "inside"), census, rows.device)
+
+    def kernel_vjp(self, rows, cts):
+        """The ``grid_vjp`` kernel on this bucket: d_rows for ``cts``."""
+        return grid_pass_cuda.grid_vjp(*self.kernel_args(rows), cts,
+                                       *self.kernel_scalars())
 
     def ax(self, v, d):
         """(C, G, B) per-axis values (B = 1: per slot) -> broadcastable
@@ -602,52 +617,52 @@ def _bucket_vjp(bk, rows, cts, extra=(), needs=None):
 
 
 def _on_kernel(bk, rows):
-    """True where bucket ``bk``'s pass runs the ``grid_pass`` kernel: a
-    bucket whose class sets ``kernel`` (:class:`_GridBucket`), on CUDA
-    tensors. Its CPU tensors take the plain step loop; any other device
-    raises."""
-    if not getattr(bk, "kernel", False) or rows.device.type == "cpu":
+    """True where bucket ``bk``'s pass runs its kernels: a bucket whose
+    class has a ``kernel_pass`` (:class:`_GridBucket`, the snapshot's
+    ``_SnapBucket``), on CUDA tensors. Its CPU tensors take the plain step
+    loop; any other device raises."""
+    if bk.kernel_pass is None or rows.device.type == "cpu":
         return False
     if rows.device.type != "cuda":
-        raise ValueError(f"the grid pass runs on cpu or cuda, not on "
+        raise ValueError(f"the {bk.name} pass runs on cpu or cuda, not on "
                          f"{rows.device}")
     return True
 
 
-def _kernel_pass(bk, rows, census=None):
-    """The ``grid_pass`` kernel on bucket ``bk``: its new planes. A
-    ``census`` gets the kernel's own counts of voxel-slots listed and
-    inside, and one step a launch (it synchronises once)."""
-    tally = (None if census is None else
-             torch.zeros(len(grid_pass_cuda.TALLY), dtype=torch.int64,
-                         device=rows.device))
-    out = grid_pass_cuda.grid_pass(*bk.kernel_args(rows.detach()),
-                                   *bk.kernel_scalars(), tally=tally)
-    if census is not None:
-        counts = dict(zip(grid_pass_cuda.TALLY, tally.tolist()))
-        census['slots'] += counts['slots']
-        census['inside'] += counts['inside']
-        census['steps'] += 1
+def tallied(launch, names, keys, census, device):
+    """``launch(tally)`` of a kernel entry whose tally counts ``names``:
+    without a ``census`` no tally; with one, the census gets the tally's
+    ``keys`` and one step (the launch; it synchronises once)."""
+    if census is None:
+        return launch(None)
+    tally = torch.zeros(len(names), dtype=torch.int64, device=device)
+    out = launch(tally)
+    counts = dict(zip(names, tally.tolist()))
+    for k in keys:
+        census[k] += counts[k]
+    census['steps'] += 1
     return out
 
 
 class _PassFn(torch.autograd.Function):
     """New planes = the pass of bucket ``bk`` of ``rows`` (and its
-    ``extra`` inputs); differentiable in each, to any order. On the card a
-    :class:`_GridBucket`'s forward is the ``grid_pass`` kernel and its
-    backward the ``grid_vjp`` kernel. Under ``create_graph`` (a backward
-    that is to be differentiated again, as Hessians are) its backward is
-    the plain step loop :func:`_bucket_vjp` on the card too, with a
-    warning, until a second-order kernel exists. Elsewhere the forward runs the plain-op
-    pass under no_grad and the backward recomputes it step by step
-    (:func:`_bucket_vjp`), so memory stays that of one step's graph."""
+    ``extra`` inputs); differentiable in each, to any order. On the card
+    the forward of a bucket with kernels (:func:`_on_kernel`) is its
+    ``kernel_pass`` (``grid_pass``, ``snap_pass``) and its backward its
+    ``kernel_vjp`` (``grid_vjp``, ``snap_vjp``). Under ``create_graph`` (a
+    backward that is to be differentiated again, as Hessians are) its
+    backward is the plain step loop :func:`_bucket_vjp` on the card too,
+    with a warning, until a second-order kernel exists. Elsewhere the
+    forward runs the plain-op pass under no_grad and the backward
+    recomputes it step by step (:func:`_bucket_vjp`), so memory stays that
+    of one step's graph."""
 
     @staticmethod
     def forward(ctx, bk, rows, *extra):
         ctx.bk = bk
         ctx.save_for_backward(rows, *extra)
         if _on_kernel(bk, rows):
-            return _kernel_pass(bk, rows)
+            return bk.kernel_pass(rows.detach())
         return _bucket_pass(bk, rows, _zero_planes(bk, rows), extra=extra)
 
     @staticmethod
@@ -656,11 +671,10 @@ class _PassFn(torch.autograd.Function):
         bk = ctx.bk
         if _on_kernel(bk, rows):
             if not torch.is_grad_enabled():
-                return None, grid_pass_cuda.grid_vjp(
-                    *bk.kernel_args(rows), cts, *bk.kernel_scalars())
-            warnings.warn("a grid pass's backward under create_graph runs "
-                          "the plain step loop on the card (no second-order "
-                          "grid kernel yet)")
+                return None, bk.kernel_vjp(rows, cts)
+            warnings.warn(f"a {bk.name} pass's backward under create_graph "
+                          f"runs the plain step loop on the card (no "
+                          f"second-order {bk.name} kernel yet)")
         return (None, *_bucket_vjp(bk, rows, cts, extra,
                                    ctx.needs_input_grad[1:]))
 
@@ -668,16 +682,16 @@ class _PassFn(torch.autograd.Function):
 def _pass_diff(bk, rows, census=None, extra=()):
     """The pass of bucket ``bk`` as a differentiable function of ``rows``
     (and of ``extra``): new planes with the values of :func:`_bucket_pass`
-    on zero planes (bit for bit on the CPU; on the card a
-    :class:`_GridBucket` runs the ``grid_pass`` kernel, which sums each
-    voxel's slots in another order). Where an input requires grad, the
+    on zero planes (bit for bit on the CPU; on the card a bucket with
+    kernels runs its ``kernel_pass``, which sums each voxel's or
+    particle's slots in another order). Where an input requires grad, the
     :class:`_PassFn`; otherwise the pass alone (a ``census`` is only
     filled then)."""
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (rows,) + tuple(extra)):
         return _PassFn.apply(bk, rows, *extra)
     if _on_kernel(bk, rows):
-        return _kernel_pass(bk, rows, census)
+        return bk.kernel_pass(rows.detach(), census)
     return _bucket_pass(bk, rows, _zero_planes(bk, rows), census, extra)
 
 
@@ -733,7 +747,8 @@ class _AnisBucket(_GridBucket):
     inside the row's canvas range (its last two nodes). ``live_h`` marks
     the halos whose rows exist (masses on the remap's grid)."""
 
-    kernel = False
+    #: no kernel yet: its pass steps through the plain loop on the card
+    kernel_pass = kernel_vjp = None
 
     def __init__(self, B, n_hi, N, dense, counts, counts_host, packed,
                  live_h, q0, dq, eps_max, res, block0=0):

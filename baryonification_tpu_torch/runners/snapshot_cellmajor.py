@@ -23,20 +23,26 @@ always covers the whole eps_max * R sphere.
 
 In the JAX package the pass is XLA: a ``lax.map`` over chunks of cells
 with a ``fori_loop`` over the candidates, one profile row rebuilt per
-slot by a one-hot matmul. Here it is plain PyTorch ops, as the grid
-passes: each halo's radial row is blended once a bucket
-(``grid_cellmajor.halo_rows``), the readout is a lerp of two nodes, and a
-step takes a group of candidate slots of a chunk of cells at once, as one
-(cells, slots, particles) tensor of at most ``PASS_BUDGET`` elements, so
-the pass costs a few dozen launches a step, not a dozen a candidate.
+slot by a one-hot matmul. Here each halo's radial row is blended once a
+bucket (``grid_cellmajor.halo_rows``) and the readout is a lerp of two
+nodes. On the card the pass is one launch a bucket of the hand-written
+kernel ``snap_pass`` and its first-order adjoint one of ``snap_vjp``
+(``ops/snap_pass_cuda.py``, ``csrc/snap_pass.cu``), dispatched as the
+grid passes' kernels are (``grid_cellmajor._pass_diff``). Their plain
+version, which CPU tensors take, is the grid passes' step loop on a
+:class:`_SnapBucket`: a step takes a group of candidate slots of a chunk
+of cells at once, as one (cells, slots, particles) tensor of at most
+``PASS_BUDGET`` elements, so the pass costs a few dozen launches a step,
+not a dozen a candidate.
 """
 
 import numpy as np
 import torch
 
+from ..ops import snap_pass_cuda
 from ..parallel import cell_chunk
 from .grid_cellmajor import PASS_BUDGET, _bucket_pass, _pass_diff, \
-    gather_rows
+    gather_rows, tallied
 
 __all__ = ["np_morton3_of_rowmajor", "pad_particles_by_cell",
            "snapshot_offsets_pass", "snapshot_pass_diff"]
@@ -92,9 +98,13 @@ def pad_particles_by_cell(tree, coords, P_pad):
 class _SnapBucket:
     """One bucket of the snapshot pass: its constant inputs, its chunks
     of cells and groups of candidate slots, the geometry of a step
-    (positions only) and its values (the rows); the pass and its adjoint
-    both step through it (``grid_cellmajor._GridBucket`` is the
-    grid's)."""
+    (positions only) and its values (the rows); the plain pass and its
+    adjoint both step through it, and on the card its kernels take its
+    inputs (``grid_cellmajor._GridBucket`` is the grid's). The candidates
+    and counts stay in the registration's int32."""
+
+    #: what the warnings and errors of its pass call it
+    name = "snapshot"
 
     def __init__(self, use_rdelta, P, n_hi, dense, counts_h, counts_host,
                  planes, counts_p, packed, g0, dg, rad_hi, eps_max, a_scale,
@@ -104,10 +114,11 @@ class _SnapBucket:
         self.P = self.unit = P
         self.n_planes = 3
         self.n_hi, self.rdelta = n_hi, use_rdelta
-        self.dense2 = dense.reshape(self.ncell, self.K).to(torch.int64)
-        self.counts_h = counts_h.to(torch.int64)
+        self.dense2 = dense.reshape(self.ncell, self.K)
+        self.counts_h = counts_h
         self.counts_host = counts_host
-        self.counts_p = counts_p.to(torch.int64)
+        self.counts_p = counts_p
+        self.planes = tuple(planes)
         self.g0, self.dg, self.rad_hi = g0, dg, rad_hi
         self.a_scale, self.L = a_scale, L
         # the per-halo columns a slot reads: position, reach (, ln R_com)
@@ -118,6 +129,29 @@ class _SnapBucket:
         self.hrec = torch.stack(hcols, dim=-1)
         self.pos = [p.reshape(self.ncell, P) for p in planes]
         self.slot = torch.arange(P, device=packed.device)
+
+    def kernel_args(self, rows):
+        """The leading arguments of ``ops.snap_pass_cuda.snap_pass`` and
+        ``snap_vjp`` for this bucket and ``rows``."""
+        return (self.rdelta, self.P, self.planes, self.counts_p, self.dense2,
+                self.counts_h, self.hrec, rows)
+
+    def kernel_scalars(self):
+        """The trailing (g0, dg, rad_hi, a_scale, L) of those entries."""
+        return self.g0, self.dg, self.rad_hi, self.a_scale, self.L
+
+    def kernel_pass(self, rows, census=None):
+        """The ``snap_pass`` kernel on this bucket: its new planes; a
+        ``census`` gets its (particle, halo) pairs listed and inside
+        (``grid_cellmajor.tallied``)."""
+        return tallied(lambda tally: snap_pass_cuda.snap_pass(
+            *self.kernel_args(rows), *self.kernel_scalars(), tally=tally),
+            snap_pass_cuda.TALLY, ("pairs", "inside"), census, rows.device)
+
+    def kernel_vjp(self, rows, cts):
+        """The ``snap_vjp`` kernel on this bucket: d_rows for ``cts``."""
+        return snap_pass_cuda.snap_vjp(*self.kernel_args(rows), cts,
+                                       *self.kernel_scalars())
 
     def chunks(self):
         """(c0, c1, (p_ok, pos), [(k0, k1), ...]) of every chunk of cells
@@ -144,7 +178,7 @@ class _SnapBucket:
         dev = self.hrec.device
         L = self.L
         p_ok, pos = cg
-        hid = self.dense2[c0:c1, k0:k1]                        # (C, G)
+        hid = self.dense2[c0:c1, k0:k1].to(torch.int64)        # (C, G)
         ok = (torch.arange(k0, k1, device=dev)[None, :]
               < self.counts_h[c0:c1, None])
         rec = self.hrec[hid]                                   # (C, G, .)
@@ -182,10 +216,13 @@ def snapshot_pass_diff(use_rdelta, P, n_hi, dense, counts_h, counts_host,
                        eps_max, a_scale, L, census=None):
     """One bucket's pass as a differentiable function of ``rows``: new
     padded offset planes with the values of :func:`snapshot_offsets_pass`
-    on zero planes, bit for bit. Where ``rows`` requires grad the
-    backward recomputes the pass a step at a time (positions and
-    candidates are constant; ``grid_cellmajor._PassFn``); otherwise this
-    is the plain pass (a ``census`` is only filled then)."""
+    on zero planes (bit for bit on the CPU). On CUDA tensors the pass is
+    the ``snap_pass`` kernel and its backward the ``snap_vjp`` kernel, one
+    launch a bucket each (under ``create_graph`` the backward is the plain
+    step loop, with a warning); on CPU tensors the plain pass, whose
+    backward recomputes it a step at a time (positions and candidates are
+    constant; ``grid_cellmajor._PassFn``). A ``census`` is only filled
+    without a graph (on the card from the kernel's own counts)."""
     return _pass_diff(_SnapBucket(use_rdelta, P, n_hi, dense, counts_h,
                                   counts_host, planes, counts_p, packed, g0,
                                   dg, rad_hi, eps_max, a_scale, L),

@@ -93,14 +93,18 @@ and fails on any fault:
   10. snapshot path: bench_runners.py's bench_snap (L = 500 Mpc, 5e6
      uniform particles, 1e5 halos, eps_max 15, the grid phase's
      Baryonification3D table): BaryonifySnapshot under "auto" (the
-     cell-major method: plain PyTorch passes, no kernel) cold and warm
-     with stages, every position finite and in [0, L], only particles
-     within eps_max R_com of some halo moved (on a sample), the census of
-     each bucket with its operations bound, the device launches, idle
-     share and peak memory of a warm call, the float32 offsets against a
-     float64 run at SNAP_F32_BAR; at 2e6 particles / 3e4 halos the gather
-     method (one scatter launch a halo chunk) against the cell-major
-     method in float64 (rtol 1e-10, atol 1e-10) and float32
+     cell-major method: the snap_pass kernel, one launch a bucket) cold
+     and warm with stages, every position finite and in [0, L], only
+     particles within eps_max R_com of some halo moved (on a sample), the
+     census of each bucket (the kernel's tally) with its operations
+     bound, the device launches, idle share and peak memory of a warm
+     call, the float32 offsets against a float64 run at SNAP_F32_BAR;
+     snap_pass and snap_vjp against the plain step loop on the card at
+     the run's largest bucket (check_snap_bucket), both dtypes, their
+     tallies against the loop's census, their times, bounds, registers
+     and spills; at 2e6 particles / 3e4 halos the gather method (one
+     scatter launch a halo chunk) against the cell-major method in
+     float64 (rtol 1e-10, atol 1e-10) and float32
      (SNAP_METHODS_F32_BAR), and the scatter kernel against its plain
      version at the gather run's largest chunk;
   11. gradgrid: grid-256 differentiated at full width (bench_runners'
@@ -122,11 +126,13 @@ and fails on any fault:
      each;
   12. gradsnap: snap-5e6 (bench_snap's inputs) differentiated: chi^2 on
      example 15's seven P(k) bands at 256^3 through
-     BaryonifySnapshot.process_device, cold and warm value_and_grad,
-     float64 against central differences, process_device() against
-     process() (float64 bit for bit);
+     BaryonifySnapshot.process_device (the snap_pass kernel forward, the
+     snap_vjp kernel backward, no plain step loop on the card), cold and
+     warm value_and_grad, float64 against central differences,
+     process_device() against process() (float64 bit for bit);
   13. ex15: examples/15_gradient_fit_dPk.py on the card at its sizes, in
-     float64, the full tier (20 Adam steps), its three asserts;
+     float64, the full tier (20 Adam steps), its three asserts (the
+     snapshot kernels and the scatter kernels launched);
   13b. anis: bench_runners.py's bench_anis (2048^2, 2e5 halos, the tSZ
      table painted on a DarkMatter canvas): PaintProfilesAnisGrid's remap
      (host build against build_remap_device), cold and warm process()
@@ -1764,11 +1770,15 @@ TIMED_RUN = {"scatter_add": "grid BaryonifyGrid (auto = cellmajor)",
              "regrid_rings": "mesh shell-1e6 (2 gloo ranks on one card, "
                              "rank 0)",
              "regrid_vjp": "grad (value_and_grad, float32)",
-             "regrid_det": "mesh shell-1e6 (1 nccl rank)"}
+             "regrid_det": "mesh shell-1e6 (1 nccl rank)",
+             "snap_pass": "snap BaryonifySnapshot (auto = cellmajor, "
+                          "5000000)",
+             "snap_vjp": "gradsnap (value_and_grad, float32)"}
 COUNTERS = []       # the LAUNCHES dicts of the kernel modules
 SCATTER = []        # the name of the scatter module's forward kernel
 CELLMAJOR = []      # the name of the cell-major module's forward kernel
 GRID = ["grid_pass"]  # the grid pass module's forward kernel
+SNAP = ["snap_pass"]  # the snapshot pass module's forward kernel
 REGRID = ["regrid"]   # the shell regrid's kernel (stage C of a baryonify)
 # the regrid's deterministic route, under use_deterministic_algorithms
 REGRID_DET = ["regrid_det"]
@@ -2085,21 +2095,24 @@ def nd_catalog(T, dim, N, L, n_halo, seed=3):
     return cat, gm
 
 
-def census_run(torch, runner):
+def census_run(torch, runner, counts=None, kernel=None):
     """One warm process() with the runner's census (it synchronises once
-    a step) and the peak device memory of that call, then one under
-    torch.profiler (no stage syncs): (census, peak GiB, device launches,
-    busy ms, the idle share as text)."""
+    a step), the peak device memory of that call and the launches it
+    counts in ``counts[kernel]`` (a kernel module's LAUNCHES), then one
+    under torch.profiler (no stage syncs): (census, peak GiB, kernel
+    launches, device launches, busy ms, the idle share as text)."""
     runner.census = []
     torch.cuda.reset_peak_memory_stats()
+    n0 = counts[kernel] if counts else 0
     runner.process()
+    n_kernel = (counts[kernel] if counts else 0) - n0
     peak = torch.cuda.max_memory_allocated() / 2**30
     census, runner.census = runner.census, None
     n_launch, dev_ms, wall = device_launches(torch, runner.process)
     idle = ("not measured" if n_launch is None else
             f"{100 * max(0.0, 1 - dev_ms / (1e3 * wall)):.1f}% of that "
             f"profiled call's {wall:.3f} s")
-    return census, peak, n_launch, dev_ms, idle
+    return census, peak, n_kernel, n_launch, dev_ms, idle
 
 
 def grid_census(torch, runner, label, mode, dim, dname):
@@ -2110,14 +2123,11 @@ def grid_census(torch, runner, label, mode, dim, dname):
     pass's steps, the operations bound, the device-idle share of the
     profiled call (its busy time over its own wall time, which holds the
     profiler's host cost too), and the peak device memory of a warm
-    call. Then one more warm process() must launch the grid_pass kernel
-    once a bucket. Returns (voxel-slots,
-    inside, operations bound ms)."""
+    call. The census call must launch the grid_pass kernel once a
+    bucket. Returns (voxel-slots, inside, operations bound ms)."""
     from baryonification_tpu_torch.ops import grid_pass_cuda as gp
-    census, peak, n_launch, dev_ms, idle = census_run(torch, runner)
-    n0 = gp.LAUNCHES["grid_pass"]
-    runner.process()
-    n = gp.LAUNCHES["grid_pass"] - n0
+    census, peak, n, n_launch, dev_ms, idle = census_run(
+        torch, runner, gp.LAUNCHES, "grid_pass")
     log(f"grid: {label}: a warm process() launches grid_pass {n} "
         f"times for its {len(census)} buckets")
     check(n == len(census), f"{label}: {n} grid_pass launches for "
@@ -3189,6 +3199,17 @@ SNAP_METHODS_F32_BAR = 1e-6
 # 1/r and the scale by a (2) and the push (2 a dimension)
 SNAP_TEST_FLOPS = 3 * 5 + 6
 SNAP_READ_FLOPS = 1 + 1 + 2 + 3 + 3 + 2 + 6
+# the adjoint's more a pair inside: the cotangents' dot (5), the shares
+# (3), less the push (6)
+SNAP_VJP_FLOPS = 5 + 3 - 6
+# the snap_pass and snap_vjp kernels against the plain step loop on the
+# card, of max|plain|: the same arithmetic a pair (the geometry bit for
+# bit), summed in another order: a slot's pairs (the pass), a node's
+# shares from many pairs by atomic adds in no fixed order (the adjoint)
+SNAP_PASS_BAR = {"float64": 1e-13, "float32": 1e-5}
+SNAP_VJP_BAR = {"float64": 1e-12, "float32": 1e-4}
+SNAP_PASS_SOURCE = "baryonification_tpu_torch/csrc/snap_pass.cu"
+SNAP_PASS_REPLACES = "baryonification_tpu/runners/snapshot_cellmajor.py:89"
 
 
 def snap_inputs(T, L, n_part, n_halo, seed):
@@ -3288,11 +3309,19 @@ def check_locality(torch, device, runner, off, n_sample=20000, seed=0):
 
 
 def snap_census(torch, runner, label):
-    """One more warm process() with the pass's census (it synchronises
-    once a step), and one under torch.profiler for the device's launches,
-    busy time and idle share; the peak device memory of a warm call.
-    Returns (pairs, inside, operations bound ms)."""
-    census, peak, n_launch, dev_ms, idle = census_run(torch, runner)
+    """One more warm process() with the pass's census (on the card the
+    kernel's tally: it synchronises once a bucket), and one under
+    torch.profiler for the device's launches, busy time and idle share;
+    the peak device memory of a warm call. Fails unless the census call
+    launched snap_pass once a bucket. Returns (pairs, inside, operations
+    bound ms)."""
+    from baryonification_tpu_torch.ops import snap_pass_cuda as spc
+    census, peak, n_warm, n_launch, dev_ms, idle = census_run(
+        torch, runner, spc.LAUNCHES, "snap_pass")
+    log(f"snap: {label}: snap_pass launches a warm process() {n_warm} "
+        f"({len(census)} buckets)")
+    check(n_warm == len(census) > 0, f"{label}: a warm process() launched "
+          f"snap_pass {n_warm} times for {len(census)} buckets")
     pairs = sum(c["pairs"] for c in census)
     inside = sum(c["inside"] for c in census)
     flops = pairs * SNAP_TEST_FLOPS + inside * SNAP_READ_FLOPS
@@ -3312,17 +3341,138 @@ def snap_census(torch, runner, label):
     return pairs, inside, bound
 
 
+def snap_kernel_bounds(c, dname, vjp):
+    """(operations ms, bytes ms) of one snapshot kernel launch on a bucket
+    whose counts are ``c`` (pairs, inside, and its sizes): the tests of
+    every listed pair and the readout of each inside (SNAP_TEST_FLOPS,
+    SNAP_READ_FLOPS; the adjoint SNAP_VJP_FLOPS more); bytes: each input
+    that the kernel needs read once (the positions of the real slots,
+    the adjoint's cotangents there too; the per-cell counts; the
+    candidate ids within their counts, of the cells with a particle; the
+    per-halo columns; the rows, whole), each output written once (every
+    slot of the planes, pads too; the adjoint's rows)."""
+    t = 8 if dname == "float64" else 4
+    read = SNAP_READ_FLOPS + (SNAP_VJP_FLOPS if vjp else 0)
+    flops = c["pairs"] * SNAP_TEST_FLOPS + c["inside"] * read
+    n_bytes = (c["real"] * 3 * t * (1 + vjp)
+               + (0 if vjp else c["slots"] * 3 * t) + c["ncell"] * 2 * 4
+               + c["ids"] * 4 + c["H"] * c["hcols"] * t
+               + c["H"] * c["n_hi"] * t * (1 + vjp))
+    return flops / PEAK_FLOPS[dname] * 1e3, n_bytes / PEAK_BYTES * 1e3
+
+
+def check_snap_bucket(torch, label, args, dt, seed=0):
+    """snap_pass and snap_vjp against the plain step loop (_bucket_pass,
+    _bucket_vjp on a _SnapBucket, on the card) at one bucket of a run:
+    ``args`` the runner's snapshot_pass_diff arguments, its planes,
+    records and rows cast to ``dt``, seeded random cotangents. Both
+    outputs finite and within SNAP_PASS_BAR / SNAP_VJP_BAR of max|plain|,
+    two launches of the pass bit for bit, the kernels' tallies equal to
+    the loop's census. Logs and returns the errors, the kernels' device
+    times (queued_ms), the loop's (CUDA events), both bounds and the
+    adjoint's atomic adds (build_all logs the kernels' registers and
+    spills)."""
+    from baryonification_tpu_torch.ops import snap_pass_cuda as spc
+    from baryonification_tpu_torch.runners import grid_cellmajor as tgcm
+    from baryonification_tpu_torch.runners import snapshot_cellmajor as tscm
+    (rdelta, P, n_hi, dense, counts_h, counts_host, planes, counts_p, pk,
+     rows, g0, dg, rad_hi, eps, a_scale, L) = args
+    dname = str(dt).split(".")[1]
+    if dt == torch.float32:
+        # the radial grid's nodes as float32 holds them, as the runner's
+        g0, dg, rad_hi = (float(np.float32(v)) for v in (g0, dg, rad_hi))
+    bk = tscm._SnapBucket(rdelta, P, n_hi, dense, counts_h, counts_host,
+                          tuple(p.to(dt) for p in planes), counts_p,
+                          pk.to(dt), g0, dg, rad_hi, eps, a_scale, L)
+    rows = rows.detach().to(dt).contiguous()
+    n_tally = len(spc.TALLY)
+    tally = torch.zeros(n_tally, dtype=torch.int64, device=rows.device)
+    got = spc.snap_pass(*bk.kernel_args(rows), *bk.kernel_scalars(),
+                        tally=tally)
+    again = bk.kernel_pass(rows)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    census = dict(pairs=0, inside=0, steps=0)
+    want = tgcm._bucket_pass(bk, rows, tgcm._zero_planes(bk, rows), census)
+    _, ms_p = timed(torch, lambda: tgcm._bucket_pass(
+        bk, rows, tgcm._zero_planes(bk, rows)))
+    err, scale = rel_err(tuple(got), tuple(want))
+    del want, again
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    cts = tuple(torch.randn(g.shape, generator=gen, dtype=torch.float64)
+                .to(g) for g in got)
+    vtally = torch.zeros(n_tally, dtype=torch.int64, device=rows.device)
+    d_k = spc.snap_vjp(*bk.kernel_args(rows), cts, *bk.kernel_scalars(),
+                       tally=vtally)
+    with torch.no_grad():
+        d_p, ms_vp = timed(torch, lambda: tgcm._bucket_vjp(bk, rows, cts)[0])
+    fin = torch.isfinite(d_p)
+    verr, vscale = rel_err(d_k[fin], d_p[fin])
+    ms_k = queued_ms(torch, lambda: bk.kernel_pass(rows), 5)
+    ms_vk = queued_ms(torch, lambda: spc.snap_vjp(
+        *bk.kernel_args(rows), cts, *bk.kernel_scalars()), 5)
+    kt, vt = tally.tolist(), vtally.tolist()
+    real = bk.counts_p.clamp(max=P).long()
+    c = dict(pairs=kt[0], inside=kt[1], real=int(real.sum()),
+             slots=bk.ncell * P, ncell=bk.ncell,
+             ids=int(torch.where(real > 0, bk.counts_h.clamp(max=bk.K), 0)
+                     .long().sum()),
+             H=rows.shape[0], hcols=bk.hrec.shape[1], n_hi=n_hi)
+    (o_ms, y_ms), (vo_ms, vy_ms) = (
+        snap_kernel_bounds(c, dname, v) for v in (False, True))
+    b_ms, b_by = max((o_ms, "operations"), (y_ms, "bytes"))
+    vb_ms, vb_by = max((vo_ms, "operations"), (vy_ms, "bytes"))
+    log(f"{label}: largest bucket (H={rows.shape[0]}, ncell={bk.ncell}, "
+        f"K={bk.K}, P={P}, n_hi={n_hi}, rdelta={bool(rdelta)}; "
+        f"{c['real']} real slots of {c['slots']}, {c['ids']} candidate ids "
+        f"read of {dense.numel()}), {dname}: "
+        f"census {census['pairs']:.4e} pairs, {census['inside']:.4e} inside "
+        f"({census['steps']} steps); snap_pass tally {kt[0]:.4e} / "
+        f"{kt[1]:.4e}, max|err| / max|plain| {err:.3e} (max|plain| "
+        f"{scale:.3e}, bar {SNAP_PASS_BAR[dname]:g}), two launches bit for "
+        f"bit: {same}, kernel {ms_k:.4f} ms, plain {ms_p:.2f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / ms_k:.1f}%; operations "
+        f"{o_ms:.4f}, bytes {y_ms:.4f}); snap_vjp tally {vt[0]:.4e} / "
+        f"{vt[1]:.4e}, {vt[2]:.4e} global atomics, max|err| / max|plain| "
+        f"{verr:.3e} (max|plain| {vscale:.3e}, bar {SNAP_VJP_BAR[dname]:g};"
+        f" {int((~fin).sum())} non-finite plain nodes), kernel "
+        f"{ms_vk:.4f} ms, plain {ms_vp:.2f} ms, bound {vb_ms:.4f} ms "
+        f"({vb_by}, {100 * vb_ms / ms_vk:.1f}%; operations {vo_ms:.4f}, "
+        f"bytes {vy_ms:.4f})")
+    check(all(bool(torch.isfinite(g).all()) for g in got)
+          and bool(torch.isfinite(d_k).all()),
+          f"{label}: snapshot kernels {dname}: non-finite output")
+    check(same, f"{label}: two snap_pass launches {dname} differ")
+    check(err <= SNAP_PASS_BAR[dname], f"{label}: snap_pass {dname} "
+          f"disagrees with its plain version: {err:.3e}")
+    check(verr <= SNAP_VJP_BAR[dname], f"{label}: snap_vjp {dname} "
+          f"disagrees with its plain version: {verr:.3e}")
+    check(kt == [census["pairs"], census["inside"], 0]
+          and vt[:2] == kt[:2] and 0 < vt[2] <= 2 * vt[1],
+          f"{label}: the kernels' tallies {kt}, {vt} are not the census "
+          f"{census}")
+    return dict(pass_=dict(max_abs_err=err * scale, ms=ms_k, plain_ms=ms_p,
+                           bound_ms=b_ms, bound_by=b_by, ops_ms=o_ms,
+                           bytes_ms=y_ms, pairs=kt[0], inside=kt[1]),
+                vjp=dict(max_abs_err=verr * vscale, ms=ms_vk,
+                         plain_ms=ms_vp, bound_ms=vb_ms, bound_by=vb_by,
+                         ops_ms=vo_ms, bytes_ms=vy_ms, atomics=vt[2]))
+
+
 def snap_path(T, torch, sc, device):
     """bench_runners.py's bench_snap on the card: BaryonifySnapshot of 5e6
-    particles around 1e5 halos under ``auto`` (the cell-major method,
-    plain PyTorch passes, no kernel), cold and warm with stages, the
-    census and profile of a warm call, the float32 offsets held against
-    a float64 run; at 2e6 / 3e4 the gather method (one scatter launch a
-    halo chunk) against the cell-major method in float64 (rtol 1e-10,
-    atol 1e-10) and float32, and the scatter kernel against its plain
-    version at the gather run's largest chunk. Returns the launch counts
-    of every cold run, by run."""
+    particles around 1e5 halos under ``auto`` (the cell-major method:
+    the snap_pass kernel, one launch a bucket), cold and warm with
+    stages, the census and profile of a warm call, the float32 offsets
+    held against a float64 run, snap_pass and snap_vjp against the plain
+    step loop at the run's largest bucket in both dtypes
+    (check_snap_bucket); at 2e6 / 3e4 the gather method (one scatter
+    launch a halo chunk) against the cell-major method in float64 (rtol
+    1e-10, atol 1e-10) and float32, and the scatter kernel against its
+    plain version at the gather run's largest chunk. Returns (the launch
+    counts of every cold run, by run; {dtype name: check_snap_bucket's
+    result})."""
     from baryonification_tpu_torch.runners import snapshot as tsnap
+    from baryonification_tpu_torch.runners import snapshot_cellmajor as tscm
     model = grid_model(T, torch, device, 3)
     L, n_part, n_halo = SNAP_CELL
     cat, snap = snap_inputs(T, L, n_part, n_halo, seed=3)
@@ -3341,11 +3491,24 @@ def snap_path(T, torch, sc, device):
         f"cells, at most {runner.tree.max_per_cell} a cell) built on the "
         f"host in {t_list:.2f} s")
     label = f"snap BaryonifySnapshot (auto = cellmajor, {n_part})"
-    new32, out[label], _, _ = snap_process(torch, runner, label, [],
+    new32, out[label], _, _ = snap_process(torch, runner, label, SNAP,
                                            SCATTER + CELLMAJOR)
     off32 = snap_offsets(snap, new32)
     check_locality(torch, device, runner, off32)
     snap_census(torch, runner, label)
+    calls = []
+    with spied(tscm, "snapshot_pass_diff", calls.append):
+        runner.process()
+    # the bucket that lists the most (particle, halo) pairs
+    args = max(calls, key=lambda a: int(
+        (a[7].long() * a[4].long()).sum()))
+    del calls
+    kernels = {}
+    for dt in (torch.float32, torch.float64):
+        kernels[str(dt).split(".")[1]] = check_snap_bucket(
+            torch, f"snap {label}", args, dt)
+        torch.cuda.empty_cache()
+    del args
     r64, _ = mk(cat, snap, precision="float64")
     t0 = time.perf_counter()
     off64 = snap_offsets(snap, r64.process())
@@ -3369,8 +3532,8 @@ def snap_path(T, torch, sc, device):
         r, _ = mk(cat2, snap2, method=method)
         label = f"snap BaryonifySnapshot ({method}, {n_part2})"
         new, out[label], _, _ = snap_process(
-            torch, r, label, SCATTER if method == "gather" else [],
-            CELLMAJOR + ([] if method == "gather" else SCATTER))
+            torch, r, label, SCATTER if method == "gather" else SNAP,
+            CELLMAJOR + (SNAP if method == "gather" else SCATTER))
         offs[method, "float32"] = snap_offsets(snap2, new)
         if method == "gather":
             chunk = []
@@ -3407,7 +3570,7 @@ def snap_path(T, torch, sc, device):
     check(err64.max() <= 0, "snap: the float64 methods differ")
     check(rel_m < SNAP_METHODS_F32_BAR,
           f"snap: the float32 methods differ: {rel_m:.3e}")
-    return out
+    return out, kernels
 
 
 # ----- the dP(k) path: examples/10 and 12 -----
@@ -4465,8 +4628,9 @@ def value_and_grad(torch, loss_of, x0, device):
 
 @contextlib.contextmanager
 def synced_time(torch, module, name, times):
-    """``module.name`` timed for the block: each call, synchronised before
-    and after, adds its seconds to ``times``."""
+    """``module.name`` (a function of a module or a class) timed for the
+    block: each call, synchronised before and after, adds its seconds to
+    ``times``."""
     fn = getattr(module, name)
 
     def timed_fn(*args, **kw):
@@ -4491,9 +4655,9 @@ def warm_value_and_grad(torch, label, loss_of, x0, device, reg_module,
     device memory of the warm one, and then one more warm step with the
     passes' forwards and backwards timed (``pass_module``'s
     ``_bucket_pass`` and ``_bucket_vjp``, the grid and snapshot passes'
-    step loops, and the grid kernels' ``_kernel_pass`` and ``grid_vjp``,
-    synchronised: for the breakdown only). Returns (cold, warm, peak
-    GiB)."""
+    step loops, and the kernels: the buckets' ``kernel_pass``,
+    ``grid_vjp`` and ``snap_vjp``, synchronised: for the breakdown only).
+    Returns (cold, warm, peak GiB)."""
     regs = []
     with spied(reg_module, reg_name, regs.append):
         cold = value_and_grad(torch, loss_of, x0, device)
@@ -4505,9 +4669,13 @@ def warm_value_and_grad(torch, label, loss_of, x0, device, reg_module,
         regs_warm = len(regs)
     t_fwd, t_bwd = [], []
     from baryonification_tpu_torch.ops import grid_pass_cuda as gp
+    from baryonification_tpu_torch.ops import snap_pass_cuda as spc
+    from baryonification_tpu_torch.runners import snapshot_cellmajor as tscm
     timers = [(pass_module, "_bucket_pass", t_fwd),
               (pass_module, "_bucket_vjp", t_bwd),
-              (pass_module, "_kernel_pass", t_fwd), (gp, "grid_vjp", t_bwd)]
+              (pass_module._GridBucket, "kernel_pass", t_fwd),
+              (tscm._SnapBucket, "kernel_pass", t_fwd),
+              (gp, "grid_vjp", t_bwd), (spc, "snap_vjp", t_bwd)]
     with contextlib.ExitStack() as stack:
         for module, name, times in timers:
             stack.enter_context(synced_time(torch, module, name, times))
@@ -4898,9 +5066,18 @@ def gradsnap_path(T, torch, device):
     chi^2 = 1e4 sum (ratio(ln M_c) - ratio(ln M_c,true))^2 on example
     15's seven P(k) bands at Ng = GRAD_SNAP_NG, through float64
     build_table_device and float32 process_device under ``auto``: a cold
-    and a warm value_and_grad, the float64 gradient against central
+    and a warm value_and_grad (the snap_pass kernel forward and the
+    snap_vjp kernel backward, one launch a bucket each, and no plain step
+    loop or other plain version on the card: the scatter_add_vjp
+    launches are the CIC's alone), the float64 gradient against central
     differences, process_device() against process() (float64 bit for
-    bit; float32 within the positions' rounding)."""
+    bit; float32 within the positions' rounding); then snap_vjp against
+    the step loop at the largest bucket with the float32 rows of
+    build_table_device (the kernels line's snap_vjp record). Returns
+    check_snap_bucket's snap_vjp result."""
+    from baryonification_tpu_torch.ops import cellmajor_cuda as cmc
+    from baryonification_tpu_torch.ops import scatter_cuda as sc
+    from baryonification_tpu_torch.ops import snap_pass_cuda as spc
     from baryonification_tpu_torch.runners import grid_cellmajor as tgcm
     from baryonification_tpu_torch.runners import snapshot_cellmajor as tscm
     model = grid_model(T, torch, device, 3)
@@ -4934,11 +5111,28 @@ def gradsnap_path(T, torch, device):
     label = (f"gradsnap (snap-5e6: {n_part} particles, {n_halo} halos, "
              f"P(k) bands on {GRAD_SNAP_NG}^3)")
     reset_counts()
-    cold, warm, peak = warm_value_and_grad(
-        torch, label, chi2("float32"), LN_MC_START, device, tgcm,
-        "register_halos_grid", tgcm)
-    read_counts("gradsnap (value_and_grad, float32)",
-                ("scatter_add", "scatter_add_vjp"))
+    passes = []
+    with plain_on_card(cmc, sc) as plain, \
+            spied(tscm, "snapshot_pass_diff", passes.append):
+        cold, warm, peak = warm_value_and_grad(
+            torch, label, chi2("float32"), LN_MC_START, device, tgcm,
+            "register_halos_grid", tgcm)
+    launches = read_counts("gradsnap (value_and_grad, float32)",
+                           ("scatter_add", "scatter_add_vjp", "snap_pass",
+                            "snap_vjp"))
+    # three value_and_grads (cold, warm, and one with the passes synced)
+    steps = 3
+    log(f"{label}: launches a value_and_grad: snap_pass "
+        f"{launches['snap_pass'] / steps:g}, snap_vjp "
+        f"{launches['snap_vjp'] / steps:g} ({len(passes) / steps:g} "
+        f"buckets), scatter_add_vjp {launches['scatter_add_vjp'] / steps:g}"
+        f" (the CIC's backward); plain versions on the card: {plain}")
+    check(not plain, f"gradsnap: plain versions ran on the card: {plain}")
+    check(launches["snap_vjp"] == launches["snap_pass"] == len(passes),
+          f"gradsnap: snap_pass {launches['snap_pass']} and snap_vjp "
+          f"{launches['snap_vjp']} launches for {len(passes)} bucket "
+          f"passes")
+    del passes
     mem = memory_split(torch, label, chi2("float32"), LN_MC_START, device,
                        [(T.Baryonification3D, "build_table_device"),
                         (tscm, "snapshot_pass_diff"),
@@ -4963,8 +5157,22 @@ def gradsnap_path(T, torch, device):
                "process_device() to the float32 positions on the card)"))
         check(diff <= bar, f"gradsnap: process_device() {p} differs from "
               f"process(): {diff:.3e}")
-    return dict(forward_s=warm[2], backward_s=warm[3], peak_gib=peak,
-                memory_gib=mem)
+    # snap_vjp (and snap_pass) against the step loop on the largest
+    # bucket, its rows from build_table_device's float32 table
+    calls = []
+    with torch.no_grad(), spied(tscm, "snapshot_pass_diff", calls.append):
+        chi2("float32")(torch.tensor(LN_MC_START, **f64))
+    args = max(calls, key=lambda a: int(
+        (a[7].long() * a[4].long()).sum()))
+    del calls
+    vjp = check_snap_bucket(torch, "gradsnap: grad-snap-5e6", args,
+                            torch.float32)["vjp"]
+    del args, runners
+    torch.cuda.empty_cache()
+    log(f"{label}: " + json.dumps(dict(
+        forward_s=warm[2], backward_s=warm[3], peak_gib=peak,
+        memory_gib=mem), default=float))
+    return vjp
 
 
 def example15(T, torch, device):
@@ -5009,12 +5217,13 @@ def example15(T, torch, device):
 
 
 def ex15_path(T, torch, device):
-    """Example 15 on the card; the scatter kernel and its backward must
-    have been launched (the CIC deposits of its P(k))."""
+    """Example 15 on the card; the scatter kernel and its backward (the
+    CIC deposits of its P(k)) and the snapshot kernels must have been
+    launched."""
     reset_counts()
     example15(T, torch, device)
     read_counts("ex15 (example 15, full tier)",
-                ("scatter_add", "scatter_add_vjp"))
+                ("scatter_add", "scatter_add_vjp", "snap_pass", "snap_vjp"))
 
 
 # ----- the density-dependent paint: anis, ex17 -----
@@ -5058,7 +5267,7 @@ def anis_census(torch, runner, label):
     memory, one under torch.profiler; logs the counts, the operations
     bound, the launches and the idle share. Returns (operations bound ms,
     census totals)."""
-    census, peak, n_launch, dev_ms, idle = census_run(torch, runner)
+    census, peak, _, n_launch, dev_ms, idle = census_run(torch, runner)
     N = runner.GriddedMap.Npix
     slots = sum(c["slots"] for c in census)
     inside = sum(c["inside"] for c in census)
@@ -6015,7 +6224,7 @@ def mesh_rank_runs(T, torch, cmc, sc, mesh, device, rank, world, work,
     mk = lambda mesh_: T.BaryonifySnapshot(
         cat, snap, epsilon_max=SNAP_EPS, model=models["grid3d"],
         verbose=False, device=device, mesh=mesh_, method="cellmajor")
-    new, cold = timed_run("snap-5e6", mk(mesh), ())
+    new, cold = timed_run("snap-5e6", mk(mesh), SNAP)
     off = snap_offsets(snap, new)
     out["digests"]["snap"] = digest(off)
     out["snap"] = dict(cold_s=cold, rms_vs_single=against_single(
@@ -6073,8 +6282,10 @@ def mesh_rank_main(rank, world, init_file, root, work, n_halo, nside,
     from baryonification_tpu_torch.ops import grid_pass_cuda as gp
     from baryonification_tpu_torch.ops import regrid_cuda as rc
     from baryonification_tpu_torch.ops import scatter_cuda as sc
+    from baryonification_tpu_torch.ops import snap_pass_cuda as spc
 
-    COUNTERS.extend([sc.LAUNCHES, cmc.LAUNCHES, gp.LAUNCHES, rc.LAUNCHES])
+    COUNTERS.extend([sc.LAUNCHES, cmc.LAUNCHES, gp.LAUNCHES, rc.LAUNCHES,
+                     spc.LAUNCHES])
     SCATTER.append("scatter_add")
     CELLMAJOR.append("cellmajor_pass")
     device = torch.device(device_type, 0)
@@ -6198,7 +6409,11 @@ def ptxas_summary(build_log):
             g = re.search(r"\dgrid_kernelI([fd])Li([23])ELi([012])ELb([01])E",
                           m.group(1))
             rg = re.search(r"\d(regrid\w*_kernel)I([fd])E", m.group(1))
+            sn = re.search(r"\dsnap_kernelI([fd])Lb([01])ELb([01])E",
+                           m.group(1))
             entry = (f"{rg.group(1)}<{rg.group(2)}>" if rg else
+                     f"snap_{('pass', 'vjp')[int(sn.group(3))]}<"
+                     f"{sn.group(1)},rdelta={sn.group(2)}>" if sn else
                      f"grid_{('pass', 'vjp')[int(g.group(4))]}<{g.group(1)},"
                      f"dim={g.group(2)},mode={g.group(3)}>" if g else
                      f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else
@@ -6218,7 +6433,7 @@ def ptxas_summary(build_log):
     return out
 
 
-def build_all(torch, sc, lc, cmc, gp, rc):
+def build_all(torch, sc, lc, cmc, gp, rc, spc):
     """Compile every kernel source at once (one nvcc each, in parallel),
     then bind each kernel in both dtypes. The kernels of the paths (the
     scatter, the cell-major pass, the Legendre kernels at 8 rings per
@@ -6249,6 +6464,8 @@ def build_all(torch, sc, lc, cmc, gp, rc):
             gp._kernel(dt, entry)
         for entry in rc._ARGTYPES:
             rc._kernel(dt, entry)
+        for entry in spc.LAUNCHES:
+            spc._kernel(dt, entry)
     log("build: " + ", ".join(f"{n}.cu {t:.2f} s" for n, t in times)
         + f"; all built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, text in getattr(cb, "BUILD_LOG", {}).items():
@@ -6258,7 +6475,7 @@ def build_all(torch, sc, lc, cmc, gp, rc):
                                     for e, r, sp, sm in rows))
         for e, r, sp, _ in rows:
             if e.startswith(("scatter_add", "cellmajor", "adjoint", "grid_",
-                             "regrid")) \
+                             "regrid", "snap_")) \
                     or e.endswith(("<f,8>", "<d,8>")):
                 check(sp == 0, f"{e} spills {sp} bytes of registers")
 
@@ -6294,11 +6511,12 @@ def main(argv=None):
     from baryonification_tpu_torch.ops import legendre_cuda as lc
     from baryonification_tpu_torch.ops import regrid_cuda as rc
     from baryonification_tpu_torch.ops import scatter_cuda as sc
+    from baryonification_tpu_torch.ops import snap_pass_cuda as spc
     from baryonification_tpu_torch.ops import spectra as sp
     check("jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                         if v is not None}, "JAX was imported")
     COUNTERS.extend([sc.LAUNCHES, lc.LAUNCHES, cmc.LAUNCHES, gp.LAUNCHES,
-                     rc.LAUNCHES])
+                     rc.LAUNCHES, spc.LAUNCHES])
     SCATTER.append("scatter_add")
     CELLMAJOR.append("cellmajor_pass")
 
@@ -6311,7 +6529,7 @@ def main(argv=None):
         f"{torch.cuda.device_count()}), torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; nvidia-smi: {smi_line}")
 
-    build_all(torch, sc, lc, cmc, gp, rc)
+    build_all(torch, sc, lc, cmc, gp, rc, spc)
     records = {}
     phase_s, mark = {}, [None, time.perf_counter()]
 
@@ -6365,16 +6583,23 @@ def main(argv=None):
     if run("families"):
         families_path(T, torch, device)
     if run("snap"):
-        runs = snap_path(T, torch, sc, device)
+        runs, snap_checks = snap_path(T, torch, sc, device)
         log("snap: scatter_add launches by run: " + ", ".join(
             f"{k} {c['scatter_add']}" for k, c in runs.items()))
+        # the timed run's largest bucket: snap-5e6 (auto = cellmajor),
+        # float32 (snap_vjp's record is gradsnap's)
+        records["snap_pass"] = kernel_record(
+            "snap_pass", SNAP_PASS_SOURCE, SNAP_PASS_REPLACES,
+            snap_checks["float32"]["pass_"])
     if run("gradgrid"):
         records["scatter_add_vjp"], vjp = gradgrid_path(T, torch, sc, device)
         if vjp is not None:
             records["grid_vjp"] = kernel_record(
                 "grid_vjp", GRID_PASS_SOURCE, GRID_PASS_REPLACES, vjp)
     if run("gradsnap"):
-        gradsnap_path(T, torch, device)
+        records["snap_vjp"] = kernel_record(
+            "snap_vjp", SNAP_PASS_SOURCE, SNAP_PASS_REPLACES,
+            gradsnap_path(T, torch, device))
     if run("ex15"):
         ex15_path(T, torch, device)
     if run("anis"):
@@ -6410,6 +6635,7 @@ def main(argv=None):
     kernel_of.update({k: k for k in lc.LAUNCHES})
     kernel_of.update({k: k for k in gp.LAUNCHES})
     kernel_of.update({k: k for k in rc.LAUNCHES})
+    kernel_of.update({k: k for k in spc.LAUNCHES})
     for path, counts in PATH_LAUNCHES.items():
         for k, n in counts.items():
             if n:

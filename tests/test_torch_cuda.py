@@ -44,7 +44,11 @@ autograd of the plain version, and show the shell runners launching the
 regrid kernels and never its plain version; the regrid's ring table is
 held to the closed form of every ring bit for bit (NSIDE 1 to 8192), and
 its warps' merged adds are counted (fewer adds than rows on a NESTED
-sky, the map within its bar in any input order and on a pile-up).
+sky, the map within its bar in any input order and on a pile-up). The
+snapshot cases (tests/_torch_snap_cases.py) hold the ``snap_pass`` and
+``snap_vjp`` kernels against the plain step loop on the card, with
+their tallies equal to its census, ``gradcheck`` of the pass, and one
+launch a bucket's forward and one its backward.
 """
 
 import numpy as np
@@ -55,6 +59,7 @@ from baryonification_tpu_torch.ops import cellmajor_cuda as cmc
 from baryonification_tpu_torch.ops import healpix as hpx
 from baryonification_tpu_torch.ops import legendre_cuda as lc
 from baryonification_tpu_torch.ops import scatter_cuda as sc
+from baryonification_tpu_torch.ops import snap_pass_cuda as spc
 from baryonification_tpu_torch.ops import spectra as sp
 
 torch.set_num_threads(1)
@@ -1267,8 +1272,10 @@ def test_snapshot_on_card_matches_cpu(method, cuda_device):
     """BaryonifySnapshot on the card in float64 against the port's CPU
     float64 run of the same method: the rms of the position difference
     over the rms of the CPU's offsets < 1e-10. The gather method launches
-    the scatter kernel (one launch a halo chunk), the cell-major method
-    (plain PyTorch passes) no kernel."""
+    the scatter kernel (one launch a halo chunk) and no snap_pass, the
+    cell-major method snap_pass (one launch a bucket; its census, from
+    the kernel's tally, that of the plain loop on the CPU) and no other
+    kernel."""
     T, model, _, _ = _small_grids()
     cd = dict(Omega_m=0.3, Omega_b=0.05, h=0.7, sigma8=0.8, n_s=0.96,
               w0=-1.0)
@@ -1282,13 +1289,24 @@ def test_snapshot_on_card_matches_cpu(method, cuda_device):
                           M=10 ** rng.uniform(13.5, 14.8, n_halo),
                           redshift=0.25, cosmo=cd)
     kw = dict(epsilon_max=10, model=model, method=method, verbose=False)
-    want = T.BaryonifySnapshot(cat, snap, device="cpu", **kw).process()
-    before = (sc.LAUNCHES["scatter_add"], cmc.LAUNCHES["cellmajor_pass"])
-    got = T.BaryonifySnapshot(cat, snap, device=cuda_device,
-                              precision="float64", **kw).process()
+    cpu = T.BaryonifySnapshot(cat, snap, device="cpu", **kw)
+    card = T.BaryonifySnapshot(cat, snap, device=cuda_device,
+                               precision="float64", **kw)
+    cpu.census, card.census = [], []
+    want = cpu.process()
+    before = (sc.LAUNCHES["scatter_add"], cmc.LAUNCHES["cellmajor_pass"],
+              spc.LAUNCHES["snap_pass"])
+    got = card.process()
     n_sc = sc.LAUNCHES["scatter_add"] - before[0]
+    n_snap = spc.LAUNCHES["snap_pass"] - before[2]
     assert cmc.LAUNCHES["cellmajor_pass"] == before[1]
     assert (n_sc > 0) == (method == "gather")
+    if method == "gather":
+        assert n_snap == 0
+    else:
+        assert n_snap == len(card.census) == len(cpu.census) > 0
+        for a, b in zip(card.census, cpu.census):
+            assert (a["pairs"], a["inside"]) == (b["pairs"], b["inside"])
     g, w, x0 = (np.stack([c[k] for k in "xyz"], -1)
                 for c in (got, want, snap.cat))
     off = w - x0
@@ -2071,3 +2089,128 @@ def test_regrid_in_the_shell_runners(cuda_device):
     finally:
         rc.regrid_shell_reference = plain
     assert not calls
+
+
+# ----- the snapshot pass: csrc/snap_pass.cu -----
+
+from _torch_snap_cases import CASES as SNAP_CASES  # noqa: E402
+from _torch_snap_cases import port_bucket as snap_bucket  # noqa: E402
+from _torch_snap_cases import port_rows as snap_rows  # noqa: E402
+from _torch_snap_cases import snap_case  # noqa: E402
+
+# bars of the kernels against the step loop on the card, of max|plain|:
+# the same arithmetic a pair (the geometry bit for bit), summed in
+# another order: a slot's at most K pairs (the pass), a node's shares
+# from a few hundred pairs by atomic adds in no fixed order (the adjoint)
+SNAP_KERNEL_BAR = {torch.float64: {"pass": 1e-13, "vjp": 1e-12},
+                   torch.float32: {"pass": 1e-5, "vjp": 1e-4}}
+
+
+def _snap_inputs(name, dtype, device):
+    case = snap_case(name)
+    bk = snap_bucket(case, device, dtype)
+    rows = snap_rows(case, torch.as_tensor(case["table_z"], dtype=dtype,
+                                           device=device))
+    return case, bk, rows
+
+
+def _snap_cts(bk, rows, seed=1):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return tuple(torch.randn(bk.ncell * bk.P, generator=gen,
+                             dtype=torch.float64).to(rows)
+                 for _ in range(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", list(SNAP_CASES))
+def test_snap_kernels_match_step_loop(name, dtype, cuda_device):
+    """snap_pass and snap_vjp against the plain step loop (_bucket_pass,
+    _bucket_vjp on a _SnapBucket) on the shared cases, within
+    SNAP_KERNEL_BAR of max|plain|; the kernels' tallies equal to the
+    loop's census; pad slots 0; two launches of the pass bit for bit; the
+    adjoint 0 at the NaN row."""
+    _, bk, rows = _snap_inputs(name, dtype, cuda_device)
+    bars = SNAP_KERNEL_BAR[dtype]
+    tally = torch.zeros(len(spc.TALLY), dtype=torch.int64,
+                        device=cuda_device)
+    got = spc.snap_pass(*bk.kernel_args(rows), *bk.kernel_scalars(),
+                        tally=tally)
+    again = bk.kernel_pass(rows)
+    census = dict(pairs=0, inside=0, steps=0)
+    want = tgcm._bucket_pass(bk, rows, tgcm._zero_planes(bk, rows), census)
+    torch.cuda.synchronize()
+    scale = max(float(w.abs().max()) for w in want)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    assert scale > 0 and all(bool(torch.isfinite(g).all()) for g in got)
+    assert err <= bars["pass"] * scale, (err, scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    pad = (torch.arange(bk.P, device=cuda_device)[None, :]
+           >= bk.counts_p[:, None]).reshape(-1)
+    assert bool(pad.any()) and all(float(g[pad].abs().max()) == 0
+                                   for g in got)
+    assert tally.tolist() == [census["pairs"], census["inside"], 0]
+    assert 0 < census["inside"] < census["pairs"]
+
+    cts = _snap_cts(bk, rows)
+    vtally = torch.zeros(len(spc.TALLY), dtype=torch.int64,
+                         device=cuda_device)
+    d_k = spc.snap_vjp(*bk.kernel_args(rows), cts, *bk.kernel_scalars(),
+                       tally=vtally)
+    with torch.no_grad():
+        (d_p,) = tgcm._bucket_vjp(bk, rows, cts)
+    ok = torch.isfinite(rows).all(dim=1)
+    assert not ok.all() and bool(torch.isfinite(d_k).all())
+    assert float(d_k[~ok].abs().max()) == 0.0
+    scale = float(d_p[ok].abs().max())
+    err = float((d_k[ok] - d_p[ok]).abs().max())
+    assert scale > 0
+    assert err <= bars["vjp"] * scale, (err, scale)
+    vt = vtally.tolist()
+    assert vt[:2] == tally.tolist()[:2] and 0 < vt[2] <= 2 * vt[1]
+
+
+@pytest.mark.cuda
+def test_snap_pass_gradcheck(cuda_device):
+    """torch.autograd.gradcheck of the pass in its rows on the card in
+    float64 on the smallest case (the snap_pass forward, the snap_vjp
+    backward; the NaN row set finite; the atomic adds' order allowed
+    1e-12 between two backwards)."""
+    _, bk, rows = _snap_inputs("p5", torch.float64, cuda_device)
+    rows = torch.nan_to_num(rows, nan=0.5).requires_grad_(True)
+    before = dict(spc.LAUNCHES)
+    assert torch.autograd.gradcheck(lambda r: tgcm._pass_diff(bk, r),
+                                    (rows,), nondet_tol=1e-12)
+    assert spc.LAUNCHES["snap_pass"] > before["snap_pass"]
+    assert spc.LAUNCHES["snap_vjp"] > before["snap_vjp"]
+
+
+@pytest.mark.cuda
+def test_snap_kernel_launches(cuda_device):
+    """One snap_pass launch a bucket's forward and one snap_vjp launch its
+    first-order backward, with no scatter_add_vjp launch for the row
+    reads; under create_graph the backward is the step loop with a
+    warning (its row reads through scatter_add_vjp, no snap_vjp launch)
+    and its gradient the first-order one."""
+    _, bk, rows = _snap_inputs("p42_rdelta_mesh", torch.float64,
+                               cuda_device)
+    counts = lambda: dict(spc.LAUNCHES, vjp=sc.LAUNCHES["scatter_add_vjp"])
+    n0 = counts()
+    with torch.no_grad():
+        tgcm._pass_diff(bk, rows)
+    assert counts() == dict(n0, snap_pass=n0["snap_pass"] + 1)
+    r = rows.clone().requires_grad_(True)
+    cts = _snap_cts(bk, rows)
+    (d1,) = torch.autograd.grad(tgcm._pass_diff(bk, r), r, cts)
+    assert counts() == dict(n0, snap_pass=n0["snap_pass"] + 2,
+                            snap_vjp=n0["snap_vjp"] + 1)
+    out = tgcm._pass_diff(bk, r)
+    with pytest.warns(UserWarning, match="snapshot pass's backward"):
+        (d2,) = torch.autograd.grad(out, r, cts, create_graph=True)
+    d2 = d2.detach()
+    now = counts()
+    assert now["snap_pass"] == n0["snap_pass"] + 3
+    assert now["snap_vjp"] == n0["snap_vjp"] + 1 and now["vjp"] > n0["vjp"]
+    ok = torch.isfinite(rows).all(dim=1)
+    scale = float(d1[ok].abs().max())
+    assert float((d1[ok] - d2[ok]).abs().max()) <= 1e-12 * scale
