@@ -22,10 +22,12 @@ _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-# flags of one source only: the cell-major shell, grid and snapshot
-# passes and the regrid round operation for operation as their plain
-# PyTorch versions do, so nothing is contracted into an FMA there
-_SOURCE_FLAGS = {"cellmajor_pass": ["--fmad=false"],
+# flags of one source only: the cell-major shell, grid, anisotropic paint
+# and snapshot passes and the regrid round operation for operation as
+# their plain PyTorch versions do, so nothing is contracted into an FMA
+# there
+_SOURCE_FLAGS = {"anis_pass": ["--fmad=false"],
+                 "cellmajor_pass": ["--fmad=false"],
                  "grid_pass": ["--fmad=false"],
                  "regrid": ["--fmad=false"],
                  "snap_pass": ["--fmad=false"]}

@@ -28,10 +28,11 @@ once, as one (blocks, slots, voxels) tensor of at most ``PASS_BUDGET``
 elements, so a chunk costs a few dozen launches, not a few dozen a
 candidate. The snapshot pass (``runners/snapshot_cellmajor.py``) shares
 that loop and this dispatch, with kernels of its own on the card
-(``ops/snap_pass_cuda.py``). The anisotropic paint
-(:func:`grid_anis_paint_pass_2d`) steps through the loop on the card too,
-with a window of each halo's own, a readout at the log of an existing
-map's value, and that map as a second input.
+(``ops/snap_pass_cuda.py``), and so does the anisotropic paint
+(:func:`grid_anis_paint_pass_2d`: a window of each halo's own, a readout
+at the log of an existing map's value, and that map as a second input;
+on the card the kernels ``anis_pass`` and ``anis_vjp`` of
+``ops/anis_pass_cuda.py``).
 
 The packed records carry the nearest-bin indices as floats (exact for
 N <= 2^24 in float32) and, in place of each halo's position, its offset
@@ -52,7 +53,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..ops import grid_pass_cuda
+from ..ops import anis_pass_cuda, grid_pass_cuda
 from ..ops.interp import blend_rows
 from ..ops.scatter_cuda import scatter_add_vjp
 
@@ -431,18 +432,18 @@ class _GridBucket:
         """The trailing (g0, dg, rad_hi, res) of those entries."""
         return self.g0, self.dg, self.rad_hi, self.res
 
-    def kernel_pass(self, rows, census=None):
+    def kernel_pass(self, rows, census=None, extra=()):
         """The ``grid_pass`` kernel on this bucket: its new planes; a
         ``census`` gets its voxel-slots listed and inside
-        (:func:`tallied`)."""
+        (:func:`tallied`). The pass has no ``extra`` inputs."""
         return tallied(lambda tally: grid_pass_cuda.grid_pass(
             *self.kernel_args(rows), *self.kernel_scalars(), tally=tally),
             grid_pass_cuda.TALLY, ("slots", "inside"), census, rows.device)
 
-    def kernel_vjp(self, rows, cts):
-        """The ``grid_vjp`` kernel on this bucket: d_rows for ``cts``."""
-        return grid_pass_cuda.grid_vjp(*self.kernel_args(rows), cts,
-                                       *self.kernel_scalars())
+    def kernel_vjp(self, rows, cts, extra=(), needs=None):
+        """The ``grid_vjp`` kernel on this bucket: (d_rows for ``cts``,)."""
+        return (grid_pass_cuda.grid_vjp(*self.kernel_args(rows), cts,
+                                        *self.kernel_scalars()),)
 
     def ax(self, v, d):
         """(C, G, B) per-axis values (B = 1: per slot) -> broadcastable
@@ -617,11 +618,11 @@ def _bucket_vjp(bk, rows, cts, extra=(), needs=None):
 
 
 def _on_kernel(bk, rows):
-    """True where bucket ``bk``'s pass runs its kernels: a bucket whose
-    class has a ``kernel_pass`` (:class:`_GridBucket`, the snapshot's
-    ``_SnapBucket``), on CUDA tensors. Its CPU tensors take the plain step
-    loop; any other device raises."""
-    if bk.kernel_pass is None or rows.device.type == "cpu":
+    """True where bucket ``bk``'s pass runs its kernels (its class's
+    ``kernel_pass`` and ``kernel_vjp``: :class:`_GridBucket`,
+    :class:`_AnisBucket`, the snapshot's ``_SnapBucket``): on CUDA tensors.
+    Its CPU tensors take the plain step loop; any other device raises."""
+    if rows.device.type == "cpu":
         return False
     if rows.device.type != "cuda":
         raise ValueError(f"the {bk.name} pass runs on cpu or cuda, not on "
@@ -647,9 +648,11 @@ def tallied(launch, names, keys, census, device):
 class _PassFn(torch.autograd.Function):
     """New planes = the pass of bucket ``bk`` of ``rows`` (and its
     ``extra`` inputs); differentiable in each, to any order. On the card
-    the forward of a bucket with kernels (:func:`_on_kernel`) is its
-    ``kernel_pass`` (``grid_pass``, ``snap_pass``) and its backward its
-    ``kernel_vjp`` (``grid_vjp``, ``snap_vjp``). Under ``create_graph`` (a
+    (:func:`_on_kernel`) the forward is the bucket's ``kernel_pass``
+    (``grid_pass``, ``anis_pass``, ``snap_pass``), given the ``extra``
+    inputs, and its backward its ``kernel_vjp`` (``grid_vjp``,
+    ``anis_vjp``, ``snap_vjp``), which gives one gradient an input where
+    ``needs_input_grad`` asks for it. Under ``create_graph`` (a
     backward that is to be differentiated again, as Hessians are) its
     backward is the plain step loop :func:`_bucket_vjp` on the card too,
     with a warning, until a second-order kernel exists. Elsewhere the
@@ -662,21 +665,22 @@ class _PassFn(torch.autograd.Function):
         ctx.bk = bk
         ctx.save_for_backward(rows, *extra)
         if _on_kernel(bk, rows):
-            return bk.kernel_pass(rows.detach())
+            return bk.kernel_pass(rows.detach(), extra=tuple(
+                x.detach() for x in extra))
         return _bucket_pass(bk, rows, _zero_planes(bk, rows), extra=extra)
 
     @staticmethod
     def backward(ctx, *cts):
         rows, *extra = ctx.saved_tensors
-        bk = ctx.bk
+        bk, needs = ctx.bk, ctx.needs_input_grad[1:]
         if _on_kernel(bk, rows):
             if not torch.is_grad_enabled():
-                return None, bk.kernel_vjp(rows, cts)
-            warnings.warn(f"a {bk.name} pass's backward under create_graph "
+                return (None, *bk.kernel_vjp(rows, cts, tuple(extra),
+                                             needs))
+            warnings.warn(f"the {bk.name} pass's backward under create_graph "
                           f"runs the plain step loop on the card (no "
                           f"second-order {bk.name} kernel yet)")
-        return (None, *_bucket_vjp(bk, rows, cts, extra,
-                                   ctx.needs_input_grad[1:]))
+        return (None, *_bucket_vjp(bk, rows, cts, extra, needs))
 
 
 def _pass_diff(bk, rows, census=None, extra=()):
@@ -691,7 +695,7 @@ def _pass_diff(bk, rows, census=None, extra=()):
             x.requires_grad for x in (rows,) + tuple(extra)):
         return _PassFn.apply(bk, rows, *extra)
     if _on_kernel(bk, rows):
-        return bk.kernel_pass(rows.detach(), census)
+        return bk.kernel_pass(rows.detach(), census, extra)
     return _bucket_pass(bk, rows, _zero_planes(bk, rows), census, extra)
 
 
@@ -745,10 +749,13 @@ class _AnisBucket(_GridBucket):
     nearest bin (circular, no shear). The paint is read from the halo's
     remap row at the log of the canvas value at that pixel, and only
     inside the row's canvas range (its last two nodes). ``live_h`` marks
-    the halos whose rows exist (masses on the remap's grid)."""
+    the halos whose rows exist (masses on the remap's grid). On the card
+    its pass is the kernel ``anis_pass`` and its backward ``anis_vjp``
+    (``ops/anis_pass_cuda.py``), which read int32 copies of the
+    candidates, counts and windows, made once a bucket."""
 
-    #: no kernel yet: its pass steps through the plain loop on the card
-    kernel_pass = kernel_vjp = None
+    #: what the warnings and errors of its pass call it
+    name = "anisotropic paint"
 
     def __init__(self, B, n_hi, N, dense, counts, counts_host, packed,
                  live_h, q0, dq, eps_max, res, block0=0):
@@ -762,6 +769,40 @@ class _AnisBucket(_GridBucket):
         self.reach = eps_max * packed[:, cols['R']]
         self.live_h = live_h
         self.stride = n_hi + 2
+        self._int32 = None
+
+    def kernel_args(self, rows, canvas):
+        """The leading arguments of ``ops.anis_pass_cuda.anis_pass`` and
+        ``anis_vjp`` for this bucket, ``rows`` and ``canvas``."""
+        if self._int32 is None:
+            self._int32 = tuple(x.to(torch.int32).contiguous() for x in (
+                self.dense2, self.counts, self.hh, self.lo))
+        return (self.B, self.N, self.block0, *self._int32,
+                self.reach.contiguous(), self.live_h.contiguous(),
+                rows.contiguous(), canvas.contiguous())
+
+    def kernel_scalars(self):
+        """The trailing (q0, dq, res) of those entries."""
+        return self.g0, self.dg, self.res
+
+    def kernel_pass(self, rows, census=None, extra=()):
+        """The ``anis_pass`` kernel on this bucket and the canvas (the one
+        ``extra`` input): (its new plane,); a ``census`` gets its
+        pixel-slots listed and inside (:func:`tallied`)."""
+        (canvas,) = extra
+        return tallied(lambda tally: (anis_pass_cuda.anis_pass(
+            *self.kernel_args(rows, canvas), *self.kernel_scalars(),
+            tally=tally),), anis_pass_cuda.TALLY, ("slots", "inside"),
+            census, rows.device)
+
+    def kernel_vjp(self, rows, cts, extra=(), needs=None):
+        """The ``anis_vjp`` kernel on this bucket: (d_rows, d_canvas) for
+        the cotangent plane ``cts[0]``, each None where ``needs`` says it
+        is not wanted."""
+        (canvas,), (ct,) = extra, cts
+        return anis_pass_cuda.anis_vjp(
+            *self.kernel_args(rows, canvas), ct, *self.kernel_scalars(),
+            needs=(True, True) if needs is None else tuple(needs))
 
     def geometry(self, c0, c1, iv, k0, k1, census=None):
         """The step's rows and its mask: dict(row, live), row the first
@@ -804,8 +845,11 @@ class _AnisBucket(_GridBucket):
         lim = rows_flat.detach()
         keep = (st['live'] & vpos & (lnv >= lim[st['row'] + n_hi])
                 & (lnv <= lim[st['row'] + n_hi + 1]))
-        paint = torch.exp(val)
-        paint = torch.where(keep & torch.isfinite(paint), paint, 0.0)
+        # a slot whose exp overflows paints nothing and, like a masked
+        # slot, takes no gradient: exp is taken of val only where kept
+        keep = keep & torch.isfinite(torch.exp(val.detach()))
+        paint = torch.where(keep, torch.exp(torch.where(keep, val, 0.0)),
+                            0.0)
         return [paint.sum(dim=1).reshape(C, self.F)]
 
 
@@ -822,9 +866,12 @@ def grid_anis_paint_pass_2d(B, n_hi, N, dense, counts, counts_host, packed,
     canvas value there (pixels with v <= 0 paint nothing), lerped between
     two nodes, and paints exp of it where ln v lies in the row's canvas
     range [lo, hi] and the pixel passes the halo's geometry (see
-    :class:`_AnisBucket`). Where an input requires grad the backward
-    recomputes the pass a step at a time; the gradient in the canvas is
-    d paint / d ln v / v, 0 outside the range and on masked slots.
+    :class:`_AnisBucket`). On CUDA tensors the pass is the ``anis_pass``
+    kernel and its backward the ``anis_vjp`` kernel, one launch a bucket
+    each (under ``create_graph`` the backward is the plain step loop, with
+    a warning); on CPU tensors the plain pass, whose backward recomputes it
+    a step at a time. The gradient in the canvas is d paint / d ln v / v,
+    0 outside the range and on masked slots.
 
     dense, counts : the bucket's (ncell * K,) Morton-block candidates and
                     (ncell,) counts (``counts_host`` a host copy)
@@ -833,8 +880,10 @@ def grid_anis_paint_pass_2d(B, n_hi, N, dense, counts, counts_host, packed,
     rows : (H, n_hi + 2) the halos' rows of the remap (ln Paint on the
            uniform ln Canvas grid from ``q0`` in steps ``dq``, then lo and
            hi), finite; ``live_h`` (H,) marks the halos that have one
-    canvas : (N^2,) the canvas in the bucket's block-major order
-    census : None, or a dict of counts (see :func:`_bucket_pass`)
+    canvas : (ncell B^2,) the canvas in the bucket's block-major order
+    census : None, or a dict of counts (see :func:`_bucket_pass`; on the
+             card the kernel's own counts and one step a launch; only
+             filled without a graph)
     """
     bk = _AnisBucket(B, n_hi, N, dense, counts, counts_host, packed,
                      live_h, q0, dq, eps_max, res)

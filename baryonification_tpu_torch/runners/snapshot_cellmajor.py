@@ -140,18 +140,18 @@ class _SnapBucket:
         """The trailing (g0, dg, rad_hi, a_scale, L) of those entries."""
         return self.g0, self.dg, self.rad_hi, self.a_scale, self.L
 
-    def kernel_pass(self, rows, census=None):
+    def kernel_pass(self, rows, census=None, extra=()):
         """The ``snap_pass`` kernel on this bucket: its new planes; a
         ``census`` gets its (particle, halo) pairs listed and inside
-        (``grid_cellmajor.tallied``)."""
+        (``grid_cellmajor.tallied``). The pass has no ``extra`` inputs."""
         return tallied(lambda tally: snap_pass_cuda.snap_pass(
             *self.kernel_args(rows), *self.kernel_scalars(), tally=tally),
             snap_pass_cuda.TALLY, ("pairs", "inside"), census, rows.device)
 
-    def kernel_vjp(self, rows, cts):
-        """The ``snap_vjp`` kernel on this bucket: d_rows for ``cts``."""
-        return snap_pass_cuda.snap_vjp(*self.kernel_args(rows), cts,
-                                       *self.kernel_scalars())
+    def kernel_vjp(self, rows, cts, extra=(), needs=None):
+        """The ``snap_vjp`` kernel on this bucket: (d_rows for ``cts``,)."""
+        return (snap_pass_cuda.snap_vjp(*self.kernel_args(rows), cts,
+                                        *self.kernel_scalars()),)
 
     def chunks(self):
         """(c0, c1, (p_ok, pos), [(k0, k1), ...]) of every chunk of cells

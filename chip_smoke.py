@@ -136,16 +136,22 @@ and fails on any fault:
   13b. anis: bench_runners.py's bench_anis (2048^2, 2e5 halos, the tSZ
      table painted on a DarkMatter canvas): PaintProfilesAnisGrid's remap
      (host build against build_remap_device), cold and warm process()
-     with stages under "auto" (the cell-major pass, plain PyTorch ops),
-     the census with its operations bound, launches, idle share and peak
-     memory of a warm call, float32 against float64, warm value_and_grad
-     in a canvas and a remap scale (the row reads through scatter_add_vjp,
-     their backward the scatter kernel), and the loop (method "scatter",
-     a scatter launch a halo) against the cell-major pass on 2000 halos in
-     float64; then examples/17_anis_paint_composition.py on the card at
-     its size in float64: the composed baryonify -> anisotropic paint
-     chain, the gradient against central differences, 25 Adam steps and
-     the example's three asserts;
+     with stages under "auto" (the cell-major pass: the anis_pass kernel,
+     one launch a bucket, never the plain step loop on the card), the
+     census (the kernel's tally) with its operations bound, launches,
+     idle share and peak memory of a warm call; anis_pass and anis_vjp
+     against the plain step loop on the card at the run's largest bucket
+     (check_anis_bucket), both dtypes, their tallies against the loop's
+     census, two launches bit for bit, their times, bounds, atomics,
+     registers and spills; float32 against float64, warm value_and_grad
+     in a canvas and a remap scale (the anis_vjp kernel, one launch a
+     bucket a backward, no scatter_add_vjp), and the loop (method
+     "scatter", a scatter launch a halo) against the cell-major pass on
+     2000 halos in float64; then examples/17_anis_paint_composition.py on
+     the card at its size in float64: the composed baryonify ->
+     anisotropic paint chain (the anis kernels launched), the gradient
+     against central differences, 25 Adam steps and the example's three
+     asserts;
   14. dP(k) path: examples/10_delta_pk_snapshot.py and
      examples/12_arico_delta_pk_snapshot.py on the card: the halo-model
      suppression against the 15 scraped Schneider+19 Fig. 2 curves at the
@@ -1773,12 +1779,16 @@ TIMED_RUN = {"scatter_add": "grid BaryonifyGrid (auto = cellmajor)",
              "regrid_det": "mesh shell-1e6 (1 nccl rank)",
              "snap_pass": "snap BaryonifySnapshot (auto = cellmajor, "
                           "5000000)",
-             "snap_vjp": "gradsnap (value_and_grad, float32)"}
+             "snap_vjp": "gradsnap (value_and_grad, float32)",
+             "anis_pass": "anis (auto = cellmajor)",
+             "anis_vjp": "anis (value_and_grad in a remap scale, "
+                         "float32)"}
 COUNTERS = []       # the LAUNCHES dicts of the kernel modules
 SCATTER = []        # the name of the scatter module's forward kernel
 CELLMAJOR = []      # the name of the cell-major module's forward kernel
 GRID = ["grid_pass"]  # the grid pass module's forward kernel
 SNAP = ["snap_pass"]  # the snapshot pass module's forward kernel
+ANIS = ["anis_pass"]  # the anisotropic paint pass module's forward kernel
 REGRID = ["regrid"]   # the shell regrid's kernel (stage C of a baryonify)
 # the regrid's deterministic route, under use_deterministic_algorithms
 REGRID_DET = ["regrid_det"]
@@ -2162,16 +2172,94 @@ def compare_maps(label, a, b, base):
     check(rms < GRID_F32_BAR, f"{label} differ: rms/mean {rms:.3e}")
 
 
+def check_bucket_kernels(torch, label, mod, bk, rows, extra, launch, vjp,
+                         bars, bounds, desc, seed=0):
+    """The two kernels of module ``mod`` (its pass and its adjoint, named
+    by its LAUNCHES, counting its TALLY) on a cell-major bucket ``bk``
+    against the plain step loop (_bucket_pass, _bucket_vjp, on the card)
+    at ``rows`` and the ``extra`` inputs, with seeded random cotangents:
+    ``launch(tally)`` gives the pass kernel's planes, ``vjp(cts, tally)``
+    the adjoint's gradients (one an input). Every output finite; the
+    planes within ``bars[0]`` and each gradient within ``bars[1]`` (by
+    dtype name) of max|plain| (over the plain gradient's finite values);
+    two launches of the pass bit for bit; both tallies' listed and inside
+    counts equal to the loop's census, the pass without atomic adds and
+    the adjoint with at most two an inside slot. ``bounds(tally, vjp)``
+    gives a launch's (operations ms, bytes ms). Logs ``desc`` (the
+    bucket), the census, and for each kernel its tally, errors, device
+    time (queued_ms) beside the loop's (CUDA events) and bounds (build_all
+    logs the kernels' registers and spills). Returns ({"pass_", "vjp"}:
+    dict(max_abs_err, ms, plain_ms, bound_ms, bound_by, ops_ms, bytes_ms,
+    tally)) and (the planes, the cotangents, the gradients)."""
+    from baryonification_tpu_torch.runners import grid_cellmajor as tgcm
+    dname = str(rows.dtype).split(".")[1]
+    names, keys = tuple(mod.LAUNCHES), mod.TALLY[:2]
+    tallies = [torch.zeros(len(mod.TALLY), dtype=torch.int64,
+                           device=rows.device) for _ in range(2)]
+    got = launch(tallies[0])
+    same = all(torch.equal(a, b) for a, b in zip(got, launch(None)))
+    census = {keys[0]: 0, keys[1]: 0, "steps": 0}
+    plain = lambda census=None: tgcm._bucket_pass(
+        bk, rows, tgcm._zero_planes(bk, rows), census, extra)
+    errs = [rel_err(tuple(got), tuple(plain(census)))]
+    _, ms_p = timed(torch, plain)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    cts = tuple(torch.randn(g.shape, generator=gen, dtype=torch.float64)
+                .to(g) for g in got)
+    d_k = vjp(cts, tallies[1])
+    with torch.no_grad():
+        d_p, ms_vp = timed(torch, lambda: tgcm._bucket_vjp(
+            bk, rows, cts, extra))
+    fin = [torch.isfinite(d) for d in d_p]
+    verrs = [rel_err(k[f], p[f]) for k, p, f in zip(d_k, d_p, fin)]
+    del d_p
+    kt, vt = (t.tolist() for t in tallies)
+    text, out = [], {}
+    for part, name, e, ms_plain, fn, t, bar in (
+            ("pass_", names[0], errs, ms_p, lambda: launch(None), kt,
+             bars[0][dname]),
+            ("vjp", names[1], verrs, ms_vp, lambda: vjp(cts, None), vt,
+             bars[1][dname])):
+        ms = queued_ms(torch, fn, 5)
+        o_ms, y_ms = bounds(kt, part == "vjp")
+        b_ms, b_by = max((o_ms, "operations"), (y_ms, "bytes"))
+        out[part] = dict(max_abs_err=max(r * s for r, s in e), ms=ms,
+                         plain_ms=ms_plain, bound_ms=b_ms, bound_by=b_by,
+                         ops_ms=o_ms, bytes_ms=y_ms, tally=t)
+        text.append(
+            f"{name} tally {t[0]:.4e} / {t[1]:.4e}, {t[2]:.4e} global "
+            f"atomics, max|err| / max|plain| "
+            + ", ".join(f"{r:.3e} (max|plain| {s:.3e})" for r, s in e)
+            + f" (bar {bar:g}), kernel {ms:.4f} ms, plain {ms_plain:.2f} ms,"
+            f" bound {b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f}%; "
+            f"operations {o_ms:.4f}, bytes {y_ms:.4f})")
+        check(max(r for r, _ in e) <= bar, f"{label}: {name} {dname} "
+              f"disagrees with its plain version: {e}")
+    log(f"{label}: largest bucket ({desc}), {dname}: census "
+        f"{census[keys[0]]:.4e} {keys[0]}, {census[keys[1]]:.4e} inside "
+        f"({census['steps']} steps); two {names[0]} launches bit for bit: "
+        f"{same}; {sum(int((~f).sum()) for f in fin)} non-finite plain "
+        f"gradients; " + "; ".join(text))
+    check(all(bool(torch.isfinite(g).all()) for g in got + tuple(d_k)),
+          f"{label}: {names[0]}, {names[1]} {dname}: non-finite output")
+    check(same, f"{label}: two {names[0]} launches {dname} differ")
+    check(kt[:2] == [census[keys[0]], census[keys[1]]] and kt[2] == 0
+          and vt[:2] == kt[:2] and 0 < vt[2] <= 2 * vt[1],
+          f"{label}: the kernels' tallies {kt}, {vt} are not the census "
+          f"{census}")
+    return out, (got, cts, d_k)
+
+
 def largest_bucket(calls):
     """The positional arguments of the grid_pass_diff call (of
     ``calls``) whose bucket lists the most voxel-slots."""
     return max(calls, key=lambda a: int(a[7].sum()) * a[2] ** a[1])
 
 
-def grid_kernel_bound(c, mode, dim, dname, vjp):
-    """(ms, 'operations' or 'bytes') of one grid kernel launch on
-    a bucket whose counts are ``c`` (slots, inside, and its sizes): the
-    tests of every listed voxel-slot and the readout of each inside
+def grid_kernel_bounds(c, mode, dim, dname, vjp):
+    """(operations ms, bytes ms) of one grid kernel launch on a bucket
+    whose counts are ``c`` (slots, inside, and its sizes): the tests of
+    every listed voxel-slot and the readout of each inside
     (GRID_TEST_FLOPS, GRID_READ_FLOPS; rdelta one more, the adjoint
     GRID_VJP_FLOPS more); bytes: each input read once (the candidate ids a
     slot lists, the counts, the per-halo columns, the rows; the adjoint's
@@ -2185,27 +2273,22 @@ def grid_kernel_bound(c, mode, dim, dname, vjp):
     n_bytes = (c["listed"] * 8 + c["ncell"] * 8 + c["H"] * c["hcols"] * t
                + c["H"] * dim * 8 + c["H"] * c["n_hi"] * t * (1 + vjp)
                + planes)
-    t_ops = flops / PEAK_FLOPS[dname] * 1e3
-    t_bytes = n_bytes / PEAK_BYTES * 1e3
-    return ((t_ops, "operations") if t_ops >= t_bytes
-            else (t_bytes, "bytes"))
+    return flops / PEAK_FLOPS[dname] * 1e3, n_bytes / PEAK_BYTES * 1e3
 
 
 def check_grid_bucket(torch, label, args, mode, dt, seed=0):
-    """grid_pass and grid_vjp against the plain step loop (_bucket_pass,
-    _bucket_vjp) on one bucket of a run: ``args`` the runner's
-    grid_pass_diff arguments, its geometry read in ``mode`` and its rows
-    and records cast to ``dt``, seeded random cotangents. Both outputs
-    finite and within GRID_PASS_BAR / GRID_VJP_BAR of max|plain|; the
-    kernels' tallies equal to the loop's census. Then both kernels without
-    their cull (cull=False): the planes bit for bit those of the cull's
-    launch, the tallies' slots and inside the same, grid_vjp within
-    GRID_VJP_BAR of the cull's. Logs and returns the errors, the kernels'
-    device times with and without the cull (queued_ms), the loop's (CUDA
-    events), the bounds, the share of (patch, slot) pairs culled (the
-    kernel's own count over the listed pairs, a patch being the voxels of
-    a block that one warp holds), the adjoint's atomic adds and the
-    launch's shape (gp.launch_shape)."""
+    """grid_pass and grid_vjp against the plain step loop on one bucket of
+    a run (check_bucket_kernels, within GRID_PASS_BAR / GRID_VJP_BAR):
+    ``args`` the runner's grid_pass_diff arguments, its geometry read in
+    ``mode`` and its rows and records cast to ``dt``. Then both kernels
+    without their cull (cull=False): the planes bit for bit those of the
+    cull's launch, the tallies' slots and inside the same, grid_vjp within
+    GRID_VJP_BAR of the cull's. Logs and returns check_bucket_kernels'
+    results, with the kernels' device times without the cull (queued_ms),
+    the share of (patch, slot) pairs culled (the kernel's own count over
+    the listed pairs, a patch being the voxels of a block that one warp
+    holds), the adjoint's atomic adds without the cull and the launch's
+    shape (gp.launch_shape)."""
     from baryonification_tpu_torch.ops import grid_pass_cuda as gp
     from baryonification_tpu_torch.runners import grid_cellmajor as tgcm
     (_, dim, B, n_hi, N, half, dense, counts, counts_host, pk, rows, g0, dg,
@@ -2215,75 +2298,40 @@ def check_grid_bucket(torch, label, args, mode, dt, seed=0):
                           counts_host, pk.to(dt), g0, dg, rad_hi, eps, res)
     rows = rows.detach().to(dt).contiguous()
     head, tail = bk.kernel_args(rows), bk.kernel_scalars()
-    n_tally = len(gp.TALLY)
-    tally = torch.zeros(n_tally, dtype=torch.int64, device=rows.device)
-    got = gp.grid_pass(*head, *tail, tally=tally)
-    census = dict(slots=0, inside=0, steps=0)
-    want = tgcm._bucket_pass(bk, rows, tgcm._zero_planes(bk, rows), census)
-    _, ms_p = timed(torch, lambda: tgcm._bucket_pass(
-        bk, rows, tgcm._zero_planes(bk, rows)))
-    err, scale = rel_err(tuple(got), tuple(want))
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    cts = tuple(torch.randn(g.shape, generator=gen, dtype=torch.float64)
-                .to(g) for g in got)
-    vtally = torch.zeros(n_tally, dtype=torch.int64, device=rows.device)
-    d_k = gp.grid_vjp(*head, cts, *tail, tally=vtally)
-    with torch.no_grad():
-        d_p, ms_vp = timed(torch, lambda: tgcm._bucket_vjp(bk, rows, cts)[0])
-    fin = torch.isfinite(d_p)
-    verr, vscale = rel_err(d_k[fin], d_p[fin])
+    sizes = dict(nvox=bk.ncell * bk.F, planes=bk.n_planes,
+                 listed=int(counts.sum()), ncell=bk.ncell, H=rows.shape[0],
+                 hcols=bk.hrec.shape[1], n_hi=n_hi)
+    out, (got, cts, d_k) = check_bucket_kernels(
+        torch, label, gp, bk, rows, (),
+        lambda t: gp.grid_pass(*head, *tail, tally=t),
+        lambda c, t: (gp.grid_vjp(*head, c, *tail, tally=t),),
+        (GRID_PASS_BAR, GRID_VJP_BAR),
+        lambda kt, v: grid_kernel_bounds(
+            dict(sizes, slots=kt[0], inside=kt[1]), mode, dim, dname, v),
+        f"H={rows.shape[0]}, B={B}, F={bk.F}, K={bk.K}, n_hi={n_hi}; "
+        f"{mode}", seed)
+    kt, vt = out["pass_"]["tally"], out["vjp"]["tally"]
     # without the cull: the same planes and counts
+    n_tally = len(gp.TALLY)
     ntally = torch.zeros(n_tally, dtype=torch.int64, device=rows.device)
     got_nc = gp.grid_pass(*head, *tail, tally=ntally, cull=False)
     same = all(torch.equal(a, b) for a, b in zip(got, got_nc))
     nvtally = torch.zeros(n_tally, dtype=torch.int64, device=rows.device)
     d_nc = gp.grid_vjp(*head, cts, *tail, tally=nvtally, cull=False)
     ok_rows = torch.isfinite(rows).all(dim=1)
-    ncerr, _ = rel_err(d_k[ok_rows], d_nc[ok_rows])
-    ms_k = queued_ms(torch, lambda: gp.grid_pass(*head, *tail), 5)
-    ms_vk = queued_ms(torch, lambda: gp.grid_vjp(*head, cts, *tail), 5)
+    ncerr, _ = rel_err(d_k[0][ok_rows], d_nc[ok_rows])
     ms_knc = queued_ms(
         torch, lambda: gp.grid_pass(*head, *tail, cull=False), 5)
     ms_vknc = queued_ms(
         torch, lambda: gp.grid_vjp(*head, cts, *tail, cull=False), 5)
-    kt, vt = tally.tolist(), vtally.tolist()
     nkt, nvt = ntally.tolist(), nvtally.tolist()
-    pairs = int(counts.sum()) * -(-bk.F // 32)
-    shape = gp.launch_shape(mode, dim, B, dt)
-    c = dict(slots=kt[0], inside=kt[1], nvox=bk.ncell * bk.F,
-             planes=len(got), listed=int(counts.sum()), ncell=bk.ncell,
-             H=rows.shape[0], hcols=bk.hrec.shape[1], n_hi=n_hi)
-    (b_ms, b_by), (vb_ms, vb_by) = (
-        grid_kernel_bound(c, mode, dim, dname, v) for v in (False, True))
-    log(f"{label}: largest bucket (H={rows.shape[0]}, B={B}, F={bk.F}, "
-        f"K={bk.K}, n_hi={n_hi}), {mode} {dname}: census {census['slots']:.4e}"
-        f" voxel-slots, {census['inside']:.4e} inside ({census['steps']} "
-        f"steps); grid_pass tally {kt[0]:.4e} / {kt[1]:.4e}, max|err| / "
-        f"max|plain| {err:.3e} (max|plain| {scale:.3e}, bar "
-        f"{GRID_PASS_BAR[dname]:g}), kernel {ms_k:.4f} ms, plain {ms_p:.2f}"
-        f" ms, bound {b_ms:.4f} ms ({b_by}, {100 * b_ms / ms_k:.1f}%); "
-        f"grid_vjp tally {vt[0]:.4e} / "
-        f"{vt[1]:.4e}, {vt[2]:.4e} global atomics, max|err| / max|plain| "
-        f"{verr:.3e} (max|plain| {vscale:.3e}, bar {GRID_VJP_BAR[dname]:g};"
-        f" {int((~fin).sum())} non-finite plain nodes), kernel "
-        f"{ms_vk:.4f} ms, plain {ms_vp:.2f} ms, bound {vb_ms:.4f} ms "
-        f"({vb_by}, {100 * vb_ms / ms_vk:.1f}%); cull: {kt[3]:.4e} of "
-        f"{pairs:.4e} (patch, slot) pairs culled "
-        f"({100 * kt[3] / max(pairs, 1):.1f}%); "
+    pairs = sizes["listed"] * -(-bk.F // 32)
+    log(f"{label}: {mode} {dname} cull: {kt[3]:.4e} of {pairs:.4e} "
+        f"(patch, slot) pairs culled ({100 * kt[3] / max(pairs, 1):.1f}%); "
         f"without it grid_pass {ms_knc:.4f} ms, planes bit for bit: {same}, "
         f"tally {nkt}; grid_vjp {ms_vknc:.4f} ms, {nvt[2]:.4e} global "
         f"atomics, max|diff| / max|d_rows| {ncerr:.3e} against the cull's;"
-        f" launch shape {shape}")
-    check(all(bool(torch.isfinite(g).all()) for g in got)
-          and bool(torch.isfinite(d_k).all()),
-          f"{label}: grid kernels {mode} {dname}: non-finite output")
-    check(err <= GRID_PASS_BAR[dname], f"{label}: grid_pass {mode} {dname} "
-          f"disagrees with its plain version: {err:.3e}")
-    check(verr <= GRID_VJP_BAR[dname], f"{label}: grid_vjp {mode} {dname} "
-          f"disagrees with its plain version: {verr:.3e}")
-    check(kt[:2] == [census["slots"], census["inside"]] and vt[:2] == kt[:2],
-          f"{label}: the kernels' tallies {kt}, {vt} are not the census "
-          f"{census}")
+        f" launch shape {gp.launch_shape(mode, dim, B, dt)}")
     check(same and nkt[:2] == kt[:2] and nvt[:2] == kt[:2]
           and nkt[3] == nvt[3] == 0 and vt[3] == kt[3] <= pairs,
           f"{label}: {mode} {dname}: the cull changed the planes "
@@ -2291,13 +2339,9 @@ def check_grid_bucket(torch, label, args, mode, dt, seed=0):
           f"{nkt}, {nvt} without it")
     check(ncerr <= GRID_VJP_BAR[dname], f"{label}: grid_vjp {mode} {dname} "
           f"with and without the cull differ: {ncerr:.3e}")
-    return dict(pass_=dict(max_abs_err=err * scale, ms=ms_k, plain_ms=ms_p,
-                           bound_ms=b_ms, bound_by=b_by, slots=kt[0],
-                           inside=kt[1], ms_no_cull=ms_knc, culled=kt[3],
-                           pairs=pairs),
-                vjp=dict(max_abs_err=verr * vscale, ms=ms_vk, plain_ms=ms_vp,
-                         bound_ms=vb_ms, bound_by=vb_by, atomics=vt[2],
-                         ms_no_cull=ms_vknc, atomics_no_cull=nvt[2]))
+    out["pass_"].update(ms_no_cull=ms_knc, culled=kt[3], pairs=pairs)
+    out["vjp"].update(ms_no_cull=ms_vknc, atomics_no_cull=nvt[2])
+    return out
 
 
 def grid_kernel_checks(torch, label, calls, real_modes):
@@ -3362,18 +3406,12 @@ def snap_kernel_bounds(c, dname, vjp):
 
 
 def check_snap_bucket(torch, label, args, dt, seed=0):
-    """snap_pass and snap_vjp against the plain step loop (_bucket_pass,
-    _bucket_vjp on a _SnapBucket, on the card) at one bucket of a run:
-    ``args`` the runner's snapshot_pass_diff arguments, its planes,
-    records and rows cast to ``dt``, seeded random cotangents. Both
-    outputs finite and within SNAP_PASS_BAR / SNAP_VJP_BAR of max|plain|,
-    two launches of the pass bit for bit, the kernels' tallies equal to
-    the loop's census. Logs and returns the errors, the kernels' device
-    times (queued_ms), the loop's (CUDA events), both bounds and the
-    adjoint's atomic adds (build_all logs the kernels' registers and
-    spills)."""
+    """snap_pass and snap_vjp against the plain step loop on a _SnapBucket
+    (check_bucket_kernels, within SNAP_PASS_BAR / SNAP_VJP_BAR) at one
+    bucket of a run: ``args`` the runner's snapshot_pass_diff arguments,
+    its planes, records and rows cast to ``dt``. Returns
+    check_bucket_kernels' results."""
     from baryonification_tpu_torch.ops import snap_pass_cuda as spc
-    from baryonification_tpu_torch.runners import grid_cellmajor as tgcm
     from baryonification_tpu_torch.runners import snapshot_cellmajor as tscm
     (rdelta, P, n_hi, dense, counts_h, counts_host, planes, counts_p, pk,
      rows, g0, dg, rad_hi, eps, a_scale, L) = args
@@ -3385,77 +3423,24 @@ def check_snap_bucket(torch, label, args, dt, seed=0):
                           tuple(p.to(dt) for p in planes), counts_p,
                           pk.to(dt), g0, dg, rad_hi, eps, a_scale, L)
     rows = rows.detach().to(dt).contiguous()
-    n_tally = len(spc.TALLY)
-    tally = torch.zeros(n_tally, dtype=torch.int64, device=rows.device)
-    got = spc.snap_pass(*bk.kernel_args(rows), *bk.kernel_scalars(),
-                        tally=tally)
-    again = bk.kernel_pass(rows)
-    same = all(torch.equal(a, b) for a, b in zip(got, again))
-    census = dict(pairs=0, inside=0, steps=0)
-    want = tgcm._bucket_pass(bk, rows, tgcm._zero_planes(bk, rows), census)
-    _, ms_p = timed(torch, lambda: tgcm._bucket_pass(
-        bk, rows, tgcm._zero_planes(bk, rows)))
-    err, scale = rel_err(tuple(got), tuple(want))
-    del want, again
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    cts = tuple(torch.randn(g.shape, generator=gen, dtype=torch.float64)
-                .to(g) for g in got)
-    vtally = torch.zeros(n_tally, dtype=torch.int64, device=rows.device)
-    d_k = spc.snap_vjp(*bk.kernel_args(rows), cts, *bk.kernel_scalars(),
-                       tally=vtally)
-    with torch.no_grad():
-        d_p, ms_vp = timed(torch, lambda: tgcm._bucket_vjp(bk, rows, cts)[0])
-    fin = torch.isfinite(d_p)
-    verr, vscale = rel_err(d_k[fin], d_p[fin])
-    ms_k = queued_ms(torch, lambda: bk.kernel_pass(rows), 5)
-    ms_vk = queued_ms(torch, lambda: spc.snap_vjp(
-        *bk.kernel_args(rows), cts, *bk.kernel_scalars()), 5)
-    kt, vt = tally.tolist(), vtally.tolist()
+    head, tail = bk.kernel_args(rows), bk.kernel_scalars()
     real = bk.counts_p.clamp(max=P).long()
-    c = dict(pairs=kt[0], inside=kt[1], real=int(real.sum()),
-             slots=bk.ncell * P, ncell=bk.ncell,
-             ids=int(torch.where(real > 0, bk.counts_h.clamp(max=bk.K), 0)
-                     .long().sum()),
-             H=rows.shape[0], hcols=bk.hrec.shape[1], n_hi=n_hi)
-    (o_ms, y_ms), (vo_ms, vy_ms) = (
-        snap_kernel_bounds(c, dname, v) for v in (False, True))
-    b_ms, b_by = max((o_ms, "operations"), (y_ms, "bytes"))
-    vb_ms, vb_by = max((vo_ms, "operations"), (vy_ms, "bytes"))
-    log(f"{label}: largest bucket (H={rows.shape[0]}, ncell={bk.ncell}, "
-        f"K={bk.K}, P={P}, n_hi={n_hi}, rdelta={bool(rdelta)}; "
-        f"{c['real']} real slots of {c['slots']}, {c['ids']} candidate ids "
-        f"read of {dense.numel()}), {dname}: "
-        f"census {census['pairs']:.4e} pairs, {census['inside']:.4e} inside "
-        f"({census['steps']} steps); snap_pass tally {kt[0]:.4e} / "
-        f"{kt[1]:.4e}, max|err| / max|plain| {err:.3e} (max|plain| "
-        f"{scale:.3e}, bar {SNAP_PASS_BAR[dname]:g}), two launches bit for "
-        f"bit: {same}, kernel {ms_k:.4f} ms, plain {ms_p:.2f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / ms_k:.1f}%; operations "
-        f"{o_ms:.4f}, bytes {y_ms:.4f}); snap_vjp tally {vt[0]:.4e} / "
-        f"{vt[1]:.4e}, {vt[2]:.4e} global atomics, max|err| / max|plain| "
-        f"{verr:.3e} (max|plain| {vscale:.3e}, bar {SNAP_VJP_BAR[dname]:g};"
-        f" {int((~fin).sum())} non-finite plain nodes), kernel "
-        f"{ms_vk:.4f} ms, plain {ms_vp:.2f} ms, bound {vb_ms:.4f} ms "
-        f"({vb_by}, {100 * vb_ms / ms_vk:.1f}%; operations {vo_ms:.4f}, "
-        f"bytes {vy_ms:.4f})")
-    check(all(bool(torch.isfinite(g).all()) for g in got)
-          and bool(torch.isfinite(d_k).all()),
-          f"{label}: snapshot kernels {dname}: non-finite output")
-    check(same, f"{label}: two snap_pass launches {dname} differ")
-    check(err <= SNAP_PASS_BAR[dname], f"{label}: snap_pass {dname} "
-          f"disagrees with its plain version: {err:.3e}")
-    check(verr <= SNAP_VJP_BAR[dname], f"{label}: snap_vjp {dname} "
-          f"disagrees with its plain version: {verr:.3e}")
-    check(kt == [census["pairs"], census["inside"], 0]
-          and vt[:2] == kt[:2] and 0 < vt[2] <= 2 * vt[1],
-          f"{label}: the kernels' tallies {kt}, {vt} are not the census "
-          f"{census}")
-    return dict(pass_=dict(max_abs_err=err * scale, ms=ms_k, plain_ms=ms_p,
-                           bound_ms=b_ms, bound_by=b_by, ops_ms=o_ms,
-                           bytes_ms=y_ms, pairs=kt[0], inside=kt[1]),
-                vjp=dict(max_abs_err=verr * vscale, ms=ms_vk,
-                         plain_ms=ms_vp, bound_ms=vb_ms, bound_by=vb_by,
-                         ops_ms=vo_ms, bytes_ms=vy_ms, atomics=vt[2]))
+    sizes = dict(real=int(real.sum()), slots=bk.ncell * P, ncell=bk.ncell,
+                 ids=int(torch.where(real > 0, bk.counts_h.clamp(max=bk.K),
+                                     0).long().sum()),
+                 H=rows.shape[0], hcols=bk.hrec.shape[1], n_hi=n_hi)
+    out, _ = check_bucket_kernels(
+        torch, label, spc, bk, rows, (),
+        lambda t: spc.snap_pass(*head, *tail, tally=t),
+        lambda c, t: (spc.snap_vjp(*head, c, *tail, tally=t),),
+        (SNAP_PASS_BAR, SNAP_VJP_BAR),
+        lambda kt, v: snap_kernel_bounds(
+            dict(sizes, pairs=kt[0], inside=kt[1]), dname, v),
+        f"H={rows.shape[0]}, ncell={bk.ncell}, K={bk.K}, P={P}, "
+        f"n_hi={n_hi}, rdelta={bool(rdelta)}; {sizes['real']} real slots "
+        f"of {sizes['slots']}, {sizes['ids']} candidate ids read of "
+        f"{dense.numel()}", seed)
+    return out
 
 
 def snap_path(T, torch, sc, device):
@@ -3882,9 +3867,8 @@ def plain_on_card(cmc, sc=None):
             rc, name, lambda args: (
                 CREATE_GRAPH_PLAIN if torch.is_grad_enabled() else calls
             ).append(name) if on_card(args) else None))
-        # the grid passes' step loop on a _GridBucket (the kernels' plain
-        # version; the anisotropic and snapshot buckets step through it on
-        # the card)
+        # the grid, anisotropic and snapshot passes' step loop (their
+        # kernels' plain version) on a bucket that runs its kernels there
         from baryonification_tpu_torch.runners import grid_cellmajor as tgcm
         for name in ("_bucket_pass", "_bucket_vjp"):
             stack.enter_context(spied(
@@ -4656,8 +4640,8 @@ def warm_value_and_grad(torch, label, loss_of, x0, device, reg_module,
     passes' forwards and backwards timed (``pass_module``'s
     ``_bucket_pass`` and ``_bucket_vjp``, the grid and snapshot passes'
     step loops, and the kernels: the buckets' ``kernel_pass``,
-    ``grid_vjp`` and ``snap_vjp``, synchronised: for the breakdown only).
-    Returns (cold, warm, peak GiB)."""
+    ``grid_vjp``, ``anis_vjp`` and ``snap_vjp``, synchronised: for the
+    breakdown only). Returns (cold, warm, peak GiB)."""
     regs = []
     with spied(reg_module, reg_name, regs.append):
         cold = value_and_grad(torch, loss_of, x0, device)
@@ -4668,14 +4652,17 @@ def warm_value_and_grad(torch, label, loss_of, x0, device, reg_module,
         peak = torch.cuda.max_memory_allocated() / 2**30
         regs_warm = len(regs)
     t_fwd, t_bwd = [], []
+    from baryonification_tpu_torch.ops import anis_pass_cuda as apc
     from baryonification_tpu_torch.ops import grid_pass_cuda as gp
     from baryonification_tpu_torch.ops import snap_pass_cuda as spc
     from baryonification_tpu_torch.runners import snapshot_cellmajor as tscm
     timers = [(pass_module, "_bucket_pass", t_fwd),
               (pass_module, "_bucket_vjp", t_bwd),
               (pass_module._GridBucket, "kernel_pass", t_fwd),
+              (pass_module._AnisBucket, "kernel_pass", t_fwd),
               (tscm._SnapBucket, "kernel_pass", t_fwd),
-              (gp, "grid_vjp", t_bwd), (spc, "snap_vjp", t_bwd)]
+              (gp, "grid_vjp", t_bwd), (apc, "anis_vjp", t_bwd),
+              (spc, "snap_vjp", t_bwd)]
     with contextlib.ExitStack() as stack:
         for module, name, times in timers:
             stack.enter_context(synced_time(torch, module, name, times))
@@ -5249,6 +5236,33 @@ ANIS_METHODS_BAR = (2e-2, 5e-3)
 ANIS_TEST_FLOPS = 2 * 3 + 1 + 1 + 1 + 3
 ANIS_PIXEL_FLOPS = 1 + 2 + 2 + 2
 ANIS_READ_FLOPS = 3 + 2 + 1 + 1
+# the adjoint's more: a slot inside the share g = ct paint, g (b - a) and
+# its sum, 1 - w and the two shares (6); a pixel the clamp's mask, 1 / dq
+# and 1 / v (3)
+ANIS_VJP_FLOPS = 6
+ANIS_VJP_PIXEL_FLOPS = 3
+# the anis_pass and anis_vjp kernels against the plain step loop on the
+# card, of max|plain| (the grid kernels' bars): the same arithmetic a
+# pixel-slot (the geometry bit for bit), summed in another order: a
+# pixel's slots (the pass and the canvas gradient), a node's shares from
+# many pixel-slots by atomic adds in no fixed order (the rows' gradient)
+ANIS_PASS_BAR = {"float64": 1e-12, "float32": 1e-5}
+ANIS_VJP_BAR = {"float64": 1e-10, "float32": 1e-4}
+ANIS_PASS_SOURCE = "baryonification_tpu_torch/csrc/anis_pass.cu"
+ANIS_PASS_REPLACES = "baryonification_tpu/runners/grid_cellmajor.py:722"
+
+
+def anis_flops(slots, inside, npix, vjp=False):
+    """Operations of one anisotropic pass (its adjoint where ``vjp``) over
+    ``npix`` pixels listing ``slots`` pixel-slots, ``inside`` of them
+    inside: ANIS_TEST_FLOPS a slot, ANIS_PIXEL_FLOPS a pixel,
+    ANIS_READ_FLOPS a slot inside (the adjoint ANIS_VJP_FLOPS and
+    ANIS_VJP_PIXEL_FLOPS more)."""
+    flops = (slots * ANIS_TEST_FLOPS + inside * ANIS_READ_FLOPS
+             + npix * ANIS_PIXEL_FLOPS)
+    if vjp:
+        flops += inside * ANIS_VJP_FLOPS + npix * ANIS_VJP_PIXEL_FLOPS
+    return flops
 
 
 def anis_catalog(T):
@@ -5263,16 +5277,23 @@ def anis_catalog(T):
 
 
 def anis_census(torch, runner, label):
-    """One more warm process() with the pass's census and the peak device
+    """One more warm process() with the pass's census (on the card the
+    kernel's tally: it synchronises once a bucket) and the peak device
     memory, one under torch.profiler; logs the counts, the operations
-    bound, the launches and the idle share. Returns (operations bound ms,
-    census totals)."""
-    census, peak, _, n_launch, dev_ms, idle = census_run(torch, runner)
+    bound, the launches and the idle share. Fails unless the census call
+    launched anis_pass once a bucket. Returns (operations bound ms, census
+    totals)."""
+    from baryonification_tpu_torch.ops import anis_pass_cuda as apc
+    census, peak, n_warm, n_launch, dev_ms, idle = census_run(
+        torch, runner, apc.LAUNCHES, "anis_pass")
+    log(f"anis: {label}: anis_pass launches a warm process() {n_warm} "
+        f"({len(census)} buckets)")
+    check(n_warm == len(census) > 0, f"{label}: a warm process() launched "
+          f"anis_pass {n_warm} times for {len(census)} buckets")
     N = runner.GriddedMap.Npix
     slots = sum(c["slots"] for c in census)
     inside = sum(c["inside"] for c in census)
-    flops = (slots * ANIS_TEST_FLOPS + inside * ANIS_READ_FLOPS
-             + len(census) * N * N * ANIS_PIXEL_FLOPS)
+    flops = anis_flops(slots, inside, len(census) * N * N)
     bound = flops / PEAK_FLOPS["float32"] * 1e3
     for c in census:
         log(f"anis: {label} census bucket {c['bucket']}: H={c['H']}, "
@@ -5284,8 +5305,57 @@ def anis_census(torch, runner, label):
         f"TFLOP/s); one warm process() puts {n_launch} device launches on "
         f"the card, {dev_ms if dev_ms is None else round(dev_ms, 3)} ms "
         f"busy; device idle {idle}; peak device memory {peak:.2f} GiB")
-    return bound, dict(slots=slots, inside=inside, launches=n_launch,
-                       busy_ms=dev_ms, idle=idle, peak_gib=peak)
+    return bound, dict(buckets=len(census), slots=slots, inside=inside,
+                       launches=n_launch, busy_ms=dev_ms, idle=idle,
+                       peak_gib=peak)
+
+
+def anis_kernel_bounds(c, dname, vjp):
+    """(operations ms, bytes ms) of one anisotropic kernel launch on a
+    bucket whose counts are ``c`` (pixel-slots listed and inside, and its
+    sizes): anis_flops; bytes: each input read once (the canvas, the
+    adjoint's cotangent plane; the candidate ids within their counts, the
+    counts; the per-halo half-window, window start, reach and live flag;
+    the rows), each output written once (the plane; the adjoint's canvas
+    gradient and rows)."""
+    t = 8 if dname == "float64" else 4
+    flops = anis_flops(c["slots"], c["inside"], c["npix"], vjp)
+    n_bytes = (c["npix"] * t * (3 if vjp else 2) + c["ids"] * 4
+               + c["ncell"] * 4 + c["H"] * (4 + 8 + t + 1)
+               + c["H"] * c["S"] * t * (1 + vjp))
+    return flops / PEAK_FLOPS[dname] * 1e3, n_bytes / PEAK_BYTES * 1e3
+
+
+def check_anis_bucket(torch, label, args, dt, seed=0):
+    """anis_pass and anis_vjp against the plain step loop on an
+    _AnisBucket (check_bucket_kernels, within ANIS_PASS_BAR /
+    ANIS_VJP_BAR; the adjoint's rows and canvas gradients each) at one
+    bucket of a run: ``args`` the runner's grid_anis_paint_pass_2d
+    arguments, its records, rows and canvas cast to ``dt``. Returns
+    check_bucket_kernels' results."""
+    from baryonification_tpu_torch.ops import anis_pass_cuda as apc
+    from baryonification_tpu_torch.runners import grid_cellmajor as tgcm
+    (B, n_hi, N, dense, counts, counts_host, pk, rows, live_h, q0, dq, eps,
+     res, canvas) = args
+    dname = str(dt).split(".")[1]
+    bk = tgcm._AnisBucket(B, n_hi, N, dense, counts, counts_host, pk.to(dt),
+                          live_h, q0, dq, eps, res)
+    rows = rows.detach().to(dt).contiguous()
+    canvas = canvas.detach().to(dt).contiguous()
+    head, tail = bk.kernel_args(rows, canvas), bk.kernel_scalars()
+    sizes = dict(npix=bk.ncell * bk.F, ncell=bk.ncell,
+                 ids=int(bk.counts.clamp(max=bk.K).sum()), H=rows.shape[0],
+                 S=rows.shape[1])
+    out, _ = check_bucket_kernels(
+        torch, label, apc, bk, rows, (canvas,),
+        lambda t: (apc.anis_pass(*head, *tail, tally=t),),
+        lambda c, t: apc.anis_vjp(*head, c[0], *tail, tally=t),
+        (ANIS_PASS_BAR, ANIS_VJP_BAR),
+        lambda kt, v: anis_kernel_bounds(
+            dict(sizes, slots=kt[0], inside=kt[1]), dname, v),
+        f"H={rows.shape[0]}, ncell={bk.ncell}, B={B}, K={bk.K}, "
+        f"n_hi={n_hi}; {sizes['ids']} candidate ids listed", seed)
+    return out
 
 
 def check_remap_device(T, torch, runner, label):
@@ -5331,7 +5401,7 @@ def anis_methods(T, torch, device, cat, gm, paint, canvas):
         maps[method] = r.process()
         t = time.perf_counter() - t0
         read_counts(f"anis {method} ({len(sub)} halos, float64)",
-                    SCATTER if method == "scatter" else ())
+                    SCATTER if method == "scatter" else ANIS)
         log(f"anis: {method} float64 on {len(sub)} halos: process() "
             f"{t:.2f} s ({t / len(sub) * 1e3:.2f} ms a halo)")
     host, cm = maps["scatter"], maps["cellmajor"]
@@ -5350,18 +5420,21 @@ def anis_methods(T, torch, device, cat, gm, paint, canvas):
     return dict(max=mx, rms=rms, only=only, painted=int(b_h.sum()))
 
 
-def anis_path(T, torch, device):
+def anis_path(T, torch, cmc, sc, device):
     """bench_runners.py's bench_anis at full width (anis-2048): the remap
     built on the card (host build and build_remap_device, held
     together), PaintProfilesAnisGrid cold and warm with stages under
-    ``auto`` (the cell-major pass: plain PyTorch ops, no kernel), the
-    census with its operations bound, launches, idle share and peak memory
-    of a warm call; a cold and a warm float32 value_and_grad of
-    sum(process_device(...)) in a canvas scale and in a remap scale (its
-    row reads through scatter_add_vjp, their backward the scatter kernel);
-    the float32 map against a float64 paint; the loop against the
-    cell-major method on the first ANIS_METHODS_HALOS halos in float64.
-    Returns a dict of the numbers."""
+    ``auto`` (the cell-major pass: the anis_pass kernel, one launch a
+    bucket, no plain version on the card), the census (the kernel's
+    tally) with its operations bound, launches, idle share and peak memory
+    of a warm call; anis_pass and anis_vjp against the step loop at the
+    run's largest bucket in both dtypes (check_anis_bucket); a cold and a
+    warm float32 value_and_grad of sum(process_device(...)) in a canvas
+    scale and in a remap scale (the anis_vjp kernel, one launch a bucket a
+    backward, no scatter_add_vjp); the float32 map against a float64
+    paint; the loop against the cell-major method on the first
+    ANIS_METHODS_HALOS halos in float64. Returns (a dict of the numbers,
+    {dtype name: check_anis_bucket's result})."""
     from baryonification_tpu_torch.runners import grid_cellmajor as tgcm
     cat, gm = anis_catalog(T)
     paint = tsz_model(T, torch, device, 32)
@@ -5373,13 +5446,27 @@ def anis_path(T, torch, device):
     check(runner.method == "cellmajor" and runner.dtype == torch.float32,
           f"anis: auto is {runner.method} in {runner.dtype}")
     label = "anis (auto = cellmajor)"
-    y, _, t_warm = run_process(torch, runner, label, (),
-                               CELLMAJOR + SCATTER, paint=True)
+    with plain_on_card(cmc, sc) as plain:
+        y, _, t_warm = run_process(torch, runner, label, ANIS,
+                                   CELLMAJOR + SCATTER, paint=True)
+    check(not plain, f"{label}: plain versions ran on the card: {plain}")
     out = dict(warm_s=t_warm, pass_s=sum(
         v for k, v in runner.stage_times if k.startswith("pass[")))
     out["remap_host_s"], out["remap_device_s"] = check_remap_device(
         T, torch, runner, label)
     out["bound_ms"], out["census"] = anis_census(torch, runner, label)
+    calls = []
+    with spied(tgcm, "grid_anis_paint_pass_2d", calls.append):
+        runner.process()
+    # the bucket that lists the most pixel-slots
+    args = max(calls, key=lambda a: int(a[4].sum()) * a[0] ** 2)
+    del calls
+    kernels = {}
+    for dt in (torch.float32, torch.float64):
+        kernels[str(dt).split(".")[1]] = check_anis_bucket(
+            torch, f"anis {label}", args, dt)
+        torch.cuda.empty_cache()
+    del args
     t0 = time.perf_counter()
     y64 = mk(precision="float64").process()
     rms, rel = map_diff(y, y64)
@@ -5394,24 +5481,34 @@ def anis_path(T, torch, device):
     remap0 = runner.build_remap_device()
     nq = remap0.shape[1] - 2
     losses = {
-        "canvas": (lambda s: runner.process_device(canvas=c0 * s)
-                   .double().sum(), ()),
-        "remap": (lambda s: runner.process_device(remap=torch.cat(
-            [remap0[:, :nq] * s, remap0[:, nq:]], dim=1)).double().sum(),
-            ("scatter_add", "scatter_add_vjp"))}
-    for name, (loss, expected) in losses.items():
+        "canvas": lambda s: runner.process_device(canvas=c0 * s)
+        .double().sum(),
+        "remap": lambda s: runner.process_device(remap=torch.cat(
+            [remap0[:, :nq] * s, remap0[:, nq:]], dim=1)).double().sum()}
+    for name, loss in losses.items():
         reset_counts()
-        cold, warm, peak = warm_value_and_grad(
-            torch, f"anis value_and_grad in a {name} scale", loss, 1.0,
-            device, tgcm, "register_halos_grid_2d", tgcm)
-        read_counts(f"anis (value_and_grad in a {name} scale, float32)",
-                    expected)
+        with plain_on_card(cmc, sc) as plain:
+            cold, warm, peak = warm_value_and_grad(
+                torch, f"anis value_and_grad in a {name} scale", loss, 1.0,
+                device, tgcm, "register_halos_grid_2d", tgcm)
+        n = read_counts(f"anis (value_and_grad in a {name} scale, float32)",
+                        ("anis_pass", "anis_vjp"))
+        check(not plain, f"anis value_and_grad in a {name} scale: plain "
+              f"versions ran on the card: {plain}")
+        # three value_and_grads (cold, warm, synced): one anis_pass and one
+        # anis_vjp launch a bucket each
+        nb = 3 * out["census"]["buckets"]
+        check(n["anis_pass"] == n["anis_vjp"] == nb
+              and n["scatter_add_vjp"] == 0, f"anis value_and_grad in a "
+              f"{name} scale: {n['anis_pass']} anis_pass, {n['anis_vjp']} "
+              f"anis_vjp and {n['scatter_add_vjp']} scatter_add_vjp "
+              f"launches ({nb // 3} buckets)")
         out[f"grad_{name}"] = dict(forward_s=warm[2], backward_s=warm[3],
                                    peak_gib=peak)
     del runner
     torch.cuda.empty_cache()
     out["methods"] = anis_methods(T, torch, device, cat, gm, paint, canvas)
-    return out
+    return out, kernels
 
 
 def ex17_chain(T, torch, device, precision="float64"):
@@ -5511,11 +5608,13 @@ def example17(T, torch, device):
 
 
 def ex17_path(T, torch, device):
-    """Example 17 on the card; the scatter kernel and its backward must
-    have been launched (the CIC of BaryonifyGrid)."""
+    """Example 17 on the card; the scatter kernel and its backward (the
+    CIC of BaryonifyGrid) and the anisotropic paint's kernels must have
+    been launched."""
     reset_counts()
     per_step = example17(T, torch, device)
-    read_counts("ex17 (example 17)", ("scatter_add", "scatter_add_vjp"))
+    read_counts("ex17 (example 17)", ("scatter_add", "scatter_add_vjp",
+                                      "anis_pass", "anis_vjp"))
     return per_step
 
 
@@ -6253,7 +6352,7 @@ def mesh_rank_runs(T, torch, cmc, sc, mesh, device, rank, world, work,
         cat, gm, epsilon_max=GRID_PAINT_EPS, Painting_model=models["tsz32"],
         Canvas_model=models["dm"], verbose=False, device=device, mesh=mesh_,
         method="cellmajor")
-    y, cold = timed_run("anis-2048", mk(mesh), ())
+    y, cold = timed_run("anis-2048", mk(mesh), ANIS)
     check(y.sum() > 0 and y.min() >= 0, "mesh anis: empty or negative")
     out["digests"]["anis"] = digest(y)
     out["anis"] = dict(cold_s=cold, rms_vs_single=against_single(
@@ -6278,6 +6377,7 @@ def mesh_rank_main(rank, world, init_file, root, work, n_halo, nside,
     from torch.distributed.device_mesh import init_device_mesh
 
     import baryonification_tpu_torch as T
+    from baryonification_tpu_torch.ops import anis_pass_cuda as apc
     from baryonification_tpu_torch.ops import cellmajor_cuda as cmc
     from baryonification_tpu_torch.ops import grid_pass_cuda as gp
     from baryonification_tpu_torch.ops import regrid_cuda as rc
@@ -6285,7 +6385,7 @@ def mesh_rank_main(rank, world, init_file, root, work, n_halo, nside,
     from baryonification_tpu_torch.ops import snap_pass_cuda as spc
 
     COUNTERS.extend([sc.LAUNCHES, cmc.LAUNCHES, gp.LAUNCHES, rc.LAUNCHES,
-                     spc.LAUNCHES])
+                     spc.LAUNCHES, apc.LAUNCHES])
     SCATTER.append("scatter_add")
     CELLMAJOR.append("cellmajor_pass")
     device = torch.device(device_type, 0)
@@ -6411,7 +6511,10 @@ def ptxas_summary(build_log):
             rg = re.search(r"\d(regrid\w*_kernel)I([fd])E", m.group(1))
             sn = re.search(r"\dsnap_kernelI([fd])Lb([01])ELb([01])E",
                            m.group(1))
+            an = re.search(r"\danis_kernelI([fd])Lb([01])E", m.group(1))
             entry = (f"{rg.group(1)}<{rg.group(2)}>" if rg else
+                     f"anis_{('pass', 'vjp')[int(an.group(2))]}<"
+                     f"{an.group(1)}>" if an else
                      f"snap_{('pass', 'vjp')[int(sn.group(3))]}<"
                      f"{sn.group(1)},rdelta={sn.group(2)}>" if sn else
                      f"grid_{('pass', 'vjp')[int(g.group(4))]}<{g.group(1)},"
@@ -6433,7 +6536,7 @@ def ptxas_summary(build_log):
     return out
 
 
-def build_all(torch, sc, lc, cmc, gp, rc, spc):
+def build_all(torch, sc, lc, cmc, gp, rc, spc, apc):
     """Compile every kernel source at once (one nvcc each, in parallel),
     then bind each kernel in both dtypes. The kernels of the paths (the
     scatter, the cell-major pass, the Legendre kernels at 8 rings per
@@ -6466,6 +6569,8 @@ def build_all(torch, sc, lc, cmc, gp, rc, spc):
             rc._kernel(dt, entry)
         for entry in spc.LAUNCHES:
             spc._kernel(dt, entry)
+        for entry in apc.LAUNCHES:
+            apc._kernel(dt, entry)
     log("build: " + ", ".join(f"{n}.cu {t:.2f} s" for n, t in times)
         + f"; all built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, text in getattr(cb, "BUILD_LOG", {}).items():
@@ -6475,7 +6580,7 @@ def build_all(torch, sc, lc, cmc, gp, rc, spc):
                                     for e, r, sp, sm in rows))
         for e, r, sp, _ in rows:
             if e.startswith(("scatter_add", "cellmajor", "adjoint", "grid_",
-                             "regrid", "snap_")) \
+                             "regrid", "snap_", "anis_")) \
                     or e.endswith(("<f,8>", "<d,8>")):
                 check(sp == 0, f"{e} spills {sp} bytes of registers")
 
@@ -6506,6 +6611,7 @@ def main(argv=None):
         return 2
     sys.path.insert(0, str(args.root.resolve()))
     import baryonification_tpu_torch as T
+    from baryonification_tpu_torch.ops import anis_pass_cuda as apc
     from baryonification_tpu_torch.ops import cellmajor_cuda as cmc
     from baryonification_tpu_torch.ops import grid_pass_cuda as gp
     from baryonification_tpu_torch.ops import legendre_cuda as lc
@@ -6516,7 +6622,7 @@ def main(argv=None):
     check("jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                         if v is not None}, "JAX was imported")
     COUNTERS.extend([sc.LAUNCHES, lc.LAUNCHES, cmc.LAUNCHES, gp.LAUNCHES,
-                     rc.LAUNCHES, spc.LAUNCHES])
+                     rc.LAUNCHES, spc.LAUNCHES, apc.LAUNCHES])
     SCATTER.append("scatter_add")
     CELLMAJOR.append("cellmajor_pass")
 
@@ -6529,7 +6635,7 @@ def main(argv=None):
         f"{torch.cuda.device_count()}), torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; nvidia-smi: {smi_line}")
 
-    build_all(torch, sc, lc, cmc, gp, rc, spc)
+    build_all(torch, sc, lc, cmc, gp, rc, spc, apc)
     records = {}
     phase_s, mark = {}, [None, time.perf_counter()]
 
@@ -6603,9 +6709,15 @@ def main(argv=None):
     if run("ex15"):
         ex15_path(T, torch, device)
     if run("anis"):
-        anis = anis_path(T, torch, device)
+        anis, anis_checks = anis_path(T, torch, cmc, sc, device)
         anis["ex17_step_s"] = ex17_path(T, torch, device)
         log("anis: " + json.dumps(anis, default=str))
+        # the timed runs' largest bucket: anis-2048 (auto = cellmajor),
+        # float32
+        for name, part in (("anis_pass", "pass_"), ("anis_vjp", "vjp")):
+            records[name] = kernel_record(
+                name, ANIS_PASS_SOURCE, ANIS_PASS_REPLACES,
+                anis_checks["float32"][part])
     if run("pk"):
         pk_path(T, torch, device)
     if run("cl"):
@@ -6636,6 +6748,7 @@ def main(argv=None):
     kernel_of.update({k: k for k in gp.LAUNCHES})
     kernel_of.update({k: k for k in rc.LAUNCHES})
     kernel_of.update({k: k for k in spc.LAUNCHES})
+    kernel_of.update({k: k for k in apc.LAUNCHES})
     for path, counts in PATH_LAUNCHES.items():
         for k, n in counts.items():
             if n:

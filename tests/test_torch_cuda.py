@@ -48,7 +48,13 @@ sky, the map within its bar in any input order and on a pile-up). The
 snapshot cases (tests/_torch_snap_cases.py) hold the ``snap_pass`` and
 ``snap_vjp`` kernels against the plain step loop on the card, with
 their tallies equal to its census, ``gradcheck`` of the pass, and one
-launch a bucket's forward and one its backward.
+launch a bucket's forward and one its backward. The anisotropic paint
+cases (tests/_torch_anis_cases.py) hold the ``anis_pass`` and
+``anis_vjp`` kernels against the plain step loop on the card in the
+plane, the rows' and the canvas gradient, with their tallies equal to
+its census, ``gradcheck`` of the pass in its rows and its canvas, one
+launch a bucket's forward and one its backward, and one ``anis_pass``
+launch a bucket in ``PaintProfilesAnisGrid.process``.
 """
 
 import numpy as np
@@ -2214,3 +2220,160 @@ def test_snap_kernel_launches(cuda_device):
     ok = torch.isfinite(rows).all(dim=1)
     scale = float(d1[ok].abs().max())
     assert float((d1[ok] - d2[ok]).abs().max()) <= 1e-12 * scale
+
+
+# ----- the anisotropic paint pass: csrc/anis_pass.cu -----
+
+from _torch_anis_cases import CASES as ANIS_CASES  # noqa: E402
+from _torch_anis_cases import anis_case, overflow_buckets  # noqa: E402
+from _torch_anis_cases import port_bucket as anis_bucket  # noqa: E402
+from baryonification_tpu_torch.ops import anis_pass_cuda as apc  # noqa: E402
+
+# bars of the kernels against the step loop on the card, of max|plain|
+# (the grid kernels'): the same arithmetic a pixel-slot (the geometry bit
+# for bit), summed in another order: a pixel's slots (the pass and the
+# canvas gradient), a node's shares from many pixel-slots by atomic adds
+# in no fixed order (the rows' gradient)
+ANIS_KERNEL_BAR = {torch.float64: {"pass": 1e-12, "vjp": 1e-12},
+                   torch.float32: {"pass": 1e-5, "vjp": 1e-4}}
+
+
+def _anis_ct(bk, rows, seed=1):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(bk.ncell * bk.F, generator=gen,
+                       dtype=torch.float64).to(rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", list(ANIS_CASES) + ["b8+overflow"])
+def test_anis_kernels_match_step_loop(name, dtype, cuda_device):
+    """anis_pass and anis_vjp against the plain step loop (_bucket_pass,
+    _bucket_vjp on an _AnisBucket) on the shared cases, within
+    ANIS_KERNEL_BAR of max|plain| (the plane, the rows' gradient and the
+    canvas gradient each); the kernels' tallies equal to the loop's
+    census; two launches of the pass bit for bit; the rows' range nodes
+    take no gradient; ``needs`` leaves out what it is asked to. A
+    "+overflow" case has one halo's ln Paint at 1000: where its exp
+    overflows, the kernels, as the loop, paint nothing and give no
+    gradient (all finite)."""
+    base, _, over = name.partition("+")
+    if over:
+        bk, _, rows, cv = overflow_buckets(anis_case(base), cuda_device,
+                                           dtype)
+    else:
+        bk, rows, cv = anis_bucket(anis_case(name), cuda_device, dtype)
+    bars = ANIS_KERNEL_BAR[dtype]
+    head, tail = bk.kernel_args(rows, cv), bk.kernel_scalars()
+    tally = torch.zeros(len(apc.TALLY), dtype=torch.int64,
+                        device=cuda_device)
+    got = apc.anis_pass(*head, *tail, tally=tally)
+    (again,) = bk.kernel_pass(rows, extra=(cv,))
+    census = dict(slots=0, inside=0, steps=0)
+    (want,) = tgcm._bucket_pass(bk, rows, tgcm._zero_planes(bk, rows),
+                                census, (cv,))
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    assert scale > 0 and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= bars["pass"] * scale
+    assert torch.equal(got, again)
+    assert tally.tolist() == [census["slots"], census["inside"], 0]
+    assert 0 < census["inside"] < census["slots"]
+
+    ct = _anis_ct(bk, rows)
+    vtally = torch.zeros(len(apc.TALLY), dtype=torch.int64,
+                         device=cuda_device)
+    d_k = apc.anis_vjp(*head, ct, *tail, tally=vtally)
+    with torch.no_grad():
+        d_p = tgcm._bucket_vjp(bk, rows, (ct,), (cv,))
+    for k, p in zip(d_k, d_p):
+        scale = float(p.abs().max())
+        assert scale > 0 and bool(torch.isfinite(k).all())
+        assert float((k - p).abs().max()) <= bars["vjp"] * scale
+    assert float(d_k[0][:, -2:].abs().max()) == 0.0
+    vt = vtally.tolist()
+    assert vt[:2] == tally.tolist()[:2] and 0 < vt[2] <= 2 * vt[1]
+    d_r, d_c = apc.anis_vjp(*head, ct, *tail, needs=(True, False))
+    assert d_c is None and float((d_r - d_k[0]).abs().max()) <= \
+        bars["vjp"] * float(d_k[0].abs().max())
+    d_r, d_c = apc.anis_vjp(*head, ct, *tail, needs=(False, True))
+    assert d_r is None and torch.equal(d_c, d_k[1])
+
+
+@pytest.mark.cuda
+def test_anis_pass_gradcheck(cuda_device):
+    """torch.autograd.gradcheck of the pass in its rows and its canvas on
+    the card in float64 on the smallest case (the anis_pass forward, the
+    anis_vjp backward; the atomic adds' order allowed 1e-12 between two
+    backwards)."""
+    bk, rows, cv = anis_bucket(anis_case("b4_mesh"), cuda_device,
+                               torch.float64)
+    before = dict(apc.LAUNCHES)
+    assert torch.autograd.gradcheck(
+        lambda r, v: tgcm._pass_diff(bk, r, None, (v,)),
+        (rows.requires_grad_(True), cv.requires_grad_(True)),
+        nondet_tol=1e-12)
+    assert apc.LAUNCHES["anis_pass"] > before["anis_pass"]
+    assert apc.LAUNCHES["anis_vjp"] > before["anis_vjp"]
+
+
+@pytest.mark.cuda
+def test_anis_kernel_launches(cuda_device):
+    """One anis_pass launch a bucket's forward and one anis_vjp launch its
+    first-order backward, with no scatter_add_vjp launch for the row
+    reads; under create_graph the backward is the step loop with a
+    warning (its row reads through scatter_add_vjp, no anis_vjp launch)
+    and its gradients the first-order ones."""
+    bk, rows, cv = anis_bucket(anis_case("b4_mesh"), cuda_device,
+                               torch.float64)
+    counts = lambda: dict(apc.LAUNCHES, vjp=sc.LAUNCHES["scatter_add_vjp"])
+    n0 = counts()
+    with torch.no_grad():
+        tgcm._pass_diff(bk, rows, None, (cv,))
+    assert counts() == dict(n0, anis_pass=n0["anis_pass"] + 1)
+    r = rows.clone().requires_grad_(True)
+    v = cv.clone().requires_grad_(True)
+    ct = _anis_ct(bk, rows)
+    d1 = torch.autograd.grad(tgcm._pass_diff(bk, r, None, (v,)), (r, v), ct)
+    assert counts() == dict(n0, anis_pass=n0["anis_pass"] + 2,
+                            anis_vjp=n0["anis_vjp"] + 1)
+    out = tgcm._pass_diff(bk, r, None, (v,))
+    with pytest.warns(UserWarning, match="anisotropic paint pass's "
+                      "backward"):
+        d2 = torch.autograd.grad(out, (r, v), ct, create_graph=True)
+    now = counts()
+    assert now["anis_pass"] == n0["anis_pass"] + 3
+    assert now["anis_vjp"] == n0["anis_vjp"] + 1 and now["vjp"] > n0["vjp"]
+    for a, b in zip(d1, d2):
+        scale = float(a.abs().max())
+        assert float((a - b.detach()).abs().max()) <= 1e-12 * scale
+
+
+@pytest.mark.cuda
+def test_anis_runner_launches_anis_pass(cuda_device):
+    """A warm process() of PaintProfilesAnisGrid (cell-major, float64)
+    launches anis_pass once a bucket and never the step loop, and the
+    census that the kernel's tally fills counts the pixel-slots the
+    loop's census counts on the CPU."""
+    import baryonification_tpu_torch as T
+    cat, gm, (paint, canvas) = _anis_inputs(T)
+    kw = dict(epsilon_max=3, Painting_model=paint, Canvas_model=canvas,
+              verbose=False, method="cellmajor")
+    card = T.PaintProfilesAnisGrid(cat, gm, device=cuda_device,
+                                   precision="float64", **kw)
+    cpu = T.PaintProfilesAnisGrid(cat, gm, device="cpu", **kw)
+    card.process()
+    card.census, cpu.census = [], []
+    n0 = apc.LAUNCHES["anis_pass"]
+    loop = tgcm._bucket_pass
+    try:
+        tgcm._bucket_pass = None          # the step loop must not run
+        card.process()
+    finally:
+        tgcm._bucket_pass = loop
+    assert apc.LAUNCHES["anis_pass"] - n0 == len(card.census) > 0
+    cpu.process()
+    assert len(cpu.census) == len(card.census)
+    for a, b in zip(card.census, cpu.census):
+        assert (a["slots"], a["inside"]) == (b["slots"], b["inside"]) and \
+            0 < a["inside"] < a["slots"]
